@@ -1,0 +1,150 @@
+"""Build and load the package's CUDA kernels (svinet_torch/csrc/*.cu).
+
+The sources have a plain C interface and are compiled by nvcc into one
+shared library, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/svinet_torch/libsvinet_torch_<hash>.so
+
+The library is built on first use into build/svinet_torch/ at the root
+of the checkout and rebuilt whenever a hash of the sources and flags
+changes. No --use_fast_math: it would change the precision of logf and of
+division, which the digamma series depends on.
+
+Every C entry point returns cudaGetLastError() after its launch; `call`
+raises when that is not cudaSuccess. Pointers and the stream are passed
+as c_void_p (ctypes would otherwise cut them to 32-bit ints).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "svinet_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+# entry point -> argument types (pointers, sizes, then the stream)
+SIGNATURES = {
+    "svt_dirichlet_expectation": (_P, _P, _I64, _I32, _P),
+    "svt_phi_pass": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+}
+
+_lock = threading.Lock()
+
+
+def sources() -> list:
+    """The translation units; headers (*.cuh) are only hashed."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [shutil.which("nvcc")]
+    cands += [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += ["/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+class Library:
+    """The loaded kernel library and what its build printed."""
+
+    def __init__(self, path: Path, build_seconds: float, log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+        self._dll = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._dll, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        self._dll.svt_error_string.argtypes = [ctypes.c_int]
+        self._dll.svt_error_string.restype = ctypes.c_char_p
+
+    def call(self, name: str, *args) -> None:
+        """Launch entry point `name`; raise if the launch was refused."""
+        rc = getattr(self._dll, name)(*args)
+        if rc != 0:
+            msg = self._dll.svt_error_string(rc).decode()
+            raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+@functools.cache
+def library() -> Library:
+    """Build (when the sources changed) and load the kernel library."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = BUILD_DIR / f"libsvinet_torch_{source_hash()}.so"
+        if path.exists():
+            return Library(path, 0.0, "")
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+        return Library(path, time.perf_counter() - t0,
+                       proc.stdout + proc.stderr)
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
+               shape: tuple, device: torch.device) -> None:
+    """Refuse what the kernels do not take: they read dense row-major
+    buffers of one dtype on the launching device."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch entry point `name` on `device`, on PyTorch's current stream
+    there (passed last). The device guard makes `device` current for the
+    launch and restores PyTorch's current device after it."""
+    with torch.cuda.device(device):
+        library().call(name, *args,
+                       torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    """Wrappers take the plain path only for CPU tensors; anything that is
+    neither CPU nor CUDA is refused."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {t.device}; the kernel runs "
+                         f"on cuda and the plain version on cpu")

@@ -1,0 +1,272 @@
+"""svinet_torch sweep pieces, heldout sums and community assignment
+against the JAX package, on the same numpy inputs.
+
+Tolerance: 1e-4 abs/rel, the bound the JAX package uses for its own
+sharded-vs-single checks (__graft_entry__.dryrun_multichip): the two
+packages sum in different orders in f32. On the CPU the port's phi_pass
+is its plain blocked version (kernel 2 runs only on the card)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from __graft_entry__ import _tiny_problem
+from svinet_tpu.config import Config
+from svinet_tpu.graph import Network
+from svinet_tpu.evals import likelihood as jlik
+from svinet_tpu.svi import sweep_math as jsm
+from svinet_tpu.svi.communities import edge_assignments as jax_assign
+from svinet_tpu.svi.linksampling import (
+    linksampling_multi_sweep, linksampling_multi_sweep_ho, linksampling_sweep)
+from svinet_torch.convert import load_state, state_from_numpy, state_to_numpy
+from svinet_torch.evals import likelihood as tlik
+from svinet_torch.ops.edges import choose_edge_block, pad_edges
+from svinet_torch.ops.expectations import dirichlet_expectation
+from svinet_torch.svi import sweep_math as tsm
+from svinet_torch.svi.communities import edge_assignments
+from svinet_torch.svi.linksampling import (
+    init_gamma_from_links, init_gamma_from_links_device, multi_sweep_ho,
+    sweep)
+from svinet_torch.synth import planted_blocks
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _planted(n=300, k=4, seed=3):
+    """A planted 4-block graph through the real ingest path."""
+    raw, _ = planted_blocks(n, k, 12, seed)
+    cfg = Config(n=n, k=k, link_sampling=True)
+    cfg.resolve()
+    net = Network(cfg)
+    net.from_arrays(raw[:, 0], raw[:, 1])
+    rng = np.random.default_rng(seed)
+    gamma = rng.uniform(0.5, 3.0, size=(n, k)).astype(np.float32)
+    deg = net.deg.astype(np.float32)
+    return gamma, net.edges, deg
+
+
+def _tiny():
+    gamma, _, edges, deg = _tiny_problem(n=32, k=4, n_edges=64, seed=0)
+    return np.asarray(gamma), edges, deg
+
+
+@pytest.fixture(params=["tiny", "planted"])
+def problem(request):
+    gamma, edges, deg = _tiny() if request.param == "tiny" else _planted()
+    n, k = gamma.shape
+    rng = np.random.default_rng(7)
+    lam = rng.uniform(0.5, 5.0, size=(k, 2)).astype(np.float32)
+    # a block size that leaves a ragged, masked tail
+    block = 32 if request.param == "tiny" else 256
+    edges_p, mask = pad_edges(edges[:-3], block)
+    return dict(gamma=gamma, lam=lam, edges=edges_p, mask=mask, deg=deg,
+                nb=edges_p.shape[0] // block, n=n, k=k,
+                ones=float(len(edges)))
+
+
+def _consts(pb):
+    k = pb["k"]
+    jc = jsm.LSConsts(alpha=jnp.float32(1.0 / k),
+                      eta=jnp.asarray([1.0, 1.0], jnp.float32),
+                      ones=jnp.float32(pb["ones"]),
+                      n_nodes=jnp.float32(pb["n"]))
+    tc = tsm.LSConsts.make(1.0 / k, 1.0, 1.0, pb["ones"], pb["n"])
+    return jc, tc
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def _elog(pb):
+    elogpi = np.asarray(jax_dexp_np(pb["gamma"]))
+    elb0 = np.asarray(jax_dexp_np(pb["lam"]))[:, 0]
+    return elogpi, elb0
+
+
+def jax_dexp_np(x):
+    from svinet_tpu.ops.expectations import dirichlet_expectation as d
+    return np.asarray(d(jnp.asarray(x)))
+
+
+def test_phi_pass(problem):
+    pb = problem
+    elogpi, elb0 = _elog(pb)
+    jg, js = jsm.phi_pass(jnp.asarray(elogpi), jnp.asarray(elb0),
+                          jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
+                          pb["nb"])
+    tg, ts = tsm.phi_pass(_t(elogpi), _t(elb0), _t(pb["edges"]),
+                          _t(pb["mask"]), pb["nb"])
+    _close(tg, jg)
+    _close(ts, js)
+    # sumk = 2 sum(phi) = gacc.sum(0): the identity kernel 2 relies on
+    _close(ts, tg.sum(0))
+
+
+@pytest.mark.parametrize("annealing", [False, True])
+def test_mean_indicator_update_and_lambda(problem, annealing):
+    pb = problem
+    jc, tc = _consts(pb)
+    elogpi, elb0 = _elog(pb)
+    jg, js = jsm.phi_pass(jnp.asarray(elogpi), jnp.asarray(elb0),
+                          jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
+                          pb["nb"])
+    jout = jsm.mean_indicator_update(jg, js, jnp.asarray(pb["deg"]), jc,
+                                     jnp.float32(1.0 if annealing else 0.0))
+    tout = tsm.mean_indicator_update(_t(np.asarray(jg)), _t(np.asarray(js)),
+                                     _t(pb["deg"]), tc, annealing)
+    for got, want in zip(tout, jout):
+        _close(got, want)
+    js3 = jsm.s3_pass(jout[1], jnp.asarray(pb["edges"]),
+                      jnp.asarray(pb["mask"]), pb["nb"])
+    ts3 = tsm.s3_pass(_t(np.asarray(jout[1])), _t(pb["edges"]),
+                      _t(pb["mask"]), pb["nb"])
+    _close(ts3, js3)
+    _, _, s1, s2, lam0 = (np.asarray(a) for a in jout)
+    _close(tsm.finish_lambda(_t(s1), _t(s2), ts3, _t(lam0), tc),
+           jsm.finish_lambda(s1, s2, js3, lam0, jc))
+
+
+def test_full_sweep(problem):
+    pb = problem
+    jc, tc = _consts(pb)
+    jgam, jlam = linksampling_sweep(
+        jnp.asarray(pb["gamma"]), jnp.asarray(pb["lam"]),
+        jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
+        jnp.asarray(pb["deg"]), jc, jnp.float32(1.0), pb["nb"])
+    tgam, tlam = sweep(_t(pb["gamma"]), _t(pb["lam"]), _t(pb["edges"]),
+                       _t(pb["mask"]), _t(pb["deg"]), tc, True, pb["nb"])
+    _close(tgam, jgam)
+    _close(tlam, jlam)
+
+
+def _ho_pairs(pb, m=40, blk=64):
+    rng = np.random.default_rng(11)
+    p = rng.integers(0, pb["n"] - 1, size=m)
+    q = rng.integers(p + 1, pb["n"])
+    pp = np.zeros((blk, 2), np.int32)
+    pp[:m] = np.stack([p, q], 1)
+    yy = np.zeros(blk, np.int32)
+    yy[:m] = rng.integers(0, 2, size=m)
+    ww = np.zeros(blk, np.float32)
+    ww[:m] = 1.0
+    return pp, yy, ww
+
+
+def test_multi_sweep_with_heldout_tail(problem):
+    pb = problem
+    jc, tc = _consts(pb)
+    pp, yy, ww = _ho_pairs(pb)
+    jout = linksampling_multi_sweep_ho(
+        jnp.asarray(pb["gamma"]), jnp.asarray(pb["lam"]),
+        jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
+        jnp.asarray(pb["deg"]), jc, jnp.float32(1.0), jnp.asarray(pp),
+        jnp.asarray(yy), jnp.asarray(ww), jnp.float32(1e-30), pb["nb"], 3, 1)
+    tout = multi_sweep_ho(
+        _t(pb["gamma"]), _t(pb["lam"]), _t(pb["edges"]), _t(pb["mask"]),
+        _t(pb["deg"]), tc, True, _t(pp), _t(yy), _t(ww), 1e-30, pb["nb"],
+        3, 1)
+    for got, want in zip(tout, jout):
+        _close(got, want)
+
+
+def test_heldout_stats_and_link_probs(problem):
+    pb = problem
+    pp, yy, _ = _ho_pairs(pb)
+    pp, yy = pp[:40], yy[:40]
+    jres = jlik.heldout_stats(jnp.asarray(pb["gamma"]),
+                              jnp.asarray(pb["lam"]), jnp.asarray(pp),
+                              jnp.asarray(yy), 1e-30, block=16)
+    tres = tlik.heldout_stats(_t(pb["gamma"]), _t(pb["lam"]), _t(pp),
+                              _t(yy), 1e-30, block=16)
+    np.testing.assert_allclose(np.array(tres, np.float64),
+                               np.array(jres, np.float64), **TOL)
+    _close(tlik.link_probs(_t(pb["gamma"]), _t(pb["lam"]), _t(pp), block=16),
+           jlik.link_probs(jnp.asarray(pb["gamma"]), jnp.asarray(pb["lam"]),
+                           jnp.asarray(pp)))
+
+
+def test_edge_assignments(problem):
+    pb = problem
+    ja, jm = jax_assign(jnp.asarray(pb["gamma"]), jnp.asarray(pb["lam"]),
+                        jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]))
+    ta, tm = edge_assignments(_t(pb["gamma"]), _t(pb["lam"]),
+                              _t(pb["edges"]), _t(pb["mask"]))
+    _close(tm, jm)
+    # argmax may differ only where the top two phis tie within f32
+    differ = ta.numpy() != np.asarray(ja)
+    phi = torch.softmax(
+        dirichlet_expectation(_t(pb["gamma"]))[_t(pb["edges"][:, 0]).long()]
+        + dirichlet_expectation(_t(pb["gamma"]))[_t(pb["edges"][:, 1]).long()]
+        + dirichlet_expectation(_t(pb["lam"]))[:, 0], -1).numpy()
+    top2 = np.sort(phi, axis=1)[:, -2:]
+    assert (top2[differ, 1] - top2[differ, 0] < 1e-5).all()
+
+
+def test_state_round_trip_continues_jax_run(problem, tmp_path):
+    """A JAX state after 3 sweeps, carried over, takes one port sweep and
+    lands on JAX's 4th sweep; the text-file path gives the same state."""
+    pb = problem
+    jc, tc = _consts(pb)
+    args = (jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
+            jnp.asarray(pb["deg"]), jc, jnp.float32(1.0), pb["nb"])
+    g3, l3 = linksampling_multi_sweep(jnp.asarray(pb["gamma"]),
+                                      jnp.asarray(pb["lam"]), *args, 3)
+    g3, l3 = np.asarray(g3), np.asarray(l3)
+    g4, l4 = linksampling_multi_sweep(jnp.asarray(g3), jnp.asarray(l3),
+                                      *args, 1)
+    tg, tl = state_from_numpy(g3, l3, "cpu")
+    back = state_to_numpy(tg, tl)
+    np.testing.assert_array_equal(back[0], g3)
+    np.testing.assert_array_equal(back[1], l3)
+    tg, tl = sweep(tg, tl, _t(pb["edges"]), _t(pb["mask"]), _t(pb["deg"]),
+                   tc, True, pb["nb"])
+    _close(tg, g4)
+    _close(tl, l4)
+
+    from svinet_tpu.io.writers import save_model
+    save_model(str(tmp_path), g3, l3, np.arange(pb["n"]) + 100)
+    fg, fl = load_state(str(tmp_path), "cpu")
+    # the text files keep 5 decimals (half a unit of the last one), and
+    # reading back rounds each value to f32 (relative 2^-24)
+    np.testing.assert_allclose(fg.numpy(), g3, atol=5e-6, rtol=1.2e-7)
+    np.testing.assert_allclose(fl.numpy(), l3, atol=5e-6, rtol=1.2e-7)
+
+
+def test_init_gamma_device_matches_host_stats():
+    """The blocked device init must give the host init's row statistics:
+    each gamma row sums to the node's degree (each link adds a normalised
+    phi to both endpoints), rows without a link hold alpha, and the
+    masked pad rows of the ragged last block (which point at node 0) add
+    nothing."""
+    _, edges, deg = _planted()
+    n, k, alpha, block = len(deg) + 5, 4, 0.25, 256
+    e, m = pad_edges(edges, block)
+    assert len(e) > len(edges) and len(e) // block > 1
+    gen = torch.Generator().manual_seed(0)
+    g_dev = init_gamma_from_links_device(gen, _t(e), _t(m), n, k, alpha,
+                                         len(e) // block).numpy()
+    g_host = init_gamma_from_links(np.random.default_rng(0), edges, n, k,
+                                   alpha)
+    np.testing.assert_allclose(g_dev[:-5].sum(1), deg, rtol=1e-4)
+    np.testing.assert_allclose(g_host[:-5].sum(1), deg, rtol=1e-6)
+    np.testing.assert_array_equal(g_dev[-5:], np.float32(alpha))
+    np.testing.assert_array_equal(g_host[-5:], alpha)
+
+
+def test_blocked_passes_match_one_block(problem):
+    """The plain passes give the same result whatever the blocking."""
+    pb = problem
+    elogpi, elb0 = _elog(pb)
+    e, m = _t(pb["edges"]), _t(pb["mask"])
+    a = tsm.phi_pass_plain(_t(elogpi), _t(elb0), e, m, pb["nb"])
+    b = tsm.phi_pass_plain(_t(elogpi), _t(elb0), e, m, 1)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), **TOL)
+    assert choose_edge_block(len(pb["edges"]), pb["k"]) >= 64
