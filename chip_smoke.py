@@ -5,14 +5,17 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds the CUDA kernels from svinet_torch/csrc, checks each kernel
-against its plain PyTorch version at the shapes the main path gives it,
-drives `python -m svinet_torch ... -link-sampling` in-process on a
-planted graph at ca-AstroPh scale (n=20,000, K=20, ~200k links), and
-times sweeps of the n=1M, K=500, 20M-edge stretch shape. Every phase
-asserts what it checks; any failure exits non-zero. Progress goes to
-stdout; the line before the last is a JSON summary of the kernels and the
-last line is {"ok": true, "device": {...}}. Without CUDA it exits 2 and
-prints no result.
+against its plain PyTorch version at the shapes the main path gives it
+(and at shapes that take every other kernel variant: a hub cut into
+segments, K not a multiple of 4, K above 512, x up to 1e6), drives
+`python -m svinet_torch ... -link-sampling` in-process on a planted
+graph at ca-AstroPh scale (n=20,000, K=20, ~200k links), and times
+sweeps of the n=1M, K=500, 20M-edge stretch shape. Every phase asserts
+what it checks; any failure exits non-zero. Progress goes to stdout; the
+line before the last is a JSON summary of the kernels (time, plain
+version's time, bound and launch counts) and the last line is
+{"ok": true, "device": {...}}. Without CUDA it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -29,11 +32,23 @@ import torch
 
 # Tolerances. Kernel 1 is held to the TPU kernel's bar
 # (tests/test_ops.py:87-102): 5e-5 abs against float64 scipy and against
-# the plain version, over gamma-like inputs in [0.01, 10]. Kernel 2 sums
-# with atomics in a varying order: 1e-4 abs/rel, the JAX package's own
-# bound for reorderings of f32 sums (__graft_entry__.dryrun_multichip).
+# the plain version, over gamma-like inputs in [0.01, 10] and over inputs
+# up to 1e6 (gamma grows to thousands while annealing). Below x = 0.01
+# the results pass -200, where an f32 ulp is 1.5e-5 and the plain version
+# (f32 torch.special.digamma) is itself a few ulps off: there the kernel
+# is held to scipy at 5e-5 and to the plain version at twice that, the
+# sum of the two errors. Kernel 2 sums in
+# another order than its plain version: 1e-4 abs/rel, the JAX package's
+# own bound for reorderings of f32 sums
+# (__graft_entry__.dryrun_multichip); two launches of it must agree
+# bitwise, since no atomic touches gacc.
 DEXP_ATOL = 5e-5
 PHI_TOL = 1e-4
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and f32 rate outside the tensor cores. A kernel's bound is the
+# larger of its bytes over the one and its operations over the other.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 # Phase 2 is held to the CPU run of the same graph, seed and flags, where
 # the port and the JAX package both stop at iteration 52, with NMI
 # 0.957061 and 0.957102; the bounds are those of
@@ -47,10 +62,18 @@ NMI_CPU = 0.957061
 NMI_TOL = 0.02
 PLANTED = dict(n=20_000, k=20, avg_deg=20, seed=7)
 STRETCH = dict(n=1_000_000, k=500, n_edges=20_000_000)
-# kernel shapes: (rows, K) for kernel 1, (n, K, edges) for kernel 2; the
-# first of each is the one the JSON summary reports
-DEXP_SHAPES = ((1_000_000, 500), (17_903, 20), (500, 2))
-PHI_SHAPES = ((1_000_000, 500, 2_000_000), (20_000, 20, 200_000))
+# kernel shapes; the first of each is the one the JSON summary reports
+# (its error, times and bound; every shape is asserted and logged).
+# Kernel 1: (rows, K, least x, largest x), x uniform up to 10 and
+# log-uniform beyond. Kernel 2: (n, K, random edges, degree of
+# a hub planted at node 0); K=33 takes the 4-byte-load layout, K=640 the
+# wide kernel (K > 512), and the hubs are cut into segments.
+DEXP_SHAPES = ((1_000_000, 500, 0.01, 10.0), (17_903, 20, 0.01, 10.0),
+               (500, 2, 0.01, 10.0), (100_000, 500, 1.0, 1e6),
+               (100_000, 500, 5e-3, 40.0), (4_096, 640, 0.01, 10.0))
+PHI_SHAPES = ((1_000_000, 500, 2_000_000, 0), (20_000, 20, 200_000, 0),
+              (1_000_000, 500, 500_000, 50_000), (20_000, 33, 200_000, 0),
+              (100_000, 640, 300_000, 2_000))
 
 
 def log(msg: str) -> None:
@@ -86,10 +109,27 @@ def phase0(dev):
     lib = build.library()
     log(f"phase 0: kernels built in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    # ptxas -v: one "Used N registers" line per compiled kernel
+    regs = [int(w) for line in lib.log.splitlines() if "Used" in line
+            for w, nxt in zip(line.split(), line.split()[1:])
+            if nxt.startswith("registers") and w.isdigit()]
+    spills = [line.strip() for line in lib.log.splitlines()
+              if "spill" in line and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in line]
+    log(f"phase 0: ptxas: {len(regs)} kernels, at most "
+        f"{max(regs, default=0)} registers, {len(spills)} with spills")
+    for line in spills:
+        log(f"  ptxas: {line}")
     return card
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take to move
+    n_bytes and do n_ops f32 operations."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def phase1_dirichlet(dev):
@@ -98,9 +138,15 @@ def phase1_dirichlet(dev):
         dirichlet_expectation, dirichlet_expectation_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    worst, times = 0.0, {}
-    for rows, k in DEXP_SHAPES:
-        x = 0.01 + 9.99 * torch.rand((rows, k), generator=gen, device=dev)
+    report = None
+    for rows, k, low, top in DEXP_SHAPES:
+        u = torch.rand((rows, k), generator=gen, device=dev)
+        if top <= 10.0:
+            x = low + (top - low) * u
+        else:
+            x = torch.exp(np.log(low) + (np.log(top) - np.log(low)) * u)
+        del u
+        plain_atol = DEXP_ATOL if low >= 0.01 else 2 * DEXP_ATOL
         got = dirichlet_expectation(x)
         want = dirichlet_expectation_plain(x)
         torch.cuda.synchronize()
@@ -110,68 +156,119 @@ def phase1_dirichlet(dev):
         xs = x[idx].double().cpu().numpy()
         ref = digamma(xs) - digamma(xs.sum(axis=1, keepdims=True))
         err_scipy = float(np.abs(got[idx].cpu().numpy() - ref).max())
-        assert np.isfinite(err_plain) and err_plain < DEXP_ATOL, err_plain
+        assert np.isfinite(err_plain) and err_plain < plain_atol, err_plain
         assert err_scipy < DEXP_ATOL, err_scipy
-        reps = 20 if rows * k >= 10**8 else 200
+        reps = 20 if rows * k >= 10**7 else 200
         ms = cuda_ms(lambda: dirichlet_expectation(x), reps)
         plain_ms = cuda_ms(lambda: dirichlet_expectation_plain(x), reps)
-        log(f"phase 1: dirichlet_expectation ({rows}, {k}): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err vs plain "
+        # each element read once and written once; about 40 f32
+        # operations per element (the lift, the series and the log)
+        bound_ms, bound_by = bound(8.0 * rows * k, 40.0 * rows * k)
+        log(f"phase 1: dirichlet_expectation ({rows}, {k}) x in [{low:g}, "
+            f"{top:g}]: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), max abs err vs plain "
             f"{err_plain:.3e}, vs scipy f64 {err_scipy:.3e}")
-        worst = max(worst, err_plain, err_scipy)
-        times[(rows, k)] = (ms, plain_ms)
+        if report is None:
+            report = dict(max_abs_err=max(err_plain, err_scipy), ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
         del x, got, want
     torch.cuda.empty_cache()
-    return worst, times[DEXP_SHAPES[0]]
+    return report
+
+
+def _phi_inputs(dev, gen, n, k, n_edges, hub_deg):
+    """Random links (plus a hub at node 0 joined to nodes 1..hub_deg) as
+    the engine holds them: padded edge list, mask, adjacency; and
+    Elogpi / Elogbeta0 of random gamma and lambda."""
+    from svinet_torch.ops.digamma import dirichlet_expectation_plain
+    from svinet_torch.ops.edges import (
+        build_adjacency, choose_edge_block, pad_edges)
+    from svinet_torch.synth import random_edges
+    # a few edges short of the block, so the padded tail is ragged
+    links = random_edges(n, n_edges - 12_345, 2)
+    if hub_deg:
+        links = links[links[:, 0] > 0]
+        hub = np.stack([np.zeros(hub_deg, np.int32),
+                        np.arange(1, hub_deg + 1, dtype=np.int32)], 1)
+        links = np.concatenate([hub, links])
+    block = choose_edge_block(len(links), k)
+    edges_np, mask_np = pad_edges(links, block)
+    adj = build_adjacency(links, n, dev)
+    gamma = 0.01 + 9.99 * torch.rand((n, k), generator=gen, device=dev)
+    elogpi = dirichlet_expectation_plain(gamma)
+    del gamma
+    lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device=dev)
+    elb0 = dirichlet_expectation_plain(lam)[:, 0].contiguous()
+    return (links, torch.as_tensor(edges_np, device=dev),
+            torch.as_tensor(mask_np, device=dev),
+            edges_np.shape[0] // block, block, adj, elogpi, elb0)
+
+
+def phi_bound(n, k, n_links, adj):
+    """Elogpi read once and gacc written once, the adjacency read once;
+    per link about 8 operations per column (two adds for the logit, max,
+    subtract, exp, the sum, the scale, and two accumulations less what
+    fuses)."""
+    index_bytes = 4.0 * sum(t.numel() for t in adj.tensors())
+    return bound(8.0 * n * k + 4.0 * k + index_bytes, 8.0 * n_links * k)
 
 
 def phase1_phi(dev):
-    from svinet_torch.ops.digamma import dirichlet_expectation_plain
-    from svinet_torch.ops.edges import choose_edge_block, pad_edges
-    from svinet_torch.svi.sweep_math import phi_pass, phi_pass_plain
-    from svinet_torch.synth import random_edges
+    from svinet_torch.svi.sweep_math import (
+        phi_pass, phi_pass_plain, phi_pass_pull_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    worst, times = 0.0, {}
-    for n, k, n_edges in PHI_SHAPES:
-        block = choose_edge_block(n_edges, k)
-        # drop a few edges so the padded tail is ragged and masked
-        edges_np, mask_np = pad_edges(random_edges(n, n_edges - 12_345, 2),
-                                      block)
-        nb = edges_np.shape[0] // block
-        edges = torch.as_tensor(edges_np, device=dev)
-        mask = torch.as_tensor(mask_np, device=dev)
-        gamma = 0.01 + 9.99 * torch.rand((n, k), generator=gen, device=dev)
-        elogpi = dirichlet_expectation_plain(gamma)
-        del gamma
-        lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device=dev)
-        elb0 = dirichlet_expectation_plain(lam)[:, 0].contiguous()
-        g_k, s_k = phi_pass(elogpi, elb0, edges, mask, nb)
-        g_p, s_p = phi_pass_plain(elogpi, elb0, edges, mask, nb)
+    report = None
+    for n, k, n_edges, hub_deg in PHI_SHAPES:
+        links, edges, mask, nb, block, adj, elogpi, elb0 = _phi_inputs(
+            dev, gen, n, k, n_edges, hub_deg)
+        n_links = len(links)
+        assert int(adj.rowptr[-1]) == 2 * n_links
+        assert (len(adj.hub_node) > 0) == (hub_deg > adj.seg_len)
+        g_k, s_k = phi_pass(elogpi, elb0, adj)
+        g_2, _ = phi_pass(elogpi, elb0, adj)
+        g_p, s_p = phi_pass_pull_plain(elogpi, elb0, adj, block)
         torch.cuda.synchronize()
+        # no atomics into gacc: a second launch gives the same bits
+        assert torch.equal(g_k, g_2)
+        del g_2
         err = float((g_k - g_p).abs().max())
+        # a hub's row holds values near degree/K: relative to the row's top
+        rel = float(((g_k - g_p).abs().amax(1)
+                     / g_p.abs().amax(1).clamp_min(1.0)).max())
         # sumk is gacc.sum(0) on the kernel path: a torch reduction over n
         # rows of values near 2E/K, so it is compared relative
         rel_s = float(((s_k - s_p).abs() / s_p.abs()).max())
         assert torch.allclose(g_k, g_p, rtol=PHI_TOL, atol=PHI_TOL), err
         assert torch.allclose(s_k, s_p, rtol=PHI_TOL, atol=PHI_TOL), rel_s
-        # every real edge contributes 2 to the total mass, padding 0
+        # every link adds a phi (which sums to 1) to both of its ends
         total = float(g_k.double().sum())
-        assert abs(total - 2 * float(mask_np.sum())) < 1e-3 * total, total
-        del g_k, g_p
-        reps = 5 if n * k >= 10**8 else 50
-        ms = cuda_ms(lambda: phi_pass(elogpi, elb0, edges, mask, nb), reps)
+        assert abs(total - 2 * n_links) < 1e-3 * total, total
+        del g_p
+        # the edge-list plain form (the one held against JAX) agrees too
+        g_e, s_e = phi_pass_plain(elogpi, elb0, edges, mask, nb)
+        assert torch.allclose(g_k, g_e, rtol=PHI_TOL, atol=PHI_TOL)
+        assert torch.allclose(s_k, s_e, rtol=PHI_TOL, atol=PHI_TOL)
+        del g_k, g_e
+        reps = 5 if n * k >= 10**7 else 50
+        ms = cuda_ms(lambda: phi_pass(elogpi, elb0, adj), reps)
         plain_ms = cuda_ms(
-            lambda: phi_pass_plain(elogpi, elb0, edges, mask, nb), reps)
-        log(f"phase 1: phi_pass n={n} K={k} E={edges_np.shape[0]} "
-            f"({int(mask_np.sum())} real): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, max abs err gacc {err:.3e}, max rel err "
-            f"sumk {rel_s:.3e}")
-        worst = max(worst, err)
-        times[(n, k, n_edges)] = (ms, plain_ms)
-        del elogpi, edges, mask
+            lambda: phi_pass_pull_plain(elogpi, elb0, adj, block), reps)
+        bound_ms, bound_by = phi_bound(n, k, n_links, adj)
+        log(f"phase 1: phi_pass n={n} K={k} links={n_links} hub degree "
+            f"{hub_deg} ({len(adj.seg_node)} segments): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), max abs err gacc {err:.3e} (relative to the "
+            f"row's largest value {rel:.3e}), max rel err sumk "
+            f"{rel_s:.3e}, two launches bitwise equal")
+        if report is None:
+            report = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        del elogpi, edges, mask, adj
         torch.cuda.empty_cache()
-    return worst, times[PHI_SHAPES[0]]
+    return report
 
 
 def _run_cli(workdir, net, gt, label, extra):
@@ -268,6 +365,22 @@ def phase3(dev, workdir):
         f"{init_err:.3e}, 3 sweeps + heldout tail {dt:.3f} s = "
         f"{3 * n_train / dt:.0f} edges/s, heldout avg {res.avg:.6f}, peak "
         f"device memory {peak / 2**30:.2f} GiB")
+    from svinet_torch.ops.edges import build_adjacency
+    t2 = time.perf_counter()
+    build_adjacency(net.training_links, n, dev)
+    torch.cuda.synchronize()
+    log(f"phase 3: the adjacency of the training links builds in "
+        f"{time.perf_counter() - t2:.2f} s of that set-up")
+    # the two kernels alone on this engine's state
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.svi.sweep_math import phi_pass
+    d_ms = cuda_ms(lambda: dirichlet_expectation(eng.gamma), 5)
+    elogpi = dirichlet_expectation(eng.gamma)
+    elb0 = dirichlet_expectation(eng.lam)[:, 0].contiguous()
+    p_ms = cuda_ms(lambda: phi_pass(elogpi, elb0, eng.adj), 5)
+    p_bound, p_by = phi_bound(n, k, n_train, eng.adj)
+    log(f"phase 3: on the stretch state: dirichlet_expectation {d_ms:.4f} "
+        f"ms, phi_pass {p_ms:.4f} ms (bound {p_bound:.4f} ms, {p_by})")
 
 
 def main() -> int:
@@ -278,25 +391,30 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cwd = os.getcwd()
     phase0(dev)
-    d_err, d_times = phase1_dirichlet(dev)
-    p_err, p_times = phase1_phi(dev)
+    d_report = phase1_dirichlet(dev)
+    p_report = phase1_phi(dev)
     with tempfile.TemporaryDirectory() as workdir:
         try:
             launches = phase2(workdir)
             phase3(dev, workdir)
         finally:
             os.chdir(cwd)
+    # library_ms is null for both: no single PyTorch call computes either
+    # function (torch.special.digamma is one part of kernel 1; kernel 2's
+    # gather, softmax and index_add_ are its plain version)
     kernels = [
         {"name": "dirichlet_expectation", "route": "cuda",
          "source": "svinet_torch/csrc/dirichlet_expectation.cu",
          "replaces": "svinet_tpu/ops/pallas_digamma.py:68",
          "launches": launches["dirichlet_expectation"],
-         "max_abs_err": d_err, "ms": d_times[0], "plain_ms": d_times[1]},
+         "launches_per_sweep": 2, **d_report,
+         "library_ms": None},
         {"name": "phi_pass", "route": "cuda",
          "source": "svinet_torch/csrc/phi_pass.cu",
          "replaces": "tools/pallas_gather_bench.py:69",
          "launches": launches["phi_pass"],
-         "max_abs_err": p_err, "ms": p_times[0], "plain_ms": p_times[1]},
+         "launches_per_sweep": 1, **p_report,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """svinet-torch: the a-MMSB link-sampling SVI engine in PyTorch, with
 hand-written CUDA kernels for an NVIDIA Hopper GPU (sm_90a).
 
-The package mirrors svinet_tpu's layout (ops/, svi/, evals/, cli.py) and
-is tested against it. It reuses svinet_tpu's JAX-free host layer as it
-is: config.Config, graph.Network, io.writers, io.native and
-cli.parse_args. It never imports JAX.
+The package mirrors svinet_tpu's layout (ops/, svi/, evals/, io/, cli.py)
+and is tested against it, but imports nothing of it and never imports
+JAX. It keeps its own copy of the host layer it needs: config.Config,
+graph.Network, io.writers, io.native and cli.parse_args, each held to its
+original by tests/test_torch_hostlayer.py.
 """
 
 from __future__ import annotations

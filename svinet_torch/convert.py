@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from svinet_tpu.io.writers import load_model
+from svinet_torch.io.writers import load_model
 
 
 def state_from_numpy(gamma, lam, device) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,7 +4,9 @@ The CUDA kernel (csrc/dirichlet_expectation.cu) replaces the TPU kernel
 svinet_tpu/ops/pallas_digamma.py:68-102. Its plain version is what the
 JAX engine computes through XLA (svinet_tpu/ops/expectations.py:21-22).
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+or raises. The kernel is chosen by K alone: up to 512 columns a row is
+held in registers by a group of lanes (several rows to a warp when K is
+small), above that one warp reads its row twice.
 """
 
 from __future__ import annotations

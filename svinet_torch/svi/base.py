@@ -14,10 +14,10 @@ import time
 import numpy as np
 import torch
 
-from svinet_tpu.config import Config
-from svinet_tpu.graph import Network
-from svinet_tpu.io.native import write_edges_tsv
-from svinet_tpu.io.writers import (
+from svinet_torch.config import Config
+from svinet_torch.graph import Network
+from svinet_torch.io.native import write_edges_tsv
+from svinet_torch.io.writers import (
     ReportFile, save_model, write_communities, write_edgelist, write_groups,
     write_max,
 )

@@ -19,13 +19,14 @@ import time
 import numpy as np
 import torch
 
-from svinet_tpu.config import Config
-from svinet_tpu.graph import Network
-from svinet_tpu.io.writers import load_model
+from svinet_torch.config import Config
+from svinet_torch.graph import Network
+from svinet_torch.io.writers import load_model
 from svinet_torch.evals.likelihood import (
     heldout_sums_blocked, link_probs, result_from_sums)
 from svinet_torch.evals.precision import auc as auc_fn
-from svinet_torch.ops.edges import choose_edge_block, pad_edges
+from svinet_torch.ops.edges import (
+    Adjacency, build_adjacency, choose_edge_block, pad_edges)
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
@@ -37,13 +38,14 @@ from svinet_torch.svi.sweep_math import (
 DEVICE_INIT_MIN = 1 << 28
 
 
-def sweep(gamma, lam, edges, mask, deg, consts: LSConsts, annealing: bool,
-          num_blocks: int):
-    """One full sweep over the (padded) training links. Returns the new
-    (gamma, lam); the inputs are not modified."""
+def sweep(gamma, lam, edges, mask, adj: Adjacency, deg, consts: LSConsts,
+          annealing: bool, num_blocks: int):
+    """One full sweep over the training links: the phi pass walks their
+    adjacency `adj`, the s3 pass their padded (edges, mask) list. Returns
+    the new (gamma, lam); the inputs are not modified."""
     elogpi = dirichlet_expectation(gamma)
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
-    gacc, sumk = phi_pass(elogpi, elb0, edges, mask, num_blocks)
+    gacc, sumk = phi_pass(elogpi, elb0, adj)
     del elogpi
     gnext, mphi, s1, s2, lam0 = mean_indicator_update(
         gacc, sumk, deg, consts, annealing)
@@ -51,15 +53,16 @@ def sweep(gamma, lam, edges, mask, deg, consts: LSConsts, annealing: bool,
     return gnext, finish_lambda(s1, s2, s3, lam0, consts)
 
 
-def multi_sweep_ho(gamma, lam, edges, mask, deg, consts: LSConsts,
-                   annealing: bool, ho_pairs, ho_y, ho_w, epsilon: float,
+def multi_sweep_ho(gamma, lam, edges, mask, adj: Adjacency, deg,
+                   consts: LSConsts, annealing: bool, ho_pairs, ho_y, ho_w,
+                   epsilon: float,
                    num_blocks: int, n_sweeps: int, ho_blocks: int):
     """n_sweeps sweeps, then the six validation heldout sums on the final
     state (svinet_tpu/svi/linksampling.py:240-260). Returns
     (gamma, lam, sums)."""
     for _ in range(n_sweeps):
-        gamma, lam = sweep(gamma, lam, edges, mask, deg, consts, annealing,
-                           num_blocks)
+        gamma, lam = sweep(gamma, lam, edges, mask, adj, deg, consts,
+                           annealing, num_blocks)
     sums = heldout_sums_blocked(gamma, lam, ho_pairs, ho_y, ho_w, epsilon,
                                 ho_blocks)
     return gamma, lam, sums
@@ -111,6 +114,9 @@ class LinkSampling(EngineBase):
         self.num_blocks = edges_p.shape[0] // block
         self.edges = torch.as_tensor(edges_p, device=device)
         self.mask = torch.as_tensor(mask, device=device)
+        # the same links as a symmetric CSR, built once: what the phi
+        # pass walks (padding rows are absent from it)
+        self.adj = build_adjacency(network.training_links, n, device)
         self.deg = torch.as_tensor(network.training_deg.astype(np.float32),
                                    device=device)
 
@@ -156,12 +162,12 @@ class LinkSampling(EngineBase):
         if self._ho is None:
             for _ in range(n_sweeps):
                 self.gamma, self.lam = sweep(
-                    self.gamma, self.lam, self.edges, self.mask, self.deg,
-                    self.consts, self.annealing, self.num_blocks)
+                    self.gamma, self.lam, self.edges, self.mask, self.adj,
+                    self.deg, self.consts, self.annealing, self.num_blocks)
             return
         hp, hy, hw, nb = self._ho
         self.gamma, self.lam, self._ho_res = multi_sweep_ho(
-            self.gamma, self.lam, self.edges, self.mask, self.deg,
+            self.gamma, self.lam, self.edges, self.mask, self.adj, self.deg,
             self.consts, self.annealing, hp, hy, hw, self.cfg.epsilon,
             self.num_blocks, n_sweeps, nb)
 

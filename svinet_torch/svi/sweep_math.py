@@ -2,7 +2,8 @@
 46-157, without the -freeze `conv` branches).
 
 The split mirrors the reference's phases: the per-link phi pass
-(src/linksampling.cc:605-725) — kernel 2 on the card —, the global
+(src/linksampling.cc:605-725) — kernel 2 on the card, over the symmetric
+adjacency of the training links (ops/edges.py) —, the global
 nonlink/mean-indicator update (src/linksampling.cc:526-545), and the s3
 cross-moment pass (src/linksampling.cc:731-749). Functions of tensors;
 no host state.
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from svinet_torch.kernels import build
+from svinet_torch.ops.edges import Adjacency, choose_edge_block
 
 
 class LSConsts(NamedTuple):
@@ -56,25 +58,70 @@ def phi_pass_plain(elogpi, elb0, edges, mask, num_blocks: int
     return gacc, sumk
 
 
-def phi_pass(elogpi, elb0, edges, mask, num_blocks: int
+def phi_pass_pull_plain(elogpi, elb0, adj: Adjacency, block: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The phi pass in the kernel's pull form, in plain PyTorch: walk the
+    2E directed entries (owner p, neighbour q) of the adjacency in blocks
+    of `block`, phi = softmax(Elogpi[p] + Elogpi[q] + Elogbeta0), and add
+    phi to the owner's row only. Every link is met from both ends, so the
+    column sums of all phi are already 2 * sum over links. Returns
+    (gacc, sumk) as phi_pass_plain does."""
+    n, k = elogpi.shape
+    dev = elogpi.device
+    gacc = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    sumk = torch.zeros(k, dtype=torch.float32, device=dev)
+    rowptr = adj.rowptr.long()
+    total = adj.nbr.shape[0]
+    for lo in range(0, total, block):
+        pos = torch.arange(lo, min(lo + block, total), device=dev)
+        p = torch.searchsorted(rowptr, pos, right=True) - 1
+        q = adj.nbr[pos].long()
+        phi = torch.softmax(elogpi[p] + elogpi[q] + elb0, dim=-1)
+        gacc.index_add_(0, p, phi)
+        sumk += phi.sum(dim=0)
+    return gacc, sumk
+
+
+def phi_pass(elogpi, elb0, adj: Adjacency
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 2 (csrc/phi_pass.cu) on a CUDA tensor, the plain blocked
-    pass on a CPU tensor. On the card one launch walks every edge (the
-    blocking is for the plain pass's intermediates) and sumk is
-    gacc.sum(0), which equals 2 * sum(phi) up to summation order."""
+    """Kernel 2 (csrc/phi_pass.cu) on a CUDA tensor, phi_pass_pull_plain
+    on a CPU tensor. Returns (gacc, sumk) as phi_pass_plain does.
+
+    On the card one launch walks the whole adjacency: the warp (or, for
+    small K, the part of a warp) that owns node p sums phi over p's
+    neighbours and writes gacc[p] once, so nothing is zero-filled, no
+    atomic is used and two launches give the same bits. The kernel is
+    chosen by K alone:
+      K <= 512: rows held in registers; 16-byte loads when K % 4 == 0,
+                4-byte loads otherwise;
+      K  > 512: the wide kernel, which keeps its running row in gacc
+                itself and reads each neighbour row twice.
+    Hub segments (adj.seg_*) are summed into a scratch buffer and
+    combined in a fixed order by two further small launches, made only
+    when the graph has hubs. sumk is gacc.sum(0), which equals
+    2 * sum(phi) up to summation order."""
     if elogpi.device.type == "cpu":
-        return phi_pass_plain(elogpi, elb0, edges, mask, num_blocks)
+        block = choose_edge_block(adj.nbr.shape[0], elogpi.shape[1])
+        return phi_pass_pull_plain(elogpi, elb0, adj, block)
     build.require_cuda(elogpi, "phi_pass")
     dev = elogpi.device
     n, k = elogpi.shape
-    e = edges.shape[0]
+    n_hubs, n_segs = adj.hub_node.shape[0], adj.seg_node.shape[0]
     build.check_cuda(elogpi, "elogpi", torch.float32, (n, k), dev)
     build.check_cuda(elb0, "elb0", torch.float32, (k,), dev)
-    build.check_cuda(edges, "edges", torch.int32, (e, 2), dev)
-    build.check_cuda(mask, "mask", torch.float32, (e,), dev)
-    gacc = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    build.check_cuda(adj.rowptr, "rowptr", torch.int32, (n + 1,), dev)
+    build.check_cuda(adj.nbr, "nbr", torch.int32, adj.nbr.shape, dev)
+    build.check_cuda(adj.hub_node, "hub_node", torch.int32, (n_hubs,), dev)
+    build.check_cuda(adj.hub_segptr, "hub_segptr", torch.int32,
+                     (n_hubs + 1,), dev)
+    for name in ("seg_node", "seg_begin", "seg_end"):
+        build.check_cuda(getattr(adj, name), name, torch.int32, (n_segs,),
+                         dev)
+    gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    partial = torch.empty((n_segs, k), dtype=torch.float32, device=dev)
     build.launch("svt_phi_pass", dev, elogpi.data_ptr(), elb0.data_ptr(),
-                 edges.data_ptr(), mask.data_ptr(), gacc.data_ptr(), e, k)
+                 *(t.data_ptr() for t in adj.tensors()), partial.data_ptr(),
+                 gacc.data_ptr(), n, n_hubs, n_segs, k, adj.seg_len)
     phi_pass.launches += 1
     return gacc, gacc.sum(dim=0)
 

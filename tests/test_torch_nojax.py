@@ -1,7 +1,9 @@
-"""The port runs without JAX: the machine with the GPU has none.
+"""The port runs without JAX and without the JAX package: the machine
+with the GPU has no JAX, and the port imports nothing of svinet_tpu.
 
-A subprocess blocks every `jax` import with a sys.meta_path finder,
-imports svinet_torch and runs its CLI on a planted graph on the CPU. The
+A subprocess blocks every `jax` and `svinet_tpu` import with a
+sys.meta_path finder, imports svinet_torch and runs its CLI on a planted
+graph on the CPU. The
 CLI's refusals of flags outside the ported slice, and of a CUDA device on
 a machine without one, are checked here too."""
 
@@ -25,7 +27,7 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     class BlockJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if name.split(".")[0] in ("jax", "jaxlib", "svinet_tpu"):
                 raise ImportError(name + " is blocked")
             return None
 
@@ -39,7 +41,7 @@ _BLOCKED_RUN = textwrap.dedent("""
                "-label", "nojax"])
     assert rc == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                    ("jax", "jaxlib"))
+                    ("jax", "jaxlib", "svinet_tpu"))
     assert not loaded, loaded
     print("OK")
 """)
@@ -57,7 +59,7 @@ def test_cli_runs_with_jax_blocked(tmp_path):
 
 
 def test_no_jax_import_in_package():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|svinet_tpu)\b", re.M)
     files = sorted((REPO / "svinet_torch").rglob("*.py"))
     assert files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
@@ -65,8 +67,8 @@ def test_no_jax_import_in_package():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The smoke run reaches the JAX package's host layer only through
-    svinet_torch, and JAX not at all."""
+    """The smoke run imports the port, and neither JAX nor the JAX
+    package."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|svinet_tpu)\b", re.M)
     text = (REPO / "chip_smoke.py").read_text()
     assert not pat.findall(text), pat.findall(text)

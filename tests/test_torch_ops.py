@@ -13,7 +13,8 @@ import torch
 from svinet_tpu.ops.expectations import dirichlet_expectation as jax_dexp
 from svinet_tpu.ops.pallas_digamma import dirichlet_expectation_pallas
 from svinet_torch.ops.edges import (
-    BLOCK_BUDGET_BYTES, choose_edge_block, pad_edges)
+    BLOCK_BUDGET_BYTES, SEG_LEN, build_adjacency, choose_edge_block,
+    pad_edges)
 from svinet_torch.ops.expectations import (
     dirichlet_expectation, dirichlet_expectation_plain, dirichlet_mean)
 
@@ -78,3 +79,69 @@ def test_choose_edge_block_invariants(n_edges, k):
     if n_edges <= limit:
         # small edge sets run as one block unless it would pass the budget
         assert block >= n_edges or block * 2 > limit
+
+
+def _links(n, n_links, seed, hub_deg=0):
+    """Unique links p < q over nodes 1..n-6 (node 0 and the last 5 nodes
+    get none), plus a hub at node 0 joined to hub_deg others."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(1, n - 5, size=n_links)
+    q = rng.integers(1, n - 5, size=n_links)
+    links = np.stack([np.minimum(p, q), np.maximum(p, q)], 1)[p != q]
+    links = np.unique(links, axis=0)
+    hub = np.stack([np.zeros(hub_deg, np.int64),
+                    np.arange(1, hub_deg + 1)], 1)
+    return np.concatenate([hub, links]).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,n_links,hub_deg,seg_len", [
+    (50, 0, 0, SEG_LEN), (50, 1, 0, SEG_LEN), (200, 600, 0, SEG_LEN),
+    (200, 600, 150, 16), (200, 600, 150, 150), (200, 600, 150, 149),
+    (2000, 9000, 1500, SEG_LEN)])
+def test_build_adjacency_invariants(n, n_links, hub_deg, seg_len):
+    links = _links(n, n_links, seed=n + n_links, hub_deg=hub_deg)
+    # the padded form the engine also holds: padding must not reach adj
+    padded, mask = pad_edges(links, 64)
+    adj = build_adjacency(padded[mask > 0], n, seg_len=seg_len)
+    e = len(links)
+    for t in adj.tensors():
+        assert t.dtype == torch.int32 and t.is_contiguous()
+    rowptr, nbr = adj.rowptr.numpy(), adj.nbr.numpy()
+    assert rowptr.shape == (n + 1,) and rowptr[0] == 0
+    assert rowptr[-1] == 2 * e == len(nbr)
+    deg = np.diff(rowptr)
+    np.testing.assert_array_equal(
+        deg, np.bincount(links.ravel(), minlength=n))
+    assert not deg[-5:].any()                   # isolated: empty lists
+    # every link twice, once from each end, lists ascending
+    owner = np.repeat(np.arange(n), deg)
+    got = set(zip(owner.tolist(), nbr.tolist()))
+    want = {(int(a), int(b)) for a, b in links} | {
+        (int(b), int(a)) for a, b in links}
+    assert got == want and len(got) == 2 * e
+    for v in range(n):
+        assert (np.diff(nbr[rowptr[v]:rowptr[v + 1]]) > 0).all()
+    # hubs: exactly the nodes above seg_len, their lists tiled by segments
+    hubs = adj.hub_node.numpy()
+    np.testing.assert_array_equal(hubs, np.nonzero(deg > seg_len)[0])
+    segptr = adj.hub_segptr.numpy()
+    assert segptr[0] == 0 and segptr[-1] == len(adj.seg_node)
+    for h, v in enumerate(hubs):
+        sl = slice(segptr[h], segptr[h + 1])
+        assert (adj.seg_node.numpy()[sl] == v).all()
+        b, en = adj.seg_begin.numpy()[sl], adj.seg_end.numpy()[sl]
+        assert b[0] == rowptr[v] and en[-1] == rowptr[v + 1]
+        np.testing.assert_array_equal(b[1:], en[:-1])
+        assert ((en - b) <= seg_len).all() and ((en - b) > 0).all()
+        assert len(b) == -(-deg[v] // seg_len)
+    if hub_deg > seg_len:
+        assert 0 in hubs and len(adj.seg_node) >= 2
+    else:
+        assert len(hubs) == 0 and len(adj.seg_node) == 0
+
+
+def test_build_adjacency_refuses_bad_input():
+    with pytest.raises(ValueError, match="endpoints"):
+        build_adjacency(np.array([[0, 7]]), 7)
+    with pytest.raises(ValueError, match="seg_len"):
+        build_adjacency(np.array([[0, 1]]), 7, seg_len=0)

@@ -4,7 +4,10 @@ against the JAX package, on the same numpy inputs.
 Tolerance: 1e-4 abs/rel, the bound the JAX package uses for its own
 sharded-vs-single checks (__graft_entry__.dryrun_multichip): the two
 packages sum in different orders in f32. On the CPU the port's phi_pass
-is its plain blocked version (kernel 2 runs only on the card)."""
+is the plain pull form over the links' adjacency, the kernel's own input
+(kernel 2 runs only on the card); the edge-list plain form and the pull
+form are held to each other and to JAX at 1e-5, since on the CPU they
+differ in summation order only."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from svinet_tpu.svi.linksampling import (
     linksampling_multi_sweep, linksampling_multi_sweep_ho, linksampling_sweep)
 from svinet_torch.convert import load_state, state_from_numpy, state_to_numpy
 from svinet_torch.evals import likelihood as tlik
-from svinet_torch.ops.edges import choose_edge_block, pad_edges
+from svinet_torch.ops.edges import (
+    build_adjacency, choose_edge_block, pad_edges)
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.svi import sweep_math as tsm
 from svinet_torch.svi.communities import edge_assignments
@@ -61,6 +65,7 @@ def problem(request):
     block = 32 if request.param == "tiny" else 256
     edges_p, mask = pad_edges(edges[:-3], block)
     return dict(gamma=gamma, lam=lam, edges=edges_p, mask=mask, deg=deg,
+                adj=build_adjacency(edges[:-3], n),
                 nb=edges_p.shape[0] // block, n=n, k=k,
                 ones=float(len(edges)))
 
@@ -101,8 +106,7 @@ def test_phi_pass(problem):
     jg, js = jsm.phi_pass(jnp.asarray(elogpi), jnp.asarray(elb0),
                           jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
                           pb["nb"])
-    tg, ts = tsm.phi_pass(_t(elogpi), _t(elb0), _t(pb["edges"]),
-                          _t(pb["mask"]), pb["nb"])
+    tg, ts = tsm.phi_pass(_t(elogpi), _t(elb0), pb["adj"])
     _close(tg, jg)
     _close(ts, js)
     # sumk = 2 sum(phi) = gacc.sum(0): the identity kernel 2 relies on
@@ -141,7 +145,8 @@ def test_full_sweep(problem):
         jnp.asarray(pb["edges"]), jnp.asarray(pb["mask"]),
         jnp.asarray(pb["deg"]), jc, jnp.float32(1.0), pb["nb"])
     tgam, tlam = sweep(_t(pb["gamma"]), _t(pb["lam"]), _t(pb["edges"]),
-                       _t(pb["mask"]), _t(pb["deg"]), tc, True, pb["nb"])
+                       _t(pb["mask"]), pb["adj"], _t(pb["deg"]), tc, True,
+                       pb["nb"])
     _close(tgam, jgam)
     _close(tlam, jlam)
 
@@ -170,8 +175,8 @@ def test_multi_sweep_with_heldout_tail(problem):
         jnp.asarray(yy), jnp.asarray(ww), jnp.float32(1e-30), pb["nb"], 3, 1)
     tout = multi_sweep_ho(
         _t(pb["gamma"]), _t(pb["lam"]), _t(pb["edges"]), _t(pb["mask"]),
-        _t(pb["deg"]), tc, True, _t(pp), _t(yy), _t(ww), 1e-30, pb["nb"],
-        3, 1)
+        pb["adj"], _t(pb["deg"]), tc, True, _t(pp), _t(yy), _t(ww), 1e-30,
+        pb["nb"], 3, 1)
     for got, want in zip(tout, jout):
         _close(got, want)
 
@@ -225,8 +230,8 @@ def test_state_round_trip_continues_jax_run(problem, tmp_path):
     back = state_to_numpy(tg, tl)
     np.testing.assert_array_equal(back[0], g3)
     np.testing.assert_array_equal(back[1], l3)
-    tg, tl = sweep(tg, tl, _t(pb["edges"]), _t(pb["mask"]), _t(pb["deg"]),
-                   tc, True, pb["nb"])
+    tg, tl = sweep(tg, tl, _t(pb["edges"]), _t(pb["mask"]), pb["adj"],
+                   _t(pb["deg"]), tc, True, pb["nb"])
     _close(tg, g4)
     _close(tl, l4)
 
@@ -270,3 +275,71 @@ def test_blocked_passes_match_one_block(problem):
     for x, y in zip(a, b):
         np.testing.assert_allclose(x.numpy(), y.numpy(), **TOL)
     assert choose_edge_block(len(pb["edges"]), pb["k"]) >= 64
+
+
+TIGHT = dict(rtol=1e-5, atol=1e-5)
+
+
+def _pull_problem(k, seed, n=300, n_links=1500, block=256):
+    """Numpy-seeded Elogpi-like rows, random links with a ragged masked
+    tail, node 0 a hub (joined to every other node), the last 9 nodes
+    isolated."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(1, n - 10, size=n_links)
+    q = rng.integers(1, n - 10, size=n_links)
+    keep = p != q
+    links = np.stack([np.minimum(p, q), np.maximum(p, q)], 1)[keep]
+    links = np.unique(links, axis=0)
+    hub = np.stack([np.zeros(n - 10, np.int64), np.arange(1, n - 9)], 1)
+    links = np.concatenate([hub, links]).astype(np.int32)
+    elogpi = -rng.gamma(2.0, 1.5, size=(n, k)).astype(np.float32)
+    elb0 = -rng.gamma(2.0, 0.5, size=k).astype(np.float32)
+    edges_p, mask = pad_edges(links, block)
+    assert len(edges_p) > len(links)
+    return links, elogpi, elb0, edges_p, mask, len(edges_p) // block
+
+
+@pytest.mark.parametrize("k", [3, 20, 33])
+@pytest.mark.parametrize("seg_len", [16, 256, 10_000])
+def test_phi_pass_pull_form_matches_jax(k, seg_len):
+    """The pull form over the adjacency (hub cut into segments or not)
+    against the JAX edge-list phi_pass and the port's edge-list plain
+    form, with padding in the edge list."""
+    links, elogpi, elb0, edges_p, mask, nb = _pull_problem(k, seed=k)
+    n = elogpi.shape[0]
+    adj = build_adjacency(links, n, seg_len=seg_len)
+    jg, js = jsm.phi_pass(jnp.asarray(elogpi), jnp.asarray(elb0),
+                          jnp.asarray(edges_p), jnp.asarray(mask), nb)
+    for block in (97, 1 << 20):
+        tg, ts = tsm.phi_pass_pull_plain(_t(elogpi), _t(elb0), adj, block)
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TIGHT)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5)
+        np.testing.assert_allclose(ts.numpy(), tg.sum(0).numpy(), rtol=1e-4)
+    eg, es = tsm.phi_pass_plain(_t(elogpi), _t(elb0), _t(edges_p), _t(mask),
+                                nb)
+    np.testing.assert_allclose(tg.numpy(), eg.numpy(), **TIGHT)
+    np.testing.assert_allclose(ts.numpy(), es.numpy(), rtol=1e-5)
+    # the wrapper's CPU path is the pull form; isolated rows stay zero
+    wg, ws = tsm.phi_pass(_t(elogpi), _t(elb0), adj)
+    np.testing.assert_array_equal(wg.numpy(), tg.numpy())
+    assert not wg[-9:].any()
+
+
+def test_engine_builds_the_adjacency_of_its_training_links(tmp_path):
+    """LinkSampling holds the adjacency of exactly its training links,
+    and a step through it matches a sweep fed an adjacency built here."""
+    from svinet_torch.svi.linksampling import from_edges
+    raw, _ = planted_blocks(200, 4, 10, 1)
+    eng = from_edges(raw, 200, 4, torch.device("cpu"), str(tmp_path / "o"))
+    links = eng.network.training_links
+    adj = eng.adj
+    assert adj.n == eng.n and int(adj.rowptr[-1]) == 2 * len(links)
+    deg = np.diff(adj.rowptr.numpy())
+    np.testing.assert_array_equal(deg, eng.network.training_deg)
+    want = sweep(eng.gamma, eng.lam, eng.edges, eng.mask,
+                 build_adjacency(links, eng.n), eng.deg, eng.consts, True,
+                 eng.num_blocks)
+    eng.step(1)
+    eng.close()
+    np.testing.assert_array_equal(eng.gamma.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(eng.lam.numpy(), want[1].numpy())
