@@ -290,7 +290,7 @@ _ENGINE_FLAGS = (
     ("randompair", "-rpair"),
 )
 _UNPORTED_FLAGS = (
-    ("fuse_s3", "-fuse-s3"), ("bf16_rows", "-bf16"),
+    ("bf16_rows", "-bf16"),
     ("freeze_converged", "-freeze"), ("prune", "-prune"),
     ("sparse_w", "-sparse-w"), ("mesh_devices", "-mesh"),
     ("mesh_rowshard", "-mesh-rowshard"), ("mesh_locality", "-mesh-locality"),
@@ -314,8 +314,6 @@ def check_slice(cfg: Config) -> None:
     for field, flag in _UNPORTED_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
-    if cfg.report_batch > 1:
-        raise SystemExit("svinet_torch: -report-batch > 1 is not ported")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

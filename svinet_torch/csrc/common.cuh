@@ -1,5 +1,6 @@
 // Shared helpers of the svinet_torch kernels: the row-in-registers layout
-// both kernels use for K <= 512, its dispatch on K, and warp reductions.
+// they use for K <= 512, its dispatch on K, warp reductions, the work items
+// of a pass over the links' adjacency, and reproducible column sums.
 //
 // Row layout <VEC, G, N>. A row of K floats is owned by a group of G lanes
 // (G a power of two up to 32; 32/G rows share a warp, so a narrow row
@@ -24,6 +25,10 @@ constexpr int kWarp = 32;
 constexpr int kBlockThreads = 256;  // 8 warps per block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRegMaxK = 512;       // widest row held in registers
+// Most blocks a kernel that sums columns across rows is launched with
+// (8 per SM on 132 SMs). Its groups stride over the rows, so the number
+// of per-block partial rows does not grow with n.
+constexpr int kReduceBlocks = 1056;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -57,16 +62,19 @@ __device__ __forceinline__ float group_max(float v, unsigned mask) {
   return v;
 }
 
-template <int VEC>
+// NC: load through the read-only path (__ldg). A kernel that writes the
+// buffer it reads (an update in place) asks for NC = false.
+template <int VEC, bool NC = true>
 __device__ __forceinline__ void load_unit(const float* src, float* dst) {
   if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 t = NC ? __ldg(reinterpret_cast<const float4*>(src))
+                        : *reinterpret_cast<const float4*>(src);
     dst[0] = t.x;
     dst[1] = t.y;
     dst[2] = t.z;
     dst[3] = t.w;
   } else {
-    dst[0] = __ldg(src);
+    dst[0] = NC ? __ldg(src) : *src;
   }
 }
 
@@ -81,14 +89,14 @@ __device__ __forceinline__ void store_unit(float* dst, const float* src) {
 
 // This lane's part of `row` (K floats) into registers; `g` is the lane's
 // index in its group. Units past the row get `fill`.
-template <int VEC, int G, int N>
+template <int VEC, int G, int N, bool NC = true>
 __device__ __forceinline__ void load_row(const float* row, int k, int g,
                                          float fill, float (&dst)[VEC * N]) {
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const int c = (g + j * G) * VEC;
     if (c < k) {
-      load_unit<VEC>(row + c, dst + j * VEC);
+      load_unit<VEC, NC>(row + c, dst + j * VEC);
     } else {
 #pragma unroll
       for (int v = 0; v < VEC; ++v) dst[j * VEC + v] = fill;
@@ -110,6 +118,90 @@ __device__ __forceinline__ void store_row(float* row, int k, int g,
 inline unsigned blocks_for(int64_t items, int g) {
   const int64_t per_block = kBlockThreads / g;
   return static_cast<unsigned>((items + per_block - 1) / per_block);
+}
+
+// The same, capped at kReduceBlocks, for kernels whose groups stride over
+// the items.
+inline unsigned reduce_blocks_for(int64_t items, int g) {
+  const unsigned b = blocks_for(items, g);
+  return b < kReduceBlocks ? b : kReduceBlocks;
+}
+
+// Column sums across rows without atomics, in two steps. Step 1, at the
+// end of a kernel whose groups each hold a row of per-column partial sums
+// `v` (layout <VEC, G, N>): the block adds its groups' rows in group order
+// through `smem` (kBlockThreads * VEC * N floats) and writes the K sums to
+// `dst`, its row of a (blocks, K) scratch. Every thread of the block must
+// call it. Step 2: colsum_partials_kernel adds the scratch rows in row
+// order. Which rows a group sees depends only on the launch shape, so two
+// launches give the same bits.
+template <int VEC, int G, int N>
+__device__ __forceinline__ void block_colsum(const float (&v)[VEC * N], int k,
+                                             float* smem, float* dst) {
+  constexpr int W = G * VEC * N;  // a group's row in smem, padded
+  const int grp = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int u = 0; u < VEC; ++u)
+      smem[grp * W + (g + j * G) * VEC + u] = v[j * VEC + u];
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += kBlockThreads) {
+    float s = 0.0f;
+    for (int r = 0; r < kBlockThreads / G; ++r) s += smem[r * W + c];
+    dst[c] = s;
+  }
+  __syncthreads();  // smem may be filled again
+}
+
+// out[c] = sum over r < rows of partial[r * ld + c], in row order; one
+// thread per column.
+static __global__ void colsum_partials_kernel(const float* __restrict__ partial,
+                                              int rows, int ld, int k,
+                                              float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= k) return;
+  float s = 0.0f;
+  for (int r = 0; r < rows; ++r) s += partial[static_cast<int64_t>(r) * ld + c];
+  out[c] = s;
+}
+
+inline void launch_colsum_partials(const float* partial, int rows, int ld,
+                                   int k, float* out, cudaStream_t stream) {
+  colsum_partials_kernel<<<(k + kBlockThreads - 1) / kBlockThreads,
+                           kBlockThreads, 0, stream>>>(partial, rows, ld, k,
+                                                       out);
+}
+
+// A pass over the links' adjacency (ops/edges.py:Adjacency) takes nodes
+// as its work items, or, in a second launch, the segments that the long
+// lists of hubs are cut into.
+struct AdjItems {
+  const int32_t* rowptr;
+  const int32_t* nbr;
+  // hub segments: non-null when the launch walks segments, not nodes
+  const int32_t* seg_node;
+  const int32_t* seg_begin;
+  const int32_t* seg_end;
+  int64_t n_items;   // nodes, or segments
+  int seg_len;
+};
+
+// The node of work item `item` and its slice of nbr. Returns false for a
+// hub met in the pass over nodes: its segments are other items' work.
+__device__ __forceinline__ bool adj_item(const AdjItems& a, int64_t item,
+                                         int64_t* p, int* begin, int* end) {
+  if (a.seg_node != nullptr) {
+    *p = a.seg_node[item];
+    *begin = a.seg_begin[item];
+    *end = a.seg_end[item];
+    return true;
+  }
+  *p = item;
+  *begin = a.rowptr[item];
+  *end = a.rowptr[item + 1];
+  return *end - *begin <= a.seg_len;
 }
 
 // Call f(VEC, G, N) as integral constants for the layout of a K-float row,

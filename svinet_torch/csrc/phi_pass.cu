@@ -42,6 +42,22 @@
 // neighbour row to form phi, and the running sum kept in the owner's
 // gacc row itself (read and written only by the lane that owns the
 // column). It moves about twice the bytes of the register kernel.
+//
+// Kernel 5: the fused phi + s3 pass of -fuse-s3
+// (svinet_tpu/svi/sweep_math.py:160-206, fused_phi_s3_pass). The same
+// walk also sums the cross-moment of the mean indicators of the sweep
+// before, s3[k] = sum over links of mphi[p,k] * mphi[q,k]. The TPU packed
+// [Elogpi | mphi] into rows of 2K because a row twice as wide cost it
+// little; here bytes bind, so the two arrays stay apart and mphi[q] is
+// read only where q > p (the list is ascending), once per link: the
+// gathers are 2E rows of Elogpi and E rows of mphi, the same rows that
+// kernel 2 followed by kernel 4 (csrc/s3_pass.cu) would read. What the
+// fusion saves is the second walk of the adjacency and its launches, not
+// row traffic. Its price is registers: the owner's mphi row, the gathered
+// one and the running s3 are three more rows in registers, and the groups
+// stride over the nodes so that s3 is kept across them and summed across
+// blocks by common.cuh's two steps (no atomics). It is a template flag on
+// the register kernel; K above 512 has no fused form.
 
 #include <math.h>
 
@@ -50,96 +66,110 @@
 namespace {
 
 struct PhiArgs {
+  svt::AdjItems items;
   const float* elogpi;
   const float* elb0;
-  const int32_t* rowptr;
-  const int32_t* nbr;
-  // hub segments: non-null when the launch walks segments, not nodes
-  const int32_t* seg_node;
-  const int32_t* seg_begin;
-  const int32_t* seg_end;
-  float* out;        // gacc (n,K), or the scratch rows (n_segs,K)
-  int64_t n_items;   // nodes, or segments
+  float* out;          // gacc (n,K), or the scratch rows (n_segs,K)
   int k;
-  int seg_len;
+  // kernel 5 only
+  const float* mphi;   // (n,K) mean indicators of the sweep before
+  float* s3_partial;   // (blocks,K) scratch for the column sums of s3
 };
 
-// The node, its slice of nbr and its output row for work item `item`.
-// Returns false for a hub met in the pass over nodes: its row is written
-// by phi_combine_kernel.
-__device__ __forceinline__ bool phi_item(const PhiArgs& a, int64_t item,
-                                         int64_t* p, int* begin, int* end) {
-  if (a.seg_node != nullptr) {
-    *p = a.seg_node[item];
-    *begin = a.seg_begin[item];
-    *end = a.seg_end[item];
-    return true;
-  }
-  *p = item;
-  *begin = a.rowptr[item];
-  *end = a.rowptr[item + 1];
-  return *end - *begin <= a.seg_len;
-}
-
-template <int VEC, int G, int N>
+// FUSED = false is kernel 2; FUSED = true is kernel 5, which also sums
+// mphi[p] * mphi[q] over the links it meets from their lower end.
+template <int VEC, int G, int N, bool FUSED>
 __global__ void __launch_bounds__(svt::kBlockThreads)
 phi_pull_kernel(const PhiArgs a) {
   constexpr int L = VEC * N;
+  constexpr int LF = FUSED ? L : 1;
   const int lane = threadIdx.x % svt::kWarp;
   const int g = lane % G;
   const unsigned mask = svt::group_mask<G>(lane);
-  const int64_t item =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
-  if (item >= a.n_items) return;  // the whole group leaves together
-  int64_t p;
-  int begin, end;
-  if (!phi_item(a, item, &p, &begin, &end)) return;
   const int k = a.k;
+  const int32_t* nbr = a.items.nbr;
+  const int64_t first =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  // kernel 2 is launched with a group for every item, so its loop runs
+  // once; kernel 5's groups stride over the items and keep s3 across them
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x / G;
 
-  // base = Elogpi[p] + Elogbeta0; columns past K hold -inf, so their
-  // logits never win the max and their exp is 0
   float base[L], acc[L], cur[L], nxt[L];
-  svt::load_row<VEC, G, N>(a.elogpi + p * k, k, g, -INFINITY, base);
-  svt::load_row<VEC, G, N>(a.elb0, k, g, 0.0f, cur);
+  float own[LF], other[LF], s3[LF];
 #pragma unroll
-  for (int i = 0; i < L; ++i) {
-    base[i] += cur[i];
-    acc[i] = 0.0f;
-  }
+  for (int i = 0; i < LF; ++i) s3[i] = 0.0f;
 
-  // G neighbour ids at a time, one per lane, handed round by shuffle
-  for (int chunk = begin; chunk < end; chunk += G) {
-    const int cnt = min(G, end - chunk);
-    const int mine = g < cnt ? a.nbr[chunk + g] : 0;
-    int64_t q = __shfl_sync(mask, mine, 0, G);
-    svt::load_row<VEC, G, N>(a.elogpi + q * k, k, g, 0.0f, cur);
-    for (int j = 0; j < cnt; ++j) {
-      if (j + 1 < cnt) {  // uniform across the group
-        q = __shfl_sync(mask, mine, j + 1, G);
-        svt::load_row<VEC, G, N>(a.elogpi + q * k, k, g, 0.0f, nxt);
-      }
-      float m = -INFINITY;
+  // item, p, begin and end are the same in every lane of a group, so the
+  // group takes each branch below together
+  for (int64_t item = first; item < a.items.n_items; item += step) {
+    int64_t p;
+    int begin, end;
+    if (!svt::adj_item(a.items, item, &p, &begin, &end)) continue;
+
+    // base = Elogpi[p] + Elogbeta0; columns past K hold -inf, so their
+    // logits never win the max and their exp is 0
+    svt::load_row<VEC, G, N>(a.elogpi + p * k, k, g, -INFINITY, base);
+    svt::load_row<VEC, G, N>(a.elb0, k, g, 0.0f, cur);
 #pragma unroll
-      for (int i = 0; i < L; ++i) {
-        cur[i] += base[i];
-        m = fmaxf(m, cur[i]);
-      }
-      m = svt::group_max<G>(m, mask);
-      float s = 0.0f;
+    for (int i = 0; i < L; ++i) {
+      base[i] += cur[i];
+      acc[i] = 0.0f;
+    }
+    if constexpr (FUSED)
+      svt::load_row<VEC, G, N>(a.mphi + p * k, k, g, 0.0f, own);
+
+    // G neighbour ids at a time, one per lane, handed round by shuffle
+    for (int chunk = begin; chunk < end; chunk += G) {
+      const int cnt = min(G, end - chunk);
+      const int mine = g < cnt ? nbr[chunk + g] : 0;
+      int64_t q = __shfl_sync(mask, mine, 0, G);
+      svt::load_row<VEC, G, N>(a.elogpi + q * k, k, g, 0.0f, cur);
+      for (int j = 0; j < cnt; ++j) {
+        bool upper = false;  // q > p: the link's lower end is here
+        if constexpr (FUSED) {
+          upper = q > p;
+          // in flight while the softmax below is computed
+          if (upper) svt::load_row<VEC, G, N>(a.mphi + q * k, k, g, 0.0f,
+                                              other);
+        }
+        if (j + 1 < cnt) {  // uniform across the group
+          q = __shfl_sync(mask, mine, j + 1, G);
+          svt::load_row<VEC, G, N>(a.elogpi + q * k, k, g, 0.0f, nxt);
+        }
+        float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < L; ++i) {
-        cur[i] = expf(cur[i] - m);
-        s += cur[i];
-      }
-      const float inv = 1.0f / svt::group_sum<G>(s, mask);
+        for (int i = 0; i < L; ++i) {
+          cur[i] += base[i];
+          m = fmaxf(m, cur[i]);
+        }
+        m = svt::group_max<G>(m, mask);
+        float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < L; ++i) {
-        acc[i] = fmaf(cur[i], inv, acc[i]);
-        cur[i] = nxt[i];
+        for (int i = 0; i < L; ++i) {
+          cur[i] = expf(cur[i] - m);
+          s += cur[i];
+        }
+        const float inv = 1.0f / svt::group_sum<G>(s, mask);
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          acc[i] = fmaf(cur[i], inv, acc[i]);
+          cur[i] = nxt[i];
+        }
+        if constexpr (FUSED) {
+          if (upper) {
+#pragma unroll
+            for (int i = 0; i < L; ++i) s3[i] = fmaf(own[i], other[i], s3[i]);
+          }
+        }
       }
     }
+    svt::store_row<VEC, G, N>(a.out + item * k, k, g, acc);
   }
-  svt::store_row<VEC, G, N>(a.out + item * k, k, g, acc);
+  if constexpr (FUSED) {
+    __shared__ float smem[svt::kBlockThreads * L];
+    svt::block_colsum<VEC, G, N>(
+        s3, k, smem, a.s3_partial + static_cast<int64_t>(blockIdx.x) * k);
+  }
 }
 
 // Any K: one warp per item, nothing held per column.
@@ -149,10 +179,10 @@ phi_pull_wide_kernel(const PhiArgs a) {
   const int64_t item =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) /
       svt::kWarp;
-  if (item >= a.n_items) return;
+  if (item >= a.items.n_items) return;
   int64_t p;
   int begin, end;
-  if (!phi_item(a, item, &p, &begin, &end)) return;
+  if (!svt::adj_item(a.items, item, &p, &begin, &end)) return;
   const int k = a.k;
   const float* rp = a.elogpi + p * k;
   float* orow = a.out + item * k;
@@ -160,7 +190,7 @@ phi_pull_wide_kernel(const PhiArgs a) {
     for (int c = lane; c < k; c += svt::kWarp) orow[c] = 0.0f;
 
   for (int i = begin; i < end; ++i) {
-    const float* rq = a.elogpi + static_cast<int64_t>(a.nbr[i]) * k;
+    const float* rq = a.elogpi + static_cast<int64_t>(a.items.nbr[i]) * k;
     // pass 1: per-lane online softmax over columns lane, lane+32, ...
     float m = -INFINITY;
     float s = 0.0f;
@@ -205,22 +235,60 @@ phi_combine_kernel(const float* __restrict__ partial,
   gacc[static_cast<int64_t>(hub_node[h]) * k + c] = s;
 }
 
-void launch_pull(const PhiArgs& a, cudaStream_t stream) {
-  if (a.n_items == 0) return;
+// Launch over a.items; with `fused`, kernel 5 (K <= kRegMaxK only). Returns
+// the number of blocks, which for kernel 5 is the number of s3 scratch rows
+// written.
+unsigned launch_pull(const PhiArgs& a, bool fused, cudaStream_t stream) {
+  unsigned blocks = 0;
+  if (a.items.n_items == 0) return blocks;
   if (a.k > svt::kRegMaxK) {
-    phi_pull_wide_kernel<<<svt::blocks_for(a.n_items, svt::kWarp),
-                           svt::kBlockThreads, 0, stream>>>(a);
-    return;
+    blocks = svt::blocks_for(a.items.n_items, svt::kWarp);
+    phi_pull_wide_kernel<<<blocks, svt::kBlockThreads, 0, stream>>>(a);
+    return blocks;
   }
   const bool aligned = a.k % 4 == 0 && svt::aligned16(a.elogpi) &&
-                       svt::aligned16(a.elb0) && svt::aligned16(a.out);
+                       svt::aligned16(a.elb0) && svt::aligned16(a.out) &&
+                       svt::aligned16(a.mphi);
   svt::dispatch_row(a.k, aligned, [&](auto vec, auto grp, auto cnt) {
     constexpr int VEC = decltype(vec)::value;
     constexpr int G = decltype(grp)::value;
     constexpr int N = decltype(cnt)::value;
-    phi_pull_kernel<VEC, G, N><<<svt::blocks_for(a.n_items, G),
-                                 svt::kBlockThreads, 0, stream>>>(a);
+    if (fused) {
+      blocks = svt::reduce_blocks_for(a.items.n_items, G);
+      phi_pull_kernel<VEC, G, N, true>
+          <<<blocks, svt::kBlockThreads, 0, stream>>>(a);
+    } else {
+      blocks = svt::blocks_for(a.items.n_items, G);
+      phi_pull_kernel<VEC, G, N, false>
+          <<<blocks, svt::kBlockThreads, 0, stream>>>(a);
+    }
   });
+  return blocks;
+}
+
+// The pass over nodes, the pass over hub segments and the hubs' combine.
+// Returns the number of s3 scratch rows written (kernel 5).
+unsigned launch_phi(PhiArgs a, bool fused, const int32_t* hub_node,
+                    const int32_t* hub_segptr, const int32_t* seg_node,
+                    const int32_t* seg_begin, const int32_t* seg_end,
+                    float* partial, int64_t n_hubs, int64_t n_segs,
+                    cudaStream_t stream) {
+  float* gacc = a.out;
+  unsigned rows = launch_pull(a, fused, stream);
+  if (n_segs > 0) {
+    a.items.seg_node = seg_node;
+    a.items.seg_begin = seg_begin;
+    a.items.seg_end = seg_end;
+    a.items.n_items = n_segs;
+    a.out = partial;
+    if (fused) a.s3_partial += static_cast<int64_t>(rows) * a.k;
+    rows += launch_pull(a, fused, stream);
+    const dim3 grid(static_cast<unsigned>(n_hubs),
+                    (a.k + svt::kBlockThreads - 1) / svt::kBlockThreads);
+    phi_combine_kernel<<<grid, svt::kBlockThreads, 0, stream>>>(
+        partial, hub_node, hub_segptr, gacc, a.k);
+  }
+  return rows;
 }
 
 }  // namespace
@@ -235,20 +303,34 @@ extern "C" int svt_phi_pass(const float* elogpi, const float* elb0,
                             int64_t n_segs, int k, int seg_len,
                             cudaStream_t stream) {
   if (k <= 0) return static_cast<int>(cudaGetLastError());
-  PhiArgs a{elogpi, elb0, rowptr, nbr, nullptr, nullptr, nullptr,
-            gacc,   n,    k,      seg_len};
-  launch_pull(a, stream);
-  if (n_segs > 0) {
-    a.seg_node = seg_node;
-    a.seg_begin = seg_begin;
-    a.seg_end = seg_end;
-    a.out = partial;
-    a.n_items = n_segs;
-    launch_pull(a, stream);
-    const dim3 grid(static_cast<unsigned>(n_hubs),
-                    (k + svt::kBlockThreads - 1) / svt::kBlockThreads);
-    phi_combine_kernel<<<grid, svt::kBlockThreads, 0, stream>>>(
-        partial, hub_node, hub_segptr, gacc, k);
-  }
+  const PhiArgs a{{rowptr, nbr, nullptr, nullptr, nullptr, n, seg_len},
+                  elogpi, elb0, gacc, k, nullptr, nullptr};
+  launch_phi(a, false, hub_node, hub_segptr, seg_node, seg_begin, seg_end,
+             partial, n_hubs, n_segs, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 5: svt_phi_pass, and s3 (K,) = sum over links of
+// mphi[p] * mphi[q] from the same walk. K <= svt::kRegMaxK; s3_partial is
+// scratch of 2 * svt::kReduceBlocks rows of K.
+extern "C" int svt_phi_s3_pass(const float* elogpi, const float* mphi,
+                               const float* elb0, const int32_t* rowptr,
+                               const int32_t* nbr, const int32_t* hub_node,
+                               const int32_t* hub_segptr,
+                               const int32_t* seg_node,
+                               const int32_t* seg_begin,
+                               const int32_t* seg_end, float* partial,
+                               float* gacc, float* s3_partial, float* s3,
+                               int64_t n, int64_t n_hubs, int64_t n_segs,
+                               int k, int seg_len, cudaStream_t stream) {
+  if (k <= 0) return static_cast<int>(cudaGetLastError());
+  if (k > svt::kRegMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  const PhiArgs a{{rowptr, nbr, nullptr, nullptr, nullptr, n, seg_len},
+                  elogpi, elb0, gacc, k, mphi, s3_partial};
+  const unsigned rows =
+      launch_phi(a, true, hub_node, hub_segptr, seg_node, seg_begin, seg_end,
+                 partial, n_hubs, n_segs, stream);
+  svt::launch_colsum_partials(s3_partial, static_cast<int>(rows), k, k, s3,
+                              stream);
   return static_cast<int>(cudaGetLastError());
 }

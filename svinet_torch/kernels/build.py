@@ -43,12 +43,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
+# rows of the (rows, K) scratch a kernel that sums columns across rows is
+# given: twice csrc/common.cuh's kReduceBlocks (two sums, or the pass over
+# nodes and the pass over hub segments)
+REDUCE_SCRATCH_ROWS = 2 * 1056
 # entry point -> argument types (pointers, sizes, then the stream)
 SIGNATURES = {
     "svt_dirichlet_expectation": (_P, _P, _I64, _I32, _P),
     # elogpi, elb0, the seven adjacency arrays, partial, gacc, n, n_hubs,
     # n_segs, k, seg_len
     "svt_phi_pass": (_P,) * 11 + (_I64, _I64, _I64, _I32, _I32, _P),
+    # gacc, deg, sumk, mphi, partial, s12, n, k, alpha, n_nodes, ones,
+    # annealing
+    "svt_mean_indicator": (_P,) * 6 + (_I64, _I32, _F32, _F32, _F32, _I32,
+                                       _P),
+    # mphi, rowptr, nbr, seg_node, seg_begin, seg_end, partial, s3, n,
+    # n_segs, k, seg_len
+    "svt_s3_pass": (_P,) * 8 + (_I64, _I64, _I32, _I32, _P),
+    # elogpi, mphi, elb0, the seven adjacency arrays, partial, gacc,
+    # s3_partial, s3, n, n_hubs, n_segs, k, seg_len
+    "svt_phi_s3_pass": (_P,) * 14 + (_I64, _I64, _I64, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

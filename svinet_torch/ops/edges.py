@@ -1,5 +1,6 @@
 """Edge-array utilities: padding and blocking for the blocked edge passes
-(svinet_tpu/ops/edges.py), and the adjacency the phi kernel walks."""
+(svinet_tpu/ops/edges.py), and the adjacency the phi and s3 kernels
+walk."""
 
 from __future__ import annotations
 
@@ -53,14 +54,15 @@ def choose_edge_block(n_edges: int, k: int) -> int:
     return 1 << int(np.floor(np.log2(limit)))
 
 
-# Longest adjacency list one warp of the phi kernel walks. A node with
+# Longest adjacency list one warp of the phi and s3 kernels walks. A node with
 # more neighbours (a hub) is cut into segments of this length, so its work
 # spreads over many warps instead of serialising on one.
 SEG_LEN = 256
 
 
 class Adjacency(NamedTuple):
-    """Symmetric CSR of the real training links, the phi pass's input.
+    """Symmetric CSR of the real training links, the input of the phi
+    pass, the s3 pass and the fused pass.
 
     Every link (p, q) appears twice: q in p's list and p in q's. Padding
     rows of the padded edge arrays are absent, so no mask is needed, and a

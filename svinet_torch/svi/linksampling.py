@@ -1,4 +1,4 @@
-"""LinkSampling engine, single device, default flags
+"""LinkSampling engine, single device, with -fuse-s3 and -report-batch
 (svinet_tpu/svi/linksampling.py).
 
 One iteration is one full sweep over the training links with the
@@ -10,7 +10,8 @@ scattered into gamma_hat[p] and gamma_hat[q], followed by the mean-
 indicator nonlink correction and the lambda cross-moment (reference:
 src/linksampling.cc:526-545, 605-749). The sweeps between two report
 boundaries run back to back on the device and end with the validation
-heldout sums, so a report costs one host synchronisation.
+heldout sums, so a report costs one host synchronisation; -report-batch B
+runs B such intervals before the host reads anything.
 """
 
 from __future__ import annotations
@@ -30,42 +31,101 @@ from svinet_torch.ops.edges import (
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
-    LSConsts, edge_blocks, finish_lambda, mean_indicator_update, phi_pass,
-    s3_pass)
+    LSConsts, edge_blocks, finish_lambda, fused_phi_s3_pass,
+    mean_indicator_update, phi_pass, s3_pass)
 
 # E*K above which the init phis are drawn on the device, blocked: the host
 # (E,K) float64 phi matrix of the n=1M, K=500 shape would need 80 GB
 DEVICE_INIT_MIN = 1 << 28
 
 
-def sweep(gamma, lam, edges, mask, adj: Adjacency, deg, consts: LSConsts,
-          annealing: bool, num_blocks: int):
-    """One full sweep over the training links: the phi pass walks their
-    adjacency `adj`, the s3 pass their padded (edges, mask) list. Returns
-    the new (gamma, lam); the inputs are not modified."""
+def sweep(gamma, lam, adj: Adjacency, deg, consts: LSConsts,
+          annealing: bool):
+    """One full sweep over the training links, whose adjacency `adj` the
+    phi pass and the s3 pass walk. Returns the new (gamma, lam); the
+    inputs are not modified."""
     elogpi = dirichlet_expectation(gamma)
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
     gacc, sumk = phi_pass(elogpi, elb0, adj)
     del elogpi
     gnext, mphi, s1, s2, lam0 = mean_indicator_update(
         gacc, sumk, deg, consts, annealing)
-    s3 = s3_pass(mphi, edges, mask, num_blocks)
+    s3 = s3_pass(mphi, adj)
     return gnext, finish_lambda(s1, s2, s3, lam0, consts)
 
 
-def multi_sweep_ho(gamma, lam, edges, mask, adj: Adjacency, deg,
-                   consts: LSConsts, annealing: bool, ho_pairs, ho_y, ho_w,
-                   epsilon: float,
-                   num_blocks: int, n_sweeps: int, ho_blocks: int):
+def fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
+                annealing: bool):
+    """The -fuse-s3 sweep (svinet_tpu/svi/linksampling.py:132-150): one
+    pass over the links gives the phi sums and the s3 cross-moment of
+    `mphi`, the mean indicators of the sweep BEFORE, so s3 lags one sweep
+    while s1 and s2 are current; with mphi = 0 (the first sweep) s3 is 0.
+    Returns (gamma, lam, mphi of this sweep). gamma and lam are not
+    modified; `mphi` is overwritten with the new mean indicators and
+    returned, on the CPU as on the card, so a caller that still needs the
+    old ones passes a clone."""
+    elogpi = dirichlet_expectation(gamma)
+    elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
+    gacc, sumk, s3 = fused_phi_s3_pass(elogpi, mphi, elb0, adj)
+    del elogpi
+    gnext, mphi_new, s1, s2, lam0 = mean_indicator_update(
+        gacc, sumk, deg, consts, annealing, mphi_out=mphi)
+    return gnext, finish_lambda(s1, s2, s3, lam0, consts), mphi_new
+
+
+def multi_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
+                annealing: bool, n_sweeps: int, fused: bool):
+    """n_sweeps sweeps back to back; `fused` takes the -fuse-s3 body,
+    which carries mphi, otherwise mphi passes through untouched. Returns
+    (gamma, lam, mphi)."""
+    for _ in range(n_sweeps):
+        if fused:
+            gamma, lam, mphi = fused_sweep(gamma, lam, mphi, adj, deg,
+                                           consts, annealing)
+        else:
+            gamma, lam = sweep(gamma, lam, adj, deg, consts, annealing)
+    return gamma, lam, mphi
+
+
+def sweep_ho_trace(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
+                   annealing: bool, ho_pairs, ho_y, ho_w, epsilon: float,
+                   r: int, n_batches: int, ho_blocks: int, fused: bool):
+    """n_batches report boundaries, r sweeps apart, with the six
+    validation heldout sums of the state at EVERY boundary
+    (svinet_tpu/svi/linksampling.py:194-234); `fused` as in multi_sweep.
+    Nothing in here reads a value back to the host. Returns
+    (gamma, lam, mphi, trace (n_batches, 6))."""
+    trace = []
+    for _ in range(n_batches):
+        gamma, lam, mphi = multi_sweep(gamma, lam, mphi, adj, deg, consts,
+                                       annealing, r, fused)
+        trace.append(heldout_sums_blocked(gamma, lam, ho_pairs, ho_y, ho_w,
+                                          epsilon, ho_blocks))
+    return gamma, lam, mphi, torch.stack(trace)
+
+
+def multi_sweep_ho(gamma, lam, adj: Adjacency, deg, consts: LSConsts,
+                   annealing: bool, ho_pairs, ho_y, ho_w, epsilon: float,
+                   n_sweeps: int, ho_blocks: int):
     """n_sweeps sweeps, then the six validation heldout sums on the final
     state (svinet_tpu/svi/linksampling.py:240-260). Returns
     (gamma, lam, sums)."""
-    for _ in range(n_sweeps):
-        gamma, lam = sweep(gamma, lam, edges, mask, adj, deg, consts,
-                           annealing, num_blocks)
-    sums = heldout_sums_blocked(gamma, lam, ho_pairs, ho_y, ho_w, epsilon,
-                                ho_blocks)
-    return gamma, lam, sums
+    gamma, lam, _, trace = sweep_ho_trace(
+        gamma, lam, None, adj, deg, consts, annealing, ho_pairs, ho_y, ho_w,
+        epsilon, n_sweeps, 1, ho_blocks, False)
+    return gamma, lam, trace[0]
+
+
+def fused_multi_sweep_ho(gamma, lam, mphi, adj: Adjacency, deg,
+                         consts: LSConsts, annealing: bool, ho_pairs, ho_y,
+                         ho_w, epsilon: float, n_sweeps: int, ho_blocks: int):
+    """n_sweeps -fuse-s3 sweeps with the heldout-sums tail
+    (svinet_tpu/svi/linksampling.py:170-188). Returns
+    (gamma, lam, mphi, sums)."""
+    gamma, lam, mphi, trace = sweep_ho_trace(
+        gamma, lam, mphi, adj, deg, consts, annealing, ho_pairs, ho_y, ho_w,
+        epsilon, n_sweeps, 1, ho_blocks, True)
+    return gamma, lam, mphi, trace[0]
 
 
 def init_gamma_from_links(rng: np.random.Generator, edges: np.ndarray,
@@ -111,11 +171,11 @@ class LinkSampling(EngineBase):
         n, k = self.n, self.k
         block = choose_edge_block(len(network.training_links), k)
         edges_p, mask = pad_edges(network.training_links, block)
-        self.num_blocks = edges_p.shape[0] // block
         self.edges = torch.as_tensor(edges_p, device=device)
         self.mask = torch.as_tensor(mask, device=device)
-        # the same links as a symmetric CSR, built once: what the phi
-        # pass walks (padding rows are absent from it)
+        # the same links as a symmetric CSR, built once: what the phi and
+        # s3 passes walk (padding rows are absent from it); the padded
+        # list serves the community extraction
         self.adj = build_adjacency(network.training_links, n, device)
         self.deg = torch.as_tensor(network.training_deg.astype(np.float32),
                                    device=device)
@@ -140,6 +200,13 @@ class LinkSampling(EngineBase):
         self.consts = LSConsts.make(cfg.alpha, cfg.eta0, cfg.eta1,
                                     network.ones, n)
         self.annealing = True
+        # -fuse-s3 carries the mean indicators across sweeps; zeros before
+        # the first sweep (and after -load), so its s3 is 0
+        self.mphi = None
+        if cfg.fuse_s3:
+            cfg.plog("fuse s3", True)
+            self.mphi = torch.zeros((n, k), dtype=torch.float32,
+                                    device=device)
 
         # the validation pairs, padded once to whole blocks, ride the tail
         # of every step; _ho_res holds the sums of the last step
@@ -160,16 +227,21 @@ class LinkSampling(EngineBase):
         sums are computed on the final state as the step's tail."""
         self._ho_res = None
         if self._ho is None:
-            for _ in range(n_sweeps):
-                self.gamma, self.lam = sweep(
-                    self.gamma, self.lam, self.edges, self.mask, self.adj,
-                    self.deg, self.consts, self.annealing, self.num_blocks)
+            self.gamma, self.lam, self.mphi = multi_sweep(
+                self.gamma, self.lam, self.mphi, self.adj, self.deg,
+                self.consts, self.annealing, n_sweeps, self.mphi is not None)
             return
+        self._ho_res = self._run_trace(n_sweeps, 1)[0]
+
+    def _run_trace(self, r: int, n_batches: int) -> torch.Tensor:
+        """Advance the state by n_batches intervals of r sweeps; returns
+        the (n_batches, 6) heldout sums, still on the device."""
         hp, hy, hw, nb = self._ho
-        self.gamma, self.lam, self._ho_res = multi_sweep_ho(
-            self.gamma, self.lam, self.edges, self.mask, self.adj, self.deg,
-            self.consts, self.annealing, hp, hy, hw, self.cfg.epsilon,
-            self.num_blocks, n_sweeps, nb)
+        self.gamma, self.lam, self.mphi, trace = sweep_ho_trace(
+            self.gamma, self.lam, self.mphi, self.adj, self.deg, self.consts,
+            self.annealing, hp, hy, hw, self.cfg.epsilon, r, n_batches, nb,
+            self.mphi is not None)
+        return trace
 
     def _heldout(self, pairs, y):
         """The validation split is served from the step's tail sums."""
@@ -187,7 +259,8 @@ class LinkSampling(EngineBase):
         monotone decline of -anneal-decline-sweeps sweeps; iteration 1000
         is a backstop."""
         stop = super().report()
-        self._log_convergence()
+        if not self._light_report:
+            self._log_convergence()
         if self.annealing:
             h = getattr(self, "_anneal_hist", [])
             h.append(self.stopper.prev_h)     # prev_h = this report's nshol
@@ -280,10 +353,47 @@ class LinkSampling(EngineBase):
         self.write_auc()
 
     # ------------------------------------------------------------------
+    def _trace_intervals(self, j: int, r: int, batch: int, timef,
+                         last_t: float) -> bool:
+        """-report-batch: run `batch` report intervals (r sweeps each)
+        before the host reads anything, copy the (batch, 6) heldout sums
+        over in one transfer, then replay the rows through the normal
+        report path in order (svinet_tpu/svi/linksampling.py:1213-1272).
+        The rows are the exact per-boundary values; stop and annealing
+        decisions land up to batch-1 intervals late (the extra sweeps only
+        converge the state further), and the heavy per-report extras
+        (community extraction, convergence log, test-set evals,
+        training-sample rows) run on the batch's last row only. A stop
+        inside a batch leaves the later rows unwritten and the state at
+        the batch's end. Returns True when the run stopped."""
+        cfg = self.cfg
+        b_eff = batch
+        if cfg.max_iterations:
+            b_eff = min(batch, (cfg.max_iterations - j) // r + 1)
+        rows = self._run_trace(r, b_eff).cpu()
+        now = time.time()
+        timef.write(f"{j + (b_eff - 1) * r}\t"
+                    f"{(now - last_t) / (b_eff * r):.6f}\t"
+                    f"{self.duration()}\n")
+        timef.flush()
+        for idx in range(b_eff):
+            self.iteration = j + idx * r
+            self._ho_res = rows[idx]
+            self._light_report = idx < b_eff - 1
+            stop = self.report()
+            self._light_report = False
+            if stop:
+                self.do_on_stop()
+                return True
+        self.iteration = j + (b_eff - 1) * r + 1
+        return False
+
     def infer(self) -> None:
         """Sweep until the stopping rule or -max-iterations;
         reports fire at iterations 0, r, 2r, ... (r = -rfreq), and every
-        sweep up to the next boundary runs in one step."""
+        sweep up to the next boundary runs in one step. With
+        -report-batch B > 1 and a validation split, B whole intervals run
+        per host round trip (_trace_intervals)."""
         cfg = self.cfg
         timef = open(cfg.file_str("time.txt"), "w")
         try:
@@ -292,6 +402,9 @@ class LinkSampling(EngineBase):
             if self.iteration == 0:
                 self.report()
                 self.iteration = 1
+            batch = max(1, int(cfg.report_batch))
+            # without a validation split there are no sums to trace
+            use_trace = batch > 1 and self._ho is not None
             while True:
                 if cfg.max_iterations and self.iteration > cfg.max_iterations:
                     self.do_on_stop()
@@ -300,6 +413,11 @@ class LinkSampling(EngineBase):
                 if cfg.max_iterations:
                     j = min(j, cfg.max_iterations)
                 todo = j - self.iteration + 1
+                if use_trace and todo == r:
+                    if self._trace_intervals(j, r, batch, timef, last_t):
+                        return
+                    last_t = time.time()
+                    continue
                 self.step(todo)
                 now = time.time()
                 timef.write(f"{j}\t{(now - last_t) / todo:.6f}\t"

@@ -88,8 +88,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-link-sampling", "-fuse-s3"], "-fuse-s3"),
-    (["-link-sampling", "-report-batch", "4"], "-report-batch"),
+    (["-link-sampling", "-mesh-rowshard"], "-mesh-rowshard"),
+    (["-link-sampling", "-dist-coordinator", "host:1"], "-dist-coordinator"),
     (["-link-sampling", "-bf16"], "-bf16"),
     (["-link-sampling", "-freeze"], "-freeze"),
     (["-link-sampling", "-prune"], "-prune"),
