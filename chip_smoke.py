@@ -20,6 +20,8 @@ gamma) are each held to their plain versions like the kernels themselves,
 and so are the launches of a compacted sweep (pad columns at alpha with
 -1e30 logits, K_pad from 8 to 256), whose pad columns must come out exact;
 the -prune engine's state is looked at while it is still compacted.
+The held-out sums kernel is held to the plain tail it replaces and to its
+own arithmetic in plain PyTorch.
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -67,9 +69,13 @@ import torch
 # between the two f32 results can cross a rounding boundary, so that
 # comparison allows one bf16 step, 2^-7 of the value. The converged flags
 # and the bf16 copy of mphi that kernel 3 makes must equal converged_of and
-# a cast of the gnext and mphi it wrote, exactly.
+# a cast of the gnext and mphi it wrote, exactly. Kernel 6 (the held-out
+# sums) divides each gathered row by its own sum as the plain version
+# divides every row, and adds the pairs' terms in another order: its six
+# sums are held to 1e-5 relative, the bound of tests/test_torch_heldout.py.
 DEXP_ATOL = 5e-5
 PHI_TOL = 1e-4
+HELDOUT_RTOL = 1e-5
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and f32 rate outside the tensor cores. A kernel's bound is the
 # larger of its bytes over the one and its operations over the other.
@@ -122,6 +128,10 @@ PHI_SHAPES = ((1_000_000, 500, 2_000_000, 0), (20_000, 20, 200_000, 0),
 FORM_SHAPES = ((1_000_000, 500, 2_000_000, 0), (20_000, 20, 200_000, 0),
                (20_000, 33, 200_000, 3_000), (100_000, 640, 300_000, 2_000),
                (20_000, 16, 200_000, 0))
+# kernel 6: (n, K, held-out pairs); K=640 takes the wide kernel. The pairs
+# are padded to whole blocks with weight 0, as the engine pads them
+HELDOUT_SHAPES = ((1_000_000, 500, 400_000), (20_000, 20, 4_000),
+                  (100_000, 640, 50_000))
 # compacted sweeps (-prune): (n, full K, K_pad, active columns, random
 # edges). The first is what phase 2's forced dead-column engine sweeps
 # (K_pad = 8: four rows share a warp); then K_pad = 16, 64 and 256, and the
@@ -483,7 +493,9 @@ def phase1_sweep_passes(dev):
         log(f"phase 1: fused_phi_s3_pass {shape}: "
             f"{'kernel' if k <= 512 else 'kernel 2 then kernel 4'} "
             f"{ms:.4f} ms, kernel 2 then kernel 4 {ms_24:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), max err "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"uncached-gather floor (3 rows a link) "
+            f"{gather_floor_ms(n, k, n_links, 3, 4, 12):.4f} ms, max err "
             f"gacc (abs) and s3 (relative) {err5:.3e}, two launches bitwise "
             f"equal")
         rep_fused = _report(err5, ms, plain_ms, bnd)
@@ -933,6 +945,87 @@ def phase1_compact(dev):
         torch.cuda.empty_cache()
 
 
+def heldout_bound(k, n_pairs, padded):
+    """The two gamma rows of every real pair read once, the padded pairs,
+    labels and weights read once, beta read; per pair and column two
+    divisions, three products and five additions."""
+    return bound(8.0 * n_pairs * k + 16.0 * padded + 4.0 * k,
+                 10.0 * n_pairs * k)
+
+
+def phase1_heldout(dev):
+    """Kernel 6 at every shape of HELDOUT_SHAPES, on pairs padded with
+    weight 0: its six sums against the plain tail it replaces (the (n,K) pi,
+    then heldout_sums_from_pi) and against its own arithmetic in plain
+    PyTorch at HELDOUT_RTOL relative, two launches bitwise equal, the same
+    sums without the padding; heldout_stats through the kernel against the
+    plain sums."""
+    from svinet_torch.evals.likelihood import (
+        _pi_beta, heldout_stats, heldout_sums, heldout_sums_from_pi,
+        heldout_sums_rows_plain, result_from_sums)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    report = None
+    eps = 1e-30
+    for n, k, m in HELDOUT_SHAPES:
+        # rows from nearly one community to spread out, so that 1 - inner
+        # of a non-link is met near 0 and near 1
+        gamma = 0.002 + torch.rand((n, k), generator=gen, device=dev) ** 8 * 40
+        home = torch.randint(0, 8, (n,), generator=gen, device=dev)
+        gamma[torch.arange(0, n, 2, device=dev), home[::2]] += 300.0
+        lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device=dev)
+        block = min(1 << 17, max(64, 1 << int(np.ceil(np.log2(m)))))
+        padded = -(-m // block) * block
+        nb = padded // block
+        pairs = torch.zeros((padded, 2), dtype=torch.int32, device=dev)
+        pairs[:m] = torch.randint(0, n, (m, 2), generator=gen, device=dev)
+        y = torch.zeros(padded, dtype=torch.int32, device=dev)
+        y[:m:2] = 1
+        w = (torch.arange(padded, device=dev) < m).float()
+
+        def plain_tail():
+            pi, beta = _pi_beta(gamma, lam)
+            return heldout_sums_from_pi(pi, beta, pairs, y, w, eps, nb)
+
+        got = heldout_sums(gamma, lam, pairs, y, w, eps)
+        again = heldout_sums(gamma, lam, pairs, y, w, eps)
+        bare = heldout_sums(gamma, lam, pairs[:m], y[:m], w[:m], eps)
+        want = plain_tail()
+        rows = heldout_sums_rows_plain(gamma, lam, pairs, y, w, eps, nb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (n, k, "two launches differ")
+        # padding adds exactly 0; the launch shape (and with it the order of
+        # the additions) depends on the number of pairs, hence allclose
+        assert torch.allclose(got, bare, rtol=HELDOUT_RTOL, atol=0.0)
+        assert got.tolist()[1::2] == [m, m - (m + 1) // 2, (m + 1) // 2], got
+        assert torch.isfinite(got).all() and float(got[0]) < 0.0
+        err = max(float(((got - ref) / ref).abs().max())
+                  for ref in (want, rows))
+        assert err < HELDOUT_RTOL, (n, k, err, got, want, rows)
+        res = heldout_stats(gamma, lam, pairs[:m], y[:m], eps)
+        ref = result_from_sums(want)
+        assert (res.count, res.count0, res.count1) == (
+            ref.count, ref.count0, ref.count1)
+        assert abs(res.avg - ref.avg) <= HELDOUT_RTOL * abs(ref.avg)
+        reps = 5 if n * k >= 10**7 else 50
+        ms = cuda_ms(lambda: heldout_sums(gamma, lam, pairs, y, w, eps), reps)
+        plain_ms = cuda_ms(plain_tail, reps)
+        rows_ms = cuda_ms(lambda: heldout_sums_rows_plain(
+            gamma, lam, pairs, y, w, eps, nb), reps)
+        bnd = heldout_bound(k, m, padded)
+        log(f"phase 1: heldout_sums n={n} K={k} pairs={m} (padded to "
+            f"{padded}): kernel {ms:.4f} ms, plain tail (the (n,K) pi, then "
+            f"the blocked sums) {plain_ms:.4f} ms, its arithmetic in plain "
+            f"PyTorch {rows_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"max rel err of the six sums {err:.3e}, padding adds 0, two "
+            f"launches bitwise equal")
+        if report is None:
+            report = _report(err, ms, plain_ms, bnd)
+        del gamma, pairs
+        torch.cuda.empty_cache()
+    return report
+
+
 def _run_cli(workdir, net, gt, label, extra):
     from svinet_torch.cli import main
     os.chdir(workdir)
@@ -945,14 +1038,16 @@ def _run_cli(workdir, net, gt, label, extra):
 
 
 def _wrappers():
-    """The five kernel wrappers by name; each counts its launches."""
+    """The six kernel wrappers by name; each counts its launches."""
+    from svinet_torch.evals.likelihood import heldout_sums
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass)
     return {"dirichlet_expectation": dirichlet_expectation,
             "phi_pass": phi_pass,
             "mean_indicator_update": mean_indicator_update,
-            "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass}
+            "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
+            "heldout_sums": heldout_sums}
 
 
 def _zero_counts():
@@ -1036,6 +1131,10 @@ def phase2(workdir):
     for name in ("phi_pass", "mean_indicator_update", "s3_pass"):
         assert launches[name] == sweeps, (launches, sweeps)
     assert launches["dirichlet_expectation"] >= 2 * sweeps, launches
+    # kernel 6: the tail of every step (one sweep each here, its sums are
+    # the report's validation row), and a launch for each further row a
+    # report writes (test set, training sample)
+    assert launches["heldout_sums"] >= sweeps, launches
     per_sweep = {name: v / sweeps for name, v in launches.items()}
     log(f"phase 2: CLI on planted n={PLANTED['n']} K={PLANTED['k']}: "
         f"{secs:.1f} s, stopped at iteration {mx[0]} (why {mx[5]}), best "
@@ -1062,7 +1161,7 @@ def phase2(workdir):
         ["-max-iterations", "400", "-fuse-s3", "-report-batch",
          str(REPORT_BATCH)])
     for name in ("dirichlet_expectation", "mean_indicator_update",
-                 "fused_phi_s3_pass"):
+                 "fused_phi_s3_pass", "heldout_sums"):
         assert launches_f[name] > 0, launches_f
     assert launches_f["phi_pass"] == launches_f["s3_pass"] == 0, launches_f
     ho_f, mx_f, nmi_f = _check_outputs(out_f)
@@ -1077,6 +1176,8 @@ def phase2(workdir):
     assert sweeps_f == len(times) * REPORT_BATCH, (sweeps_f, len(times))
     for name in ("mean_indicator_update", "fused_phi_s3_pass"):
         assert launches_f[name] == sweeps_f, (launches_f, sweeps_f)
+    # a heldout row at every boundary of a batch comes from the kernel
+    assert launches_f["heldout_sums"] >= sweeps_f, launches_f
     log(f"phase 2: CLI with -fuse-s3 -report-batch {REPORT_BATCH}: "
         f"{secs_f:.1f} s (default flags {secs:.1f} s), stopped at iteration "
         f"{mx_f[0]} (why {mx_f[5]}), best nshol {mx_f[4]}, NMI {nmi_f:.6f}, "
@@ -1248,6 +1349,8 @@ def phase2_flags(workdir, net, gt, out_default, ho_default, nmi_default):
 
 
 def phase3(dev, workdir):
+    """The stretch shape: steps of three sweeps and the heldout tail under
+    each flag set, the launches counted by form."""
     from svinet_torch.evals.likelihood import result_from_sums
     from svinet_torch.svi.linksampling import from_edges
     from svinet_torch.synth import random_edges
@@ -1258,6 +1361,7 @@ def phase3(dev, workdir):
                      os.path.join(workdir, "stretch"))
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     net = eng.network
     n_train = len(net.training_links)
     # the device init adds a normalised phi to both ends of every link, so
@@ -1275,25 +1379,31 @@ def phase3(dev, workdir):
     # kernel 4 on the lagged mphi)
     three_sweeps = {"dirichlet_expectation": 6, "phi_pass": 3,
                     "mean_indicator_update": 3, "s3_pass": 3,
-                    "fused_phi_s3_pass": 0}
-    for fn in wrappers.values():
-        fn.launches = 0
+                    "fused_phi_s3_pass": 0, "heldout_sums": 1}
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
     t1 = time.perf_counter()
     eng.step(3)
     res = result_from_sums(eng._ho_res)   # synchronises
     torch.cuda.synchronize()
     dt = time.perf_counter() - t1
-    counted = {name: fn.launches for name, fn in wrappers.items()}
+    counted, forms = _read_counts()
     assert counted == three_sweeps, counted
+    assert forms == {"dirichlet_expectation:f32": 6, "phi_pass:f32": 3,
+                     "mean_indicator_update:f32": 3,
+                     "s3_pass:f32": 3, "heldout_sums:f32": 1}, forms
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(peak, step_peak)
     assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
     assert np.isfinite(res.avg) and res.count == len(net.validation_pairs)
-    peak = torch.cuda.max_memory_allocated(dev)
     rate = 3 * n_train / dt
     log(f"phase 3: n={n} K={k} training links {n_train}: set-up "
         f"{setup:.1f} s, init gamma row sums vs degree max rel err "
         f"{init_err:.3e}, 3 sweeps + heldout tail {dt:.3f} s = "
         f"{rate:.0f} edges/s, heldout avg {res.avg:.6f}, peak "
-        f"device memory {peak / 2**30:.2f} GiB, launches {counted}")
+        f"device memory {peak / 2**30:.2f} GiB since set-up began, "
+        f"{step_peak / 2**30:.2f} GiB in these steps, launches by form "
+        f"{forms}")
     assert rate >= STRETCH_MIN_EDGES_S, rate
     # the same engine past its annealing, with -bf16 (what the engine does
     # under the flag once a report has ended annealing): the sweeps gather
@@ -1321,7 +1431,7 @@ def phase3(dev, workdir):
     assert forms_b == {"dirichlet_expectation:bf16": 3,
                        "dirichlet_expectation:f32": 3, "phi_pass:bf16": 3,
                        "mean_indicator_update:bf16": 3,
-                       "s3_pass:bf16": 3}, forms_b
+                       "s3_pass:bf16": 3, "heldout_sums:f32": 1}, forms_b
     assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
     assert np.isfinite(res_b.avg) and res_b.count == res.count
     log(f"phase 3: -bf16 on the same engine, annealing over: 3 sweeps over "
@@ -1341,15 +1451,16 @@ def phase3(dev, workdir):
     eng.step(1)                       # warm-up; fills mphi
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in wrappers.values():
-        fn.launches = 0
+    _zero_counts()
     t1 = time.perf_counter()
     eng.step(3)
     res_f = result_from_sums(eng._ho_res)
     torch.cuda.synchronize()
     dt_f = time.perf_counter() - t1
-    counted = {name: fn.launches for name, fn in wrappers.items()}
+    counted, forms_f = _read_counts()
     assert counted == three_sweeps, counted
+    # the fused pass of a shape this size is kernel 2 then kernel 4
+    assert forms_f["s3_pass:f32"] == forms_f["phi_pass:f32"] == 3, forms_f
     assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
     assert torch.isfinite(eng.mphi).all() and bool(eng.mphi.any())
     assert np.isfinite(res_f.avg)
@@ -1357,7 +1468,7 @@ def phase3(dev, workdir):
         f"{dt_f:.3f} s = {3 * n_train / dt_f:.0f} edges/s, heldout avg "
         f"{res_f.avg:.6f}, peak device memory in these steps "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches "
-        f"{counted}")
+        f"by form {forms_f}")
     # -fuse-s3 with -bf16 past annealing: kernel 3 writes the carried f32
     # mphi and its bf16 rows, kernels 2 and 4 gather bf16 rows
     eng.cfg.bf16_rows = True
@@ -1375,7 +1486,7 @@ def phase3(dev, workdir):
     assert forms_fb == {"dirichlet_expectation:bf16": 3,
                         "dirichlet_expectation:f32": 3, "phi_pass:bf16": 3,
                         "mean_indicator_update:f32+bf16": 3,
-                        "s3_pass:bf16": 3}, forms_fb
+                        "s3_pass:bf16": 3, "heldout_sums:f32": 1}, forms_fb
     assert torch.equal(eng._mphi_bf16, eng.mphi.to(torch.bfloat16))
     assert torch.isfinite(eng.gamma).all() and np.isfinite(res_fb.avg)
     log(f"phase 3: -fuse-s3 -bf16, annealing over: 3 sweeps + heldout tail "
@@ -1393,10 +1504,12 @@ def phase3(dev, workdir):
     s3_p = s3_pass_pull_plain(eng.mphi, eng.adj,
                               choose_edge_block(2 * n_train, k))
     torch.cuda.synchronize()
+    assert torch.equal(s3_k, s3_pass(eng.mphi, eng.adj))
     assert torch.allclose(s3_k, s3_p, rtol=PHI_TOL, atol=PHI_TOL), \
         _rel_err(s3_k, s3_p)
     log(f"phase 3: s3_pass on the engine's mphi, {n_train} links: max err "
-        f"vs plain (relative to max(1, |plain|)) {_rel_err(s3_k, s3_p):.3e}")
+        f"vs plain (relative to max(1, |plain|)) {_rel_err(s3_k, s3_p):.3e}, "
+        f"two launches bitwise equal")
     del s3_k, s3_p
     t2 = time.perf_counter()
     build_adjacency(net.training_links, n, dev)
@@ -1443,7 +1556,9 @@ def phase3(dev, workdir):
         f"{_rel_err(s3_b, s3_bp):.3e} from its plain version), "
         f"fused_phi_s3_pass in one launch {fb_ms:.4f} ms (bound "
         f"{fused_bound(n, k, n_train, eng.adj, 2)[0]:.4f} ms, floor "
-        f"{gather_floor_ms(n, k, n_train, 3, 2, 8):.4f} ms)")
+        f"{gather_floor_ms(n, k, n_train, 3, 2, 8):.4f} ms; f32 rows: floor "
+        f"{gather_floor_ms(n, k, n_train, 3, 4, 12):.4f} ms), kernel 2 then "
+        f"kernel 4 {pb_ms + sb_ms:.4f} ms")
     del elogpi_b, mphi_b
     gacc, sumk = phi_pass(elogpi, elb0, eng.adj)
     del elogpi
@@ -1455,7 +1570,8 @@ def phase3(dev, workdir):
         f"mean_indicator_update {m_ms:.4f} ms (bound {m_bound:.4f} ms, "
         f"{m_by}), s3_pass {s_ms:.4f} ms (bound {s_bound:.4f} ms, {s_by}), "
         f"fused_phi_s3_pass in one launch {f_ms:.4f} ms (bound "
-        f"{f_bound:.4f} ms, {f_by})")
+        f"{f_bound:.4f} ms, {f_by}), kernel 2 then kernel 4 "
+        f"{p_ms + s_ms:.4f} ms")
 
 
 def main() -> int:
@@ -1469,6 +1585,7 @@ def main() -> int:
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
+    h_report = phase1_heldout(dev)
     phase1_compact(dev)
     with tempfile.TemporaryDirectory() as workdir:
         try:
@@ -1478,12 +1595,13 @@ def main() -> int:
             os.chdir(cwd)
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
-    # kernel 5 from its -fuse-s3 run. library_ms is null for all five: no
+    # kernel 5 from its -fuse-s3 run. library_ms is null for all six: no
     # single PyTorch call computes any of these functions
     # (torch.special.digamma is one part of kernel 1; gather, softmax and
     # index_add_ are kernel 2's plain version; kernel 3 is a dozen
     # elementwise calls and two sums; kernel 4 as a library route is a
-    # sparse product followed by a multiply and a sum)
+    # sparse product followed by a multiply and a sum; kernel 6 is two
+    # gathers, a dozen elementwise calls and nine sums)
     sm = "svinet_tpu/svi/sweep_math.py"
     rows = (
         ("dirichlet_expectation", "svinet_torch/csrc/dirichlet_expectation.cu",
@@ -1497,6 +1615,8 @@ def main() -> int:
          reports["s3_pass"]),
         ("fused_phi_s3_pass", "svinet_torch/csrc/phi_pass.cu", f"{sm}:160",
          reports["fused_phi_s3_pass"]),
+        ("heldout_sums", "svinet_torch/csrc/heldout_sums.cu",
+         "svinet_tpu/evals/likelihood.py:85", h_report),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

@@ -43,6 +43,22 @@
 // one lane that holds the column, under a predicate. No shared memory, no
 // atomics: the order of the additions is fixed by the adjacency, and two
 // launches give the same bits.
+//
+// The design pass around the L2. The pull needs a whole row per link, but
+// the columns of s3 are independent, so the pass can also run slab by slab
+// over column slabs of 32 to 128 bytes a row that the 50 MB L2 holds, with
+// a lane or two per link (csrc/alt/s3_slab.cu, with its wrapper, its plain
+// version and its times in tools/s3_slab.py and tools/bench_kernels.py).
+// Measured on an H100 80GB HBM3 at 700 W, K = 500, 20 links a node: the L2
+// answers about 95 G random requests a second up to 64 bytes each, so rows
+// of 32 bytes, all that fits at n = 1M, come at 3.0 TB/s, no faster than
+// DRAM serves this kernel's 2 KB rows (15.2 against 14.4 ms), while rows of
+// 64 bytes (n = 500k: 4.8 against 7.0 ms) and 128 (n = 250k: 2.1 against
+// 3.4) win; with -freeze flags the slab form loses everywhere. None of the
+// documented workloads (planted-20k, ca-AstroPh, the n = 1M stretch shape)
+// lies where it wins, and its crossover at other K and degrees is not
+// measured, so it is kept off the path and this kernel is the s3 pass at
+// every shape.
 
 #include <limits.h>
 

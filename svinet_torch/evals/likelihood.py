@@ -8,15 +8,20 @@ Mixture likelihood of a pair under the a-MMSB point estimates
   y=0:  s = sum_k  pi_p[k] pi_q[k] (1-beta_k) + (1 - sum_k pi_p[k] pi_q[k])(1-eps)
 
 with s clamped at 1e-30 before the log; nshol = zeros_prob*avg0 +
-ones_prob*avg1. Plain torch, blocked over pairs so the (B,K) gathers stay
-bounded whatever the pair-set size.
+ones_prob*avg1. On the card the six sums are one hand-written kernel
+(csrc/heldout_sums.cu) that gathers the pairs' gamma rows and never makes
+the (n,K) pi; a CPU tensor takes the plain version, blocked over pairs so
+the (B,K) gathers stay bounded whatever the pair-set size.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from svinet_torch.kernels import build
 
 PAIR_BLOCK = 1 << 17
 
@@ -69,9 +74,63 @@ def heldout_sums_from_pi(pi, beta, pairs, y, w, epsilon: float,
     return acc
 
 
+def heldout_sums_rows_plain(gamma, lam, pairs, y, w, epsilon: float,
+                            num_blocks: int) -> torch.Tensor:
+    """The six sums in the kernel's form, in plain PyTorch: gather the
+    pairs' gamma rows as they are and normalise those, each by its own sum;
+    pi of the other nodes is never made."""
+    beta = lam[:, 0] / (lam[:, 0] + lam[:, 1])
+    acc = torch.zeros(6, dtype=torch.float32, device=gamma.device)
+    for pb, yb, wb in zip(pairs.chunk(num_blocks), y.chunk(num_blocks),
+                          w.chunk(num_blocks)):
+        # the block's 2B rows, normalised: pair i is rows 2i and 2i + 1
+        rows = gamma[pb.reshape(-1).long()]
+        pi = rows / rows.sum(dim=1, keepdim=True)
+        two = torch.arange(pi.shape[0], device=gamma.device).view(-1, 2)
+        acc += _block_sums(pi, beta, two, yb, wb, epsilon)
+    return acc
+
+
+def heldout_sums(gamma, lam, pairs, y, w, epsilon: float) -> torch.Tensor:
+    """Kernel 6 (csrc/heldout_sums.cu): the six heldout sums over padded
+    pairs (weight 0 on padding) of gamma/lambda on the card, in one launch
+    over all pairs and a small one that adds the blocks' sums in order.
+    gamma (n,K) f32; pairs (m,2) and y (m,) integers; w (m,) f32."""
+    build.require_cuda(gamma, "heldout_sums")
+    dev = gamma.device
+    if gamma.dim() != 2:
+        raise ValueError(f"gamma must be (n, k), got {tuple(gamma.shape)}")
+    n, k = gamma.shape
+    m = pairs.shape[0]
+    build.check_cuda(gamma, "gamma", torch.float32, (n, k), dev)
+    build.check_cuda(lam, "lam", torch.float32, (k, 2), dev)
+    pairs = pairs.to(torch.int32).contiguous()
+    y = y.to(torch.int32).contiguous()
+    build.check_cuda(pairs, "pairs", torch.int32, (m, 2), dev)
+    build.check_cuda(y, "y", torch.int32, (m,), dev)
+    build.check_cuda(w, "w", torch.float32, (m,), dev)
+    beta = (lam[:, 0] / (lam[:, 0] + lam[:, 1])).contiguous()
+    out = torch.empty(6, dtype=torch.float32, device=dev)
+    partial = torch.empty((build.REDUCE_SCRATCH_ROWS // 2, 6),
+                          dtype=torch.float32, device=dev)
+    build.launch("svt_heldout_sums", dev, gamma.data_ptr(), beta.data_ptr(),
+                 pairs.data_ptr(), y.data_ptr(), w.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), m, k,
+                 float(np.float32(1.0 - epsilon)))
+    build.count_launch(heldout_sums, "f32")
+    return out
+
+
+heldout_sums.launches = 0
+heldout_sums.forms = {}
+
+
 def heldout_sums_blocked(gamma, lam, pairs, y, w, epsilon: float,
                          num_blocks: int) -> torch.Tensor:
-    """heldout_sums_from_pi on gamma/lambda: the tail of a sweep step."""
+    """The six heldout sums on gamma/lambda, the tail of a sweep step:
+    kernel 6 on a CUDA tensor, heldout_sums_from_pi on a CPU tensor."""
+    if gamma.device.type != "cpu":
+        return heldout_sums(gamma, lam, pairs, y, w, epsilon)
     pi, beta = _pi_beta(gamma, lam)
     return heldout_sums_from_pi(pi, beta, pairs, y, w, epsilon, num_blocks)
 
@@ -90,6 +149,10 @@ def heldout_stats(gamma, lam, pairs, y, epsilon: float,
     m = pairs.shape[0]
     if m == 0:
         return HeldoutResult(0.0, 0, 0.0, 0, 0.0, 0)
+    if gamma.device.type != "cpu":
+        ones = torch.ones(m, dtype=torch.float32, device=gamma.device)
+        return result_from_sums(heldout_sums(gamma, lam, pairs, y, ones,
+                                             epsilon))
     pi, beta = _pi_beta(gamma, lam)
     acc = torch.zeros(6, dtype=torch.float32, device=gamma.device)
     for lo in range(0, m, block):

@@ -68,6 +68,8 @@ SIGNATURES = {
     # mphi, whether it is bf16, conv, rowptr, nbr, seg_node, seg_begin,
     # seg_end, partial, s3, n, n_segs, k, seg_len
     "svt_s3_pass": (_P, _I32) + (_P,) * 8 + (_I64, _I64, _I32, _I32, _P),
+    # gamma, beta, pairs, y, w, partial, out, pairs, k, 1 - epsilon
+    "svt_heldout_sums": (_P,) * 7 + (_I64, _I32, _F32, _P),
     # elogpi, mphi, elb0, the seven adjacency arrays, partial, gacc,
     # s3_partial, s3, n, n_hubs, n_segs, k, seg_len; the second over bf16
     # rows

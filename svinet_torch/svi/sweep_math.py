@@ -483,7 +483,13 @@ def fused_phi_s3_pass_pull_plain(elogpi, mphi_prev, elb0, adj: Adjacency,
 # same limit is kept: the crossover is set by launches, not by bytes, and
 # measured in the same place, 0.060 against 0.069 ms at 8.0e6 values,
 # 0.096 against 0.095 at 2.0e7, 0.160 against 0.154 at 4.0e7 and 28.95
-# against 27.29 ms at K=500 with 20M links.
+# against 27.29 ms at K=500 with 20M links. Measured again after kernel 4's
+# design pass (which left these shapes the pull form, csrc/s3_pass.cu):
+# 0.098 against 0.141 ms at 8.0e6, 0.103 against 0.134 at 2.0e7,
+# 0.176 against 0.170 at 4.0e7, 0.497 against 0.441 at 1.2e8, 53.7 against
+# 44.0 ms at K=500 with 20M links (bf16 rows 29.1 against 27.3). The limit
+# stands, and no layout would move it: kernel 5 gathers the same 3E rows as
+# the two kernels, with more of them live in registers.
 FUSED_MAX_WORK = 20_000_000
 # widest row csrc/phi_pass.cu's register kernel holds
 FUSED_MAX_K = REG_MAX_K

@@ -30,8 +30,13 @@ kernel 4, which is what sweep_math.FUSED_MAX_WORK decides between), and
 kernels 2 and 4 with 40% of the nodes frozen to random columns, and kernel
 2 over bf16 rows as built (exp as __expf) beside a second build of the same
 source with expf. Last but one, a -prune sweep: the whole sweep at full K beside the same sweep over
-the state compacted to K_pad columns. --quick builds, launches every
-kernel once at these widths, compares and stops.
+the state compacted to K_pad columns. Kernel 4 also beside the slab
+design around the L2 that is kept off the path (csrc/alt/s3_slab.cu through
+tools/s3_slab.py), at n = 250k to 2M with K = 500 and 20 links a node and
+at narrower shapes; kernel 5 against kernel 2 then kernel 4 around
+sweep_math.FUSED_MAX_WORK; kernel 6 (the held-out sums) beside the plain
+tail it replaces. --only names the parts to run. --quick builds, launches
+every kernel once at these widths, compares and stops.
 
 Prints the card and its power limit first; writes the compiler's report
 to DIR/ptxas.log and the results to DIR/bench_kernels.json (DIR defaults
@@ -59,17 +64,21 @@ from svinet_torch.ops.edges import (
     build_adjacency, choose_edge_block, pad_edges)
 from svinet_torch.svi.linksampling import (
     SweepExtras, compact_columns, from_edges, sweep, sweep_ho_trace)
+from svinet_torch.evals.likelihood import (
+    _pi_beta, heldout_sums, heldout_sums_from_pi, heldout_sums_rows_plain)
 from svinet_torch.svi.sweep_math import (
     LSConsts, fused_phi_s3_pass, fused_phi_s3_pass_pull_plain,
     mean_indicator_update, mean_indicator_update_plain, phi_pass,
     phi_pass_pull_plain, s3_pass, s3_pass_plain, s3_pass_pull_plain)
 from svinet_torch.synth import planted_blocks, random_edges
+from svinet_torch.tools import s3_slab
 
 _P, _I64, _I32 = build._P, build._I64, build._I32
 ALT_SIGNATURES = {
     "svt_dirichlet_expectation_v1": (_P, _P, _I64, _I32, _P),
     "svt_phi_pass_edge_atomic": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     "svt_phi_half_push": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+    **s3_slab.SIGNATURES,
 }
 
 
@@ -486,10 +495,178 @@ def bench_graph_capture(n: int, k: int, intervals: int) -> list:
     return out
 
 
+def bench_s3_forms(alt, n: int, k: int, n_edges: int, quick: bool) -> dict:
+    """Kernel 4 (the pull kernel) beside the slab design kept in
+    csrc/alt/s3_slab.cu, over f32 and bf16 rows and with 40% of the nodes
+    frozen: the slab kernel at every row width whose slab is smaller than
+    the L2, copied slab-major through its scratch (one cooperative launch
+    a batch of slabs, or a launch a slab), gathering from a slab-major
+    array made beforehand (the copy's cost is the difference), in place
+    from the row-major array, with one or two 16-byte units of a row to a
+    lane, and without the L2 policy. Every variant is held to the pull
+    kernel at 1e-4 and to its own second launch bit for bit."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    links = np.unique(random_edges(n, n_edges, 6), axis=0)
+    adj = build_adjacency(links, n, "cuda")
+    fwd = s3_slab.forward_lists(adj)
+    mphi = torch.rand((n, k), generator=gen, device="cuda") / k
+    conv = torch.where(
+        torch.rand(n, generator=gen, device="cuda") < 0.4,
+        torch.randint(1, k + 1, (n,), generator=gen, device="cuda"),
+        0).to(torch.int32)
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    row = {"kernel": "s3_pass, the pull kernel and the slab design", "n": n,
+           "k": k, "links": len(links), "l2_bytes": l2, "ms": {},
+           "max_rel_err": {}}
+
+    def slab(rows, b, cv=None, **how):
+        return s3_slab.s3_slab_pass(alt, rows, fwd, b, cv, **how)
+
+    for name, rows in (("f32", mphi), ("bf16", mphi.to(torch.bfloat16))):
+        size = rows.element_size()
+        widths = [b for b in (32, 64, 128)
+                  if n * b <= l2 and 2 * b <= k * size]
+        fns = {f"{name}_pull": lambda rows=rows: s3_pass(rows, adj)}
+        for b in widths:
+            given = s3_slab.to_slabs(rows, b)
+            for lanes in (1, 2):
+                tag = f"{name}_slab{b}" + ("_lane2" if lanes == 2 else "")
+                fns[tag] = (lambda rows=rows, b=b, lanes=lanes: slab(
+                    rows, b, lane_units=lanes, persistent=False))
+                fns[tag + "_given"] = (
+                    lambda given=given, b=b, lanes=lanes: slab(
+                        given, b, layout="slabs", k=k, lane_units=lanes,
+                        persistent=False))
+            # two units a lane, one cooperative launch a batch of slabs
+            fns[f"{name}_slab{b}_lane2_persistent"] = (
+                lambda rows=rows, b=b: slab(rows, b))
+            fns[f"{name}_slab{b}_lane2_given_persistent"] = (
+                lambda given=given, b=b: slab(given, b, layout="slabs", k=k))
+            if b == 32:
+                fns[f"{name}_slab32_lane2_nohint"] = (
+                    lambda rows=rows: slab(rows, 32, hint=False))
+            if k * size % 16 == 0:
+                fns[f"{name}_slab{b}_lane2_strided"] = (
+                    lambda rows=rows, b=b: slab(rows, b, layout="strided",
+                                                persistent=False))
+        fns[f"{name}_conv_pull"] = (
+            lambda rows=rows: s3_pass(rows, adj, conv))
+        for b in widths:
+            fns[f"{name}_conv_slab{b}_lane2"] = (
+                lambda rows=rows, b=b: slab(rows, b, conv))
+        want = {False: s3_pass(rows, adj), True: s3_pass(rows, adj, conv)}
+        for fname, fn in fns.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            ref = want["conv" in fname]
+            err = float(((got - ref).abs() / ref.abs().clamp_min(1.0)).max())
+            row["max_rel_err"][fname] = err
+            assert torch.equal(got, again), (fname, "two launches differ")
+            assert torch.allclose(got, ref, rtol=1e-4, atol=1e-4), (fname, err)
+        if n * k <= 10**7:
+            block = choose_edge_block(2 * len(links), k)
+            for cv in (None, conv):
+                plain = s3_slab.s3_pass_slab_plain(rows, fwd, 32 // size,
+                                                   block, cv)
+                assert torch.allclose(want[cv is not None], plain, rtol=1e-4,
+                                      atol=1e-4), (name, cv is not None)
+        if not quick:
+            row["ms"].update(timed(fns, 3 if n * k >= 10**7 else 50))
+    # the rate at which the L2 served the gathered sectors: the links'
+    # gathered bytes over the time of the passes over a ready slab-major
+    # array
+    row["l2_gather_tb_s"] = {
+        name: len(links) * k * (4 if name.startswith("f32") else 2)
+        / (ms * 1e-3) / 1e12
+        for name, ms in row["ms"].items() if "_given" in name}
+    log(json.dumps(row))
+    return row
+
+
+def bench_fused_crossover(n: int, k: int, n_edges: int) -> dict:
+    """Kernel 5 in one launch against kernel 2 then kernel 4, f32 and bf16
+    rows: what sweep_math.FUSED_MAX_WORK decides between."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    links = np.unique(random_edges(n, n_edges, 8), axis=0)
+    adj = build_adjacency(links, n, "cuda")
+    gamma = 0.01 + 9.99 * torch.rand((n, k), generator=gen, device="cuda")
+    elogpi = dirichlet_expectation_plain(gamma)
+    del gamma
+    lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device="cuda")
+    elb0 = dirichlet_expectation_plain(lam)[:, 0].contiguous()
+    mphi = torch.rand((n, k), generator=gen, device="cuda") / k
+    bf = torch.bfloat16
+    elogpi_b, mphi_b = elogpi.to(bf), mphi.to(bf)
+    ms = timed({
+        "fused": lambda: fused_phi_s3_pass(elogpi, mphi, elb0, adj, True),
+        "phi_then_s3": lambda: fused_phi_s3_pass(elogpi, mphi, elb0, adj,
+                                                 False),
+        "fused_bf16": lambda: fused_phi_s3_pass(elogpi_b, mphi_b, elb0, adj,
+                                                True),
+        "phi_then_s3_bf16": lambda: fused_phi_s3_pass(elogpi_b, mphi_b, elb0,
+                                                      adj, False)},
+        3 if n * k >= 10**7 else 200)
+    row = {"kernel": "fused_phi_s3_pass against phi_pass then s3_pass",
+           "n": n, "k": k, "links": len(links),
+           "gathered_values": 2 * len(links) * k, "ms": ms}
+    log(json.dumps(row))
+    return row
+
+
+def bench_heldout(n: int, k: int, n_pairs: int, quick: bool) -> dict:
+    """Kernel 6 beside the plain tail it replaces (the (n,K) pi, then the
+    blocked sums) and beside its own arithmetic in plain PyTorch; the six
+    sums of the three within 1e-5 relative."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    gamma = 0.002 + torch.rand((n, k), generator=gen, device="cuda") ** 8 * 40
+    lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device="cuda")
+    block = min(1 << 17, max(64, 1 << int(np.ceil(np.log2(n_pairs)))))
+    padded = -(-n_pairs // block) * block
+    pairs = torch.zeros((padded, 2), dtype=torch.int32, device="cuda")
+    pairs[:n_pairs] = torch.randint(0, n, (n_pairs, 2), generator=gen,
+                                    device="cuda")
+    y = torch.zeros(padded, dtype=torch.int32, device="cuda")
+    y[:n_pairs:2] = 1
+    w = (torch.arange(padded, device="cuda") < n_pairs).float()
+    nb = padded // block
+    eps = 1e-30
+
+    def plain_tail():
+        pi, beta = _pi_beta(gamma, lam)
+        return heldout_sums_from_pi(pi, beta, pairs, y, w, eps, nb)
+
+    got = heldout_sums(gamma, lam, pairs, y, w, eps)
+    again = heldout_sums(gamma, lam, pairs, y, w, eps)
+    want = plain_tail()
+    rows = heldout_sums_rows_plain(gamma, lam, pairs, y, w, eps, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "two launches differ"
+    errs = {"vs_plain_tail": float(((got - want) / want).abs().max()),
+            "vs_rows_plain": float(((got - rows) / rows).abs().max())}
+    assert max(errs.values()) < 1e-5, (errs, got, want)
+    row = {"kernel": "heldout_sums", "n": n, "k": k, "pairs": n_pairs,
+           "padded_pairs": padded, "max_rel_err": errs}
+    if not quick:
+        row["ms"] = timed({
+            "kernel": lambda: heldout_sums(gamma, lam, pairs, y, w, eps),
+            "plain_tail": plain_tail,
+            "rows_plain": lambda: heldout_sums_rows_plain(
+                gamma, lam, pairs, y, w, eps, nb)},
+            5 if n * k >= 10**7 else 100)
+    log(json.dumps(row))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--no-stretch", action="store_true")
+    ap.add_argument("--only", default="",
+                    help="comma-separated parts to run: designs, compact, "
+                         "graph, s3forms, crossover, heldout (default all)")
     ap.add_argument("--out", default=str(build.BUILD_DIR),
                     help="directory for the result files")
     args = ap.parse_args()
@@ -510,31 +687,67 @@ def main() -> int:
     for line in (lib.log + alt.log).splitlines():
         if "spill" in line and "0 bytes spill stores" not in line:
             log(f"ptxas: {line.strip()}")
-    results = {"card": card, "rows": bench_dirichlet(lib, alt, args.quick)}
-    # the shapes between the first and the last place
-    # sweep_math.FUSED_MAX_WORK: where the one fused launch stops beating
-    # kernel 2 followed by kernel 4
-    shapes = [(20_000, 20, 200_000), (50_000, 20, 500_000),
-              (100_000, 20, 1_000_000), (20_000, 128, 200_000),
-              (300_000, 20, 3_000_000), (100_000, 64, 1_000_000),
-              (20_000, 500, 200_000), (300_000, 64, 3_000_000),
-              (1_000_000, 20, 10_000_000),
-              (1_000_000, 64, 10_000_000), (1_000_000, 128, 10_000_000),
-              (1_000_000, 256, 10_000_000), (1_000_000, 500, 2_000_000)]
-    if not (args.quick or args.no_stretch):
-        shapes.append((1_000_000, 500, 20_000_000))
-    for n, k, e in shapes:
-        results["rows"].extend(bench_phi(alt, n, k, e, args.quick))
-        torch.cuda.empty_cache()
+    only = set(filter(None, args.only.split(",")))
+
+    def part(name: str) -> bool:
+        return not only or name in only
+
+    results = {"card": card, "rows": []}
+    stretch = not (args.quick or args.no_stretch)
+    if part("designs"):
+        results["rows"] += bench_dirichlet(lib, alt, args.quick)
+        # the shapes between the first and the last place
+        # sweep_math.FUSED_MAX_WORK: where the one fused launch stops
+        # beating kernel 2 followed by kernel 4
+        shapes = [(20_000, 20, 200_000), (50_000, 20, 500_000),
+                  (100_000, 20, 1_000_000), (20_000, 128, 200_000),
+                  (300_000, 20, 3_000_000), (100_000, 64, 1_000_000),
+                  (20_000, 500, 200_000), (300_000, 64, 3_000_000),
+                  (1_000_000, 20, 10_000_000),
+                  (1_000_000, 64, 10_000_000), (1_000_000, 128, 10_000_000),
+                  (1_000_000, 256, 10_000_000), (1_000_000, 500, 2_000_000)]
+        if stretch:
+            shapes.append((1_000_000, 500, 20_000_000))
+        for n, k, e in shapes:
+            results["rows"].extend(bench_phi(alt, n, k, e, args.quick))
+            torch.cuda.empty_cache()
+    if part("s3forms"):
+        # the stretch graph's degree at n from 250k to 2M, K = 500; then
+        # narrower rows, a K that is no multiple of 4, and a small shape
+        shapes = [(20_000, 20, 200_000), (100_000, 37, 1_000_000),
+                  (250_000, 500, 5_000_000), (500_000, 500, 10_000_000),
+                  (1_000_000, 500, 2_000_000), (1_000_000, 64, 10_000_000),
+                  (1_000_000, 128, 10_000_000), (4_000_000, 32, 20_000_000)]
+        if stretch:
+            shapes += [(1_000_000, 500, 20_000_000),
+                       (1_500_000, 500, 30_000_000),
+                       (2_000_000, 500, 40_000_000)]
+        for n, k, e in shapes:
+            results["rows"].append(bench_s3_forms(alt, n, k, e, args.quick))
+            torch.cuda.empty_cache()
+    if part("crossover") and not args.quick:
+        shapes = [(20_000, 20, 200_000), (50_000, 20, 500_000),
+                  (100_000, 20, 1_000_000), (300_000, 20, 3_000_000)]
+        if stretch:
+            shapes.append((1_000_000, 500, 20_000_000))
+        for n, k, e in shapes:
+            results["rows"].append(bench_fused_crossover(n, k, e))
+            torch.cuda.empty_cache()
+    if part("heldout"):
+        for n, k, m in ((20_000, 20, 4_000), (100_000, 640, 50_000),
+                        (1_000_000, 500, 400_000)):
+            results["rows"].append(bench_heldout(n, k, m, args.quick))
+            torch.cuda.empty_cache()
     if not args.quick:
         compact = [(20_000, 20, 200_000, 5)]
         if not args.no_stretch:
             compact += [(1_000_000, 500, 20_000_000, 40),
                         (1_000_000, 500, 20_000_000, 5)]
-        for shape in compact:
+        for shape in compact if part("compact") else ():
             results["rows"].append(bench_compact_sweep(*shape))
             torch.cuda.empty_cache()
-        results["rows"].extend(bench_graph_capture(20_000, 20, 40))
+        if part("graph"):
+            results["rows"].extend(bench_graph_capture(20_000, 20, 40))
     with open(os.path.join(args.out, "bench_kernels.json"), "w") as f:
         json.dump(results, f, indent=1)
     return 0

@@ -11,10 +11,12 @@ then the same again past annealing with and without -bf16 (the sweep over
 bf16 rows beside the f32 sweep of the same phase), and with -fuse-s3, all
 on the same engine. Every trace is a profiler of its own whose first step
 is a discarded warm-up (a profiler drops the first kernels launched after
-it starts), and must hold the launches of kernels 1 to 4 that a sweep
-makes, or it is taken again and then refused. Prints the card and
-its power limit first; writes the tables to DIR/profile_stretch.txt (DIR
-defaults to build/svinet_torch).
+it starts), and must hold the launches of kernels 1 to 4 and 6 that a step
+of one sweep makes, or it is taken again and then refused. Each trace is
+printed by kernel name and, above that, summed by hand kernel (the step
+table: kernels 1 to 4 and 6, the sums across blocks, and what is left to
+plain PyTorch). Prints the card and its power limit first; writes the
+tables to DIR/profile_stretch.txt (DIR defaults to build/svinet_torch).
 """
 
 from __future__ import annotations
@@ -34,10 +36,20 @@ from svinet_torch.svi.linksampling import from_edges
 from svinet_torch.synth import random_edges
 
 
-# what one sweep launches of the hand kernels, by a part of the kernel's
-# name: kernel 1 twice (gamma and lambda), kernels 2, 3 and 4 once
-SWEEP_LAUNCHES = {"dirichlet_rows_kernel": 2, "phi_pull_kernel": 1,
-                  "mean_indicator_kernel": 1, "s3_pull_kernel": 1}
+# what a step of one sweep launches of the hand kernels, by a part of the
+# kernel's name: kernel 1 twice (gamma and lambda), kernels 2, 3, 4 and 6
+# once
+STEP_LAUNCHES = {"dirichlet_rows_kernel": 2, "phi_pull_kernel": 1,
+                 "mean_indicator_kernel": 1, "s3_pull_kernel": 1,
+                 "heldout_sums": 1}
+# the rows of the step table: a hand kernel's name, and the parts of kernel
+# names that belong to it
+STEP_TABLE = (("kernel 2, phi_pass", ("phi_pull", "phi_combine")),
+              ("kernel 4, s3_pass", ("s3_pull",)),
+              ("kernel 3, mean_indicator_update", ("mean_indicator",)),
+              ("kernel 1, dirichlet_expectation", ("dirichlet_",)),
+              ("kernel 6, heldout_sums", ("heldout_sums",)),
+              ("sums across blocks", ("colsum_partials",)))
 TRACE_ATTEMPTS = 3
 
 
@@ -70,20 +82,20 @@ def _traced_step(eng):
 
 
 def trace_step(eng, label: str) -> list:
-    """Warm up, trace one step(1) that holds every launch of kernels 1 to 4,
-    and return the report's lines."""
+    """Warm up, trace one step(1) that holds every launch of kernels 1 to 4
+    and 6, and return the report's lines."""
     eng.step(1)
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         kernels, launches, wall_ms, prof = _traced_step(eng)
         seen = {part: sum(c for name, c in launches.items() if part in name)
-                for part in SWEEP_LAUNCHES}
-        if seen == SWEEP_LAUNCHES:
+                for part in STEP_LAUNCHES}
+        if seen == STEP_LAUNCHES:
             break
-        print(f"{label}: trace {attempt} holds {seen} of {SWEEP_LAUNCHES}",
+        print(f"{label}: trace {attempt} holds {seen} of {STEP_LAUNCHES}",
               flush=True)
     else:
         raise RuntimeError(f"{label}: no trace of {TRACE_ATTEMPTS} held "
-                           f"every launch of kernels 1 to 4")
+                           f"every launch of kernels 1 to 4 and 6")
     busy_ms = sum(kernels.values()) / 1e3
     lines = [f"{label}: n={eng.n} K={eng.k} training links "
              f"{len(eng.network.training_links)}: step(1) wall "
@@ -91,7 +103,19 @@ def trace_step(eng, label: str) -> list:
              f"({100 * busy_ms / wall_ms:.1f}%), peak device memory in the "
              f"step {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
              f"trace {attempt} of at most {TRACE_ATTEMPTS}, kernels 1 to 4 "
-             f"all in it ({seen})"]
+             f"and 6 all in it ({seen})"]
+    # the step table: device time by hand kernel, the rest plain PyTorch
+    left = dict(kernels)
+    for title, parts in STEP_TABLE:
+        mine = [name for name in left if any(p in name for p in parts)]
+        us = sum(left.pop(name) for name in mine)
+        lines.append(f"{us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
+                     f"x{sum(launches[name] for name in mine):<3d} {title}")
+    us = sum(left.values())
+    lines.append(f"{us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
+                 f"x{sum(launches[name] for name in left):<3d} plain PyTorch "
+                 f"(gacc.sum(0), finish_lambda, beta, copies)")
+    lines.append("by kernel name:")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:25]:
         lines.append(f"{us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
                      f"x{launches[name]:<3d} {name[:110]}")
