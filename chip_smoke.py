@@ -100,11 +100,21 @@ NMI_TOL = 0.02
 REPORT_BATCH = 4
 STOP_ITER_CPU_FUSED = 50
 NMI_CPU_FUSED = 0.963742
-# Floor of the stretch sweep: 3 sweeps + heldout tail ran at 100.28 M
-# training edges/s when only kernels 1 and 2 existed and the other passes
-# were plain PyTorch (H100 80GB HBM3, 700 W); the default path must not
-# fall below it
-STRETCH_MIN_EDGES_S = 100.28e6
+# -sparse-w 4 on the same graph, seed and -lt-min-deg on the CPU: the port
+# and the JAX package both stop at iteration 52, with NMI 0.957061 and
+# 0.957102, after 10 sparse sweeps (annealing sweeps are the dense ones, so
+# the run is the default run's until annealing ends at iteration 42)
+STOP_ITER_CPU_SPARSE = 52
+NMI_CPU_SPARSE = 0.957061
+SPARSE_W_PLANTED = 4
+# Floors of the stretch step (3 sweeps + heldout tail, training edges/s),
+# one per row type, a little under the lowest reading of three runs on
+# three machines (H100 80GB HBM3, 700 W, chip_smoke.py at the tree of
+# 2f7a12d): 401.3-418.7 M over f32 rows, 631.3-648.4 M over bf16 rows
+STRETCH_MIN_EDGES_S = 360e6
+STRETCH_MIN_EDGES_S_BF16 = 570e6
+# -sparse-w's width on the stretch shape (phase 3)
+SPARSE_W_STRETCH = 16
 PLANTED = dict(n=20_000, k=20, avg_deg=20, seed=7)
 STRETCH = dict(n=1_000_000, k=500, n_edges=20_000_000)
 # kernel shapes; the first of each is the one the JSON summary reports
@@ -139,6 +149,22 @@ HELDOUT_SHAPES = ((1_000_000, 500, 400_000), (20_000, 20, 4_000),
 COMPACT_SHAPES = ((20_000, 20, 8, 5, 200_000), (20_000, 500, 16, 9, 200_000),
                   (1_000_000, 500, 64, 40, 2_000_000),
                   (100_000, 500, 256, 130, 300_000))
+# -sparse-w: the top-W form of kernel 1 and kernel 7 at (n, K, W, random
+# edges, degree of a hub at node 0). The first is the reported one; W = 8,
+# 16, 32 at K=500 (32 with a hub cut into segments), W = 64 (two slots a
+# lane), K=20 (planted-20k's width), K=640 and K=2000 (wider than the
+# register layouts), and W = K (kernel 7's general path at K=500) against
+# kernel 2 then kernel 4 with SPARSE_FULL_SHAPES. In every gamma, 60% of
+# the columns sit at exactly alpha = 1/K, where the top-W picks are ties
+SPARSE_SHAPES = ((1_000_000, 500, 16, 2_000_000, 0),
+                 (1_000_000, 500, 8, 2_000_000, 0),
+                 (1_000_000, 500, 32, 2_000_000, 50_000),
+                 (100_000, 500, 64, 500_000, 0),
+                 (20_000, 20, 4, 200_000, 3_000),
+                 (100_000, 640, 16, 300_000, 2_000),
+                 (20_000, 2_000, 32, 200_000, 0))
+SPARSE_FULL_SHAPES = ((20_000, 20, 20, 200_000, 3_000),
+                      (5_000, 500, 500, 50_000, 0))
 
 
 def log(msg: str) -> None:
@@ -365,21 +391,24 @@ def phase1_sweep_passes(dev):
 
         # ---- kernel 2
         g_k, s_k = phi_pass(elogpi, elb0, adj)
-        g_2, _ = phi_pass(elogpi, elb0, adj)
+        g_2, s_2 = phi_pass(elogpi, elb0, adj)
         g_p, s_p = phi_pass_pull_plain(elogpi, elb0, adj, block)
         torch.cuda.synchronize()
-        # no atomics into gacc: a second launch gives the same bits
-        assert torch.equal(g_k, g_2)
+        # no atomics into gacc or sumk: a second launch gives the same bits
+        assert torch.equal(g_k, g_2) and torch.equal(s_k, s_2)
         del g_2
         err = float((g_k - g_p).abs().max())
         # a hub's row holds values near degree/K: relative to the row's top
         rel = float(((g_k - g_p).abs().amax(1)
                      / g_p.abs().amax(1).clamp_min(1.0)).max())
-        # sumk is gacc.sum(0) on the kernel path: a torch reduction over n
-        # rows of values near 2E/K, so it is compared relative
+        # sumk comes out of the kernel's own per-block column sums: held to
+        # the plain version's and to the plain column sum of the gacc the
+        # kernel wrote, relative (values near 2E/K)
         rel_s = float(((s_k - s_p).abs() / s_p.abs()).max())
+        rel_g = _rel_err(s_k, g_k.sum(dim=0))
         assert torch.allclose(g_k, g_p, **tol), err
         assert torch.allclose(s_k, s_p, **tol), rel_s
+        assert torch.allclose(s_k, g_k.sum(dim=0), **tol), rel_g
         # every link adds a phi (which sums to 1) to both of its ends
         total = float(g_k.double().sum())
         assert abs(total - 2 * n_links) < 1e-3 * total, total
@@ -397,7 +426,8 @@ def phase1_sweep_passes(dev):
             f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}), max abs err gacc {err:.3e} (relative to the "
             f"row's largest value {rel:.3e}), max rel err sumk "
-            f"{rel_s:.3e}, two launches bitwise equal")
+            f"{rel_s:.3e} (against gacc.sum(0) {rel_g:.3e}), two launches "
+            f"bitwise equal")
         rep_phi = _report(err, ms, plain_ms, bnd)
 
         # ---- kernel 3, on kernel 2's gacc and sumk; the update is in
@@ -945,6 +975,185 @@ def phase1_compact(dev):
         torch.cuda.empty_cache()
 
 
+def _tied_gamma(gen, n, k, dev):
+    """gamma with 60% of its entries at exactly alpha = 1/K (tied), the
+    rest in [0.01, 10] skewed low; every 97th row at alpha throughout."""
+    alpha = 1.0 / k
+    u = torch.rand((n, k), generator=gen, device=dev)
+    g = torch.where(u < 0.6, alpha, 0.01 + 10.0 * (u - 0.6) ** 2 / 0.16)
+    g[::97] = alpha
+    return g.contiguous()
+
+
+def topw_bound(n, k, w):
+    """gamma read once, Elogpi written once, ids and topvals written once;
+    kernel 1's 40 operations an element and, per pick, about 15 of a
+    32-lane group's shuffle and compare steps a lane."""
+    return bound(8.0 * n * k + 8.0 * n * w, 40.0 * n * k + 15.0 * 32 * n * w)
+
+
+def _union_counts(ids, adj, k):
+    """What kernel 7 reads on these inputs, from the lists themselves:
+    (distinct (node, column) values of Elogpi it needs, distinct values of
+    mphi it needs, kept slots of q's lists over the links (each link once),
+    p-side and q-side slots met over the directed entries)."""
+    from svinet_torch.svi.sweep_math import _pull_entries
+    n, w = ids.shape
+    need_e = torch.zeros(n * k, dtype=torch.bool, device=ids.device)
+    need_m = torch.zeros(n * k, dtype=torch.bool, device=ids.device)
+    kept_links = 0
+    for p, q in _pull_entries(adj, 1 << 18):
+        idp, idq = ids[p].long(), ids[q].long()
+        in_p = torch.zeros((p.shape[0], k), dtype=torch.bool, device=p.device)
+        in_p.scatter_(1, idp, True)
+        kept = ~in_p.gather(1, idq)
+        need_e[(q[:, None] * k + idp).flatten()] = True
+        need_e[(p[:, None] * k + idq)[kept]] = True
+        low = q > p
+        kept_links += int(kept[low].sum())
+        for node in (p[low, None], q[low, None]):
+            need_m[(node * k + idp[low]).flatten()] = True
+            need_m[(node * k + idq[low])[kept[low]]] = True
+    return int(need_e.sum()), int(need_m.sum()), kept_links
+
+
+def union_bound_floor(n, k, w, n_links, adj, counts):
+    """(bound, floor) of kernel 7 on these inputs. Bound: each value it
+    needs read once at 4 bytes (the distinct Elogpi and mphi values, ids
+    and topvals, the adjacency), gacc written once; per slot of a directed
+    entry about 8 operations (two adds, max, subtract, exp, sum, divide,
+    add) and 2 per s3 term. Floor: one 32-byte sector per gathered value
+    (W of the neighbour's Elogpi a directed entry, W plus the kept slots of
+    the neighbour's mphi a link, the neighbour's ids and topvals a
+    directed entry in 32-byte sectors), plus the owner's Elogpi and mphi
+    rows read once and gacc written once."""
+    need_e, need_m, kept = counts
+    entries = 2 * n_links
+    b = bound(4.0 * (need_e + need_m) + 8.0 * n * w + 4.0 * n * k
+              + _index_bytes(adj) + 12.0 * k,
+              8.0 * entries * 2 * w + 2.0 * (n_links * w + kept))
+    sectors = entries * w + n_links * w + kept + 2 * entries * -(-4 * w // 32)
+    floor = (32.0 * sectors + 12.0 * n * k) / PEAK_BYTES_S * 1e3
+    return b, floor
+
+
+def phase1_sparse(dev):
+    """-sparse-w's two kernels at every shape of SPARSE_SHAPES: the top-W
+    form of kernel 1 against dirichlet_expectation_topw_plain (ids exactly
+    equal, values at kernel 1's bar), then kernel 7 on its output against
+    sparse_union_pass_pull_plain and the edge-list form held to JAX
+    (PHI_TOL abs/rel), two launches of each bitwise equal; at W = K
+    (SPARSE_FULL_SHAPES) kernel 7 against kernel 2 then kernel 4. Returns
+    the reports of the first shape, and kernel 2's sumk check."""
+    from svinet_torch.ops.digamma import (
+        dirichlet_expectation_topw, dirichlet_expectation_topw_plain)
+    from svinet_torch.svi.sweep_math import (
+        phi_pass, s3_pass, sparse_union_pass, sparse_union_pass_plain,
+        sparse_union_pass_pull_plain)
+    tol = dict(rtol=PHI_TOL, atol=PHI_TOL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    reports = None
+    for n, k, w, n_edges, hub_deg in SPARSE_SHAPES + SPARSE_FULL_SHAPES:
+        links, edges, mask, nb, block, adj, _, elb0 = _phi_inputs(
+            dev, gen, n, k, n_edges, hub_deg)
+        n_links = len(links)
+        shape = (f"n={n} K={k} W={w} links={n_links} hub degree {hub_deg} "
+                 f"({len(adj.seg_node)} segments)")
+        reps = 5 if n * k >= 10**7 else 50
+        gamma = _tied_gamma(gen, n, k, dev)
+
+        # ---- the top-W form of kernel 1
+        e_k, i_k, v_k = dirichlet_expectation_topw(gamma, w)
+        e_2, i_2, v_2 = dirichlet_expectation_topw(gamma, w)
+        e_p, i_p, v_p = dirichlet_expectation_topw_plain(gamma, w)
+        torch.cuda.synchronize()
+        assert torch.equal(e_k, e_2) and torch.equal(i_k, i_2)
+        assert torch.equal(v_k, v_2)
+        assert torch.equal(i_k, i_p), (shape, "ids differ",
+                                       int((i_k != i_p).sum()))
+        # the values are the kernel's own Elogpi at the picked columns
+        assert torch.equal(v_k, e_k.gather(1, i_k.long()))
+        assert _dexp_close(e_k, e_p) and _dexp_close(v_k, v_p), shape
+        err_t = max(float((e_k - e_p).abs().max()),
+                    float((v_k - v_p).abs().max()))
+        del e_2, i_2, v_2, e_p, i_p, v_p
+        t_ms = cuda_ms(lambda: dirichlet_expectation_topw(gamma, w), reps)
+        t_plain = cuda_ms(lambda: dirichlet_expectation_topw_plain(gamma, w),
+                          reps)
+        # a yardstick only: torch.topk orders ties otherwise, so it is not
+        # the same function and the port never calls it
+        topk_ms = cuda_ms(lambda: torch.topk(gamma, w, dim=1), reps)
+        t_bnd = topw_bound(n, k, w)
+        log(f"phase 1: dirichlet_expectation_topw {shape}: kernel "
+            f"{t_ms:.4f} ms, plain (sort) {t_plain:.4f} ms, torch.topk alone "
+            f"{topk_ms:.4f} ms, bound {t_bnd[0]:.4f} ms ({t_bnd[1]}), ids "
+            f"equal, max abs err {err_t:.3e}, two launches bitwise equal")
+
+        # ---- kernel 7 on the form's output
+        mphi = 0.2 * torch.rand((n, k), generator=gen, device=dev)
+        g_k, s_k, t3_k = sparse_union_pass(e_k, i_k, v_k, elb0, mphi, adj)
+        g_2, s_2, t3_2 = sparse_union_pass(e_k, i_k, v_k, elb0, mphi, adj)
+        g_p, s_p, t3_p = sparse_union_pass_pull_plain(
+            e_k, i_k, v_k, elb0, mphi, adj, block)
+        torch.cuda.synchronize()
+        assert (torch.equal(g_k, g_2) and torch.equal(s_k, s_2)
+                and torch.equal(t3_k, t3_2)), (shape, "two launches differ")
+        del g_2
+        err7 = max(float((g_k - g_p).abs().max()), _rel_err(s_k, s_p),
+                   _rel_err(t3_k, t3_p))
+        assert torch.allclose(g_k, g_p, **tol), (shape, err7)
+        assert torch.allclose(s_k, s_p, **tol), (shape, _rel_err(s_k, s_p))
+        assert torch.allclose(t3_k, t3_p, **tol), (shape,
+                                                   _rel_err(t3_k, t3_p))
+        total = float(g_k.double().sum())
+        assert abs(total - 2 * n_links) < 1e-3 * total, total
+        assert torch.allclose(s_k, g_k.sum(0), **tol)
+        del g_p
+        g_e, s_e, t3_e = sparse_union_pass_plain(e_k, i_k, v_k, elb0, mphi,
+                                                 edges, mask, nb)
+        assert torch.allclose(g_k, g_e, **tol) and torch.allclose(
+            s_k, s_e, **tol) and torch.allclose(t3_k, t3_e, **tol), shape
+        del g_e
+        if w == k:
+            # the union of two full lists is every column once: the dense
+            # pass, kernel 2 then kernel 4 on the same mphi
+            g_d, s_d = phi_pass(e_k, elb0, adj)
+            t3_d = s3_pass(mphi, adj)
+            assert torch.allclose(g_k, g_d, **tol), float(
+                (g_k - g_d).abs().max())
+            assert torch.allclose(s_k, s_d, **tol)
+            assert torch.allclose(t3_k, t3_d, **tol), _rel_err(t3_k, t3_d)
+            del g_d
+        ms = cuda_ms(lambda: sparse_union_pass(e_k, i_k, v_k, elb0, mphi,
+                                               adj), reps)
+        plain_ms = cuda_ms(lambda: sparse_union_pass_pull_plain(
+            e_k, i_k, v_k, elb0, mphi, adj, block), max(1, reps // 5))
+        dense_ms = cuda_ms(lambda: (phi_pass(e_k, elb0, adj),
+                                    s3_pass(mphi, adj)), reps)
+        counts = _union_counts(i_k, adj, k)
+        bnd, floor = union_bound_floor(n, k, w, n_links, adj, counts)
+        log(f"phase 1: sparse_union_pass {shape}: kernel {ms:.4f} ms "
+            f"(with the top-W form {ms + t_ms:.4f} ms; kernel 2 then kernel "
+            f"4 on the same state {dense_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor (a 32-byte sector "
+            f"a gathered value) {floor:.4f} ms, values needed: Elogpi "
+            f"{counts[0]}, mphi {counts[1]}, kept q-side slots {counts[2]} "
+            f"of {n_links * w}; max err gacc (abs), sumk and s3 (relative) "
+            f"{err7:.3e}, two launches bitwise equal"
+            + (", equal to kernel 2 then kernel 4" if w == k else ""))
+        if reports is None:
+            # the form gathers nothing at random: its floor is its bound
+            reports = {"dirichlet_expectation:topw": dict(
+                       _report(err_t, t_ms, t_plain, t_bnd),
+                       floor_ms=t_bnd[0]),
+                       "sparse_union_pass": dict(
+                           _report(err7, ms, plain_ms, bnd), floor_ms=floor)}
+        del gamma, e_k, i_k, v_k, mphi, adj, edges, mask
+        torch.cuda.empty_cache()
+    return reports
+
+
 def heldout_bound(k, n_pairs, padded):
     """The two gamma rows of every real pair read once, the padded pairs,
     labels and weights read once, beta read; per pair and column two
@@ -1038,16 +1247,18 @@ def _run_cli(workdir, net, gt, label, extra):
 
 
 def _wrappers():
-    """The six kernel wrappers by name; each counts its launches."""
+    """The seven kernel wrappers by name; each counts its launches."""
     from svinet_torch.evals.likelihood import heldout_sums
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.svi.sweep_math import (
-        fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass)
+        fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
+        sparse_union_pass)
     return {"dirichlet_expectation": dirichlet_expectation,
             "phi_pass": phi_pass,
             "mean_indicator_update": mean_indicator_update,
             "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
-            "heldout_sums": heldout_sums}
+            "heldout_sums": heldout_sums,
+            "sparse_union_pass": sparse_union_pass}
 
 
 def _zero_counts():
@@ -1118,8 +1329,10 @@ def phase2(workdir):
     assert all(name.endswith(":f32") for name in forms), forms
     # the default sweep is kernels 1, 2, 3 and 4
     assert all(v > 0 for name, v in launches.items()
-               if name != "fused_phi_s3_pass"), launches
+               if name not in ("fused_phi_s3_pass", "sparse_union_pass")), \
+        launches
     assert launches["fused_phi_s3_pass"] == 0, launches
+    assert launches["sparse_union_pass"] == 0, launches
     ho, mx, nmi = _check_outputs(out)
     assert abs(int(mx[0]) - STOP_ITER_CPU) <= 1, mx
     assert abs(nmi - NMI_CPU) <= NMI_TOL, nmi
@@ -1189,7 +1402,111 @@ def phase2(workdir):
     forms_all, forms_per_sweep = phase2_flags(workdir, net, gt, out, ho, nmi)
     launches.update(forms_all)
     per_sweep.update(forms_per_sweep)
+    sparse_all, sparse_per_sweep = phase2_sparse(workdir, net, gt, out)
+    launches.update(sparse_all)
+    per_sweep.update(sparse_per_sweep)
+    phase2_surface(workdir, net, gt)
     return launches, per_sweep
+
+
+def phase2_sparse(workdir, net, gt, out_default):
+    """The planted CLI run with -sparse-w: dense unfused sweeps while
+    annealing, then per sweep the top-W form of kernel 1, kernel 7 and
+    kernel 3, and no launch of kernel 2 or 4. Returns the launches of the
+    two new kernels, in all and per sweep of the run."""
+    out_s, secs_s, launches_s, forms_s = _counted_cli(
+        workdir, net, gt, "gpu-sparse",
+        ["-max-iterations", "400", "-sparse-w", str(SPARSE_W_PLANTED)])
+    ho_s, mx_s, nmi_s = _check_outputs(out_s)
+    end = _annealing_end(out_s)
+    assert end == _annealing_end(out_default), end
+    sweeps = _sweeps_run(out_s)
+    assert sweeps > end, (sweeps, end)
+    for name in ("phi_pass", "s3_pass"):
+        assert forms_s[f"{name}:f32"] == end, (name, forms_s, end)
+    assert launches_s["sparse_union_pass"] == sweeps - end, launches_s
+    assert forms_s["dirichlet_expectation:topw"] == sweeps - end, forms_s
+    assert launches_s["mean_indicator_update"] == sweeps, launches_s
+    assert launches_s["fused_phi_s3_pass"] == 0, launches_s
+    # -report-batch is bypassed and a validation row comes from every step
+    assert launches_s["heldout_sums"] >= sweeps, launches_s
+    assert abs(int(mx_s[0]) - STOP_ITER_CPU_SPARSE) <= 1, mx_s
+    assert abs(nmi_s - NMI_CPU_SPARSE) <= NMI_TOL, nmi_s
+    log(f"phase 2: CLI with -sparse-w {SPARSE_W_PLANTED}: {secs_s:.1f} s, "
+        f"annealing ended at iteration {end} (dense sweeps until then), "
+        f"then {sweeps - end} sparse sweeps; stopped at iteration {mx_s[0]} "
+        f"(why {mx_s[5]}), best nshol {mx_s[4]}, NMI {nmi_s:.6f} (CPU: "
+        f"stop {STOP_ITER_CPU_SPARSE}, NMI {NMI_CPU_SPARSE}), heldout rows "
+        f"{len(ho_s)}, launches {launches_s}, by form {forms_s}")
+    counted = {"sparse_union_pass": launches_s["sparse_union_pass"],
+               "dirichlet_expectation:topw":
+                   forms_s["dirichlet_expectation:topw"]}
+    return counted, {name: v / sweeps for name, v in counted.items()}
+
+
+def phase2_surface(workdir, net, gt):
+    """Short planted runs of -init-communities, -load-test-sets and
+    -profile, checked for their files; the -profile trace must name kernels
+    2 and 3."""
+    n = PLANTED["n"]
+    # the planted cover as one community a line of external ids
+    comms = {}
+    for line in open(gt):
+        node, c = line.split()
+        comms.setdefault(int(c), []).append(node)
+    init = os.path.join(workdir, "init-communities.txt")
+    with open(init, "w") as f:
+        for _, members in sorted(comms.items()):
+            f.write("\t".join(members) + "\n")
+    out = _run_cli(workdir, net, gt, "gpu-init",
+                   ["-init-communities", init, "-max-iterations", "3"])
+    rows = open(os.path.join(out, "init_memberships.txt")).read().splitlines()
+    assert len(rows) == n, len(rows)
+    ho = np.loadtxt(os.path.join(out, "heldout.txt"), ndmin=2)
+    assert len(ho) == 4 and np.isfinite(ho).all()
+    nmi0 = float(open(os.path.join(out, "mutual.txt")).readline().split()[-1])
+    log(f"phase 2: -init-communities from the planted cover: "
+        f"init_memberships.txt {len(rows)} rows, NMI at iteration 0 "
+        f"{nmi0:.6f}, heldout nshol {ho[0, 10]:.6f} -> {ho[-1, 10]:.6f} in 3 "
+        f"sweeps")
+
+    # -load-test-sets: the pair files are read from the cwd
+    ids = np.unique(np.loadtxt(net, dtype=np.int64).ravel())
+    rng = np.random.default_rng(4)
+    sizes = {"uniform": 3000, "biased": 2000}
+    for name, m in sizes.items():
+        pairs = rng.choice(ids, (m, 2))
+        np.savetxt(os.path.join(workdir, f"{name}-heldout-pairs.txt"),
+                   pairs[pairs[:, 0] != pairs[:, 1]], fmt="%d")
+    _zero_counts()
+    out = _run_cli(workdir, net, gt, "gpu-tests",
+                   ["-load-test-sets", "-max-iterations", "4"])
+    launches = _read_counts()[0]
+    for name in sizes:
+        hol = np.loadtxt(os.path.join(out, f"{name}-hol.txt"), ndmin=2)
+        assert hol.shape == (5, 11) and np.isfinite(hol).all(), hol.shape
+        auc = np.loadtxt(os.path.join(out, f"{name}_auc.txt"), ndmin=2)
+        pairs = np.loadtxt(os.path.join(out, f"{name}-test-pairs.txt"),
+                           ndmin=2)
+        assert len(auc) == len(pairs) > 0
+    # per report: the validation tail or row, and one per test set
+    assert launches["heldout_sums"] >= 5 * 3, launches
+    log(f"phase 2: -load-test-sets: uniform-hol.txt and biased-hol.txt 5 "
+        f"rows each, {{uniform,biased}}_auc.txt and -test-pairs.txt written, "
+        f"heldout_sums launches {launches['heldout_sums']}")
+
+    # -profile: a Chrome trace of the training loop
+    trace_dir = os.path.join(workdir, "profile")
+    out = _run_cli(workdir, net, gt, "gpu-profile",
+                   ["-profile", trace_dir, "-max-iterations", "3"])
+    events = json.load(open(os.path.join(
+        trace_dir, "svinet_torch_trace.json")))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    for kernel in ("phi_pull_kernel", "mean_indicator_kernel"):
+        n_k = sum(kernel in name for name in kernels)
+        assert n_k >= 3, (kernel, n_k, sorted(set(kernels))[:30])
+    log(f"phase 2: -profile: {len(kernels)} kernel events in the trace, "
+        f"every sweep's kernel 2 and kernel 3 among them")
 
 
 def phase2_flags(workdir, net, gt, out_default, ho_default, nmi_default):
@@ -1379,7 +1696,8 @@ def phase3(dev, workdir):
     # kernel 4 on the lagged mphi)
     three_sweeps = {"dirichlet_expectation": 6, "phi_pass": 3,
                     "mean_indicator_update": 3, "s3_pass": 3,
-                    "fused_phi_s3_pass": 0, "heldout_sums": 1}
+                    "fused_phi_s3_pass": 0, "heldout_sums": 1,
+                    "sparse_union_pass": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
     t1 = time.perf_counter()
@@ -1434,6 +1752,7 @@ def phase3(dev, workdir):
                        "s3_pass:bf16": 3, "heldout_sums:f32": 1}, forms_b
     assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
     assert np.isfinite(res_b.avg) and res_b.count == res.count
+    assert 3 * n_train / dt_b >= STRETCH_MIN_EDGES_S_BF16, 3 * n_train / dt_b
     log(f"phase 3: -bf16 on the same engine, annealing over: 3 sweeps over "
         f"bf16 rows + heldout tail {dt_b:.3f} s = {3 * n_train / dt_b:.0f} "
         f"edges/s (f32 rows, same phase: {dt_post:.3f} s = "
@@ -1494,8 +1813,41 @@ def phase3(dev, workdir):
         f"{res_fb.avg:.6f}, the bf16 rows of mphi equal the carried f32 "
         f"mphi rounded once, launches by form {forms_fb}")
     eng.cfg.bf16_rows = False
-    eng.annealing = True
     eng._mphi_bf16 = None
+    # -sparse-w past annealing on the same engine (what the engine does
+    # under the flag once a report has ended annealing; it clears
+    # -fuse-s3 and drops its mphi): the top-W form of kernel 1, kernel 7
+    # and kernel 3 each sweep, kernels 2 and 4 never; the warm-up step is
+    # the first sparse one, whose s3 is 0
+    eng.mphi = None
+    eng.cfg.fuse_s3 = False
+    eng.cfg.sparse_w = SPARSE_W_STRETCH
+    eng.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t1 = time.perf_counter()
+    eng.step(3)
+    res_s = result_from_sums(eng._ho_res)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t1
+    counted, forms_s = _read_counts()
+    assert forms_s == {"dirichlet_expectation:topw": 3,
+                       "dirichlet_expectation:f32": 3,
+                       "sparse_union_pass:f32": 3,
+                       "mean_indicator_update:f32": 3,
+                       "heldout_sums:f32": 1}, forms_s
+    assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
+    assert np.isfinite(res_s.avg) and res_s.count == res.count
+    log(f"phase 3: -sparse-w {SPARSE_W_STRETCH}, annealing over: 3 sweeps + "
+        f"heldout tail {dt_s:.3f} s = {3 * n_train / dt_s:.0f} edges/s, "
+        f"heldout avg {res_s.avg:.6f}, peak device memory in these steps "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches "
+        f"by form {forms_s}")
+    # the checks below take the mean indicators the sparse steps carried
+    eng.cfg.sparse_w = 0
+    eng.mphi, eng._sparse_mphi = eng._sparse_mphi, None
+    eng.annealing = True
     # kernel 4 at the full 19.9M links, on the mean indicators the engine
     # carries, against its plain version (PHI_TOL abs/rel)
     from svinet_torch.ops.edges import build_adjacency, choose_edge_block
@@ -1581,11 +1933,13 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     cwd = os.getcwd()
+    t_start = time.perf_counter()
     phase0(dev)
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
     h_report = phase1_heldout(dev)
+    sparse_reports = phase1_sparse(dev)
     phase1_compact(dev)
     with tempfile.TemporaryDirectory() as workdir:
         try:
@@ -1595,17 +1949,24 @@ def main() -> int:
             os.chdir(cwd)
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
-    # kernel 5 from its -fuse-s3 run. library_ms is null for all six: no
-    # single PyTorch call computes any of these functions
-    # (torch.special.digamma is one part of kernel 1; gather, softmax and
-    # index_add_ are kernel 2's plain version; kernel 3 is a dozen
-    # elementwise calls and two sums; kernel 4 as a library route is a
-    # sparse product followed by a multiply and a sum; kernel 6 is two
-    # gathers, a dozen elementwise calls and nine sums)
+    # kernel 5 from its -fuse-s3 run, kernel 7 and the top-W form from its
+    # -sparse-w run. library_ms is null for all seven: no single PyTorch
+    # call computes any of these functions (torch.special.digamma is one
+    # part of kernel 1, and torch.topk orders ties otherwise than its top-W
+    # form, so phase 1 logs topk's time as a yardstick only; gather,
+    # softmax and index_add_ are kernel 2's plain version; kernel 3 is a
+    # dozen elementwise calls and two sums; kernel 4 as a library route is
+    # a sparse product followed by a multiply and a sum; kernel 6 is two
+    # gathers, a dozen elementwise calls and nine sums; kernel 7 is gathers,
+    # a sort, a softmax and three index_add_)
     sm = "svinet_tpu/svi/sweep_math.py"
     rows = (
         ("dirichlet_expectation", "svinet_torch/csrc/dirichlet_expectation.cu",
          "svinet_tpu/ops/pallas_digamma.py:68", d_report),
+        ("dirichlet_expectation:topw",
+         "svinet_torch/csrc/dirichlet_expectation.cu",
+         "svinet_tpu/ops/pallas_digamma.py:68",
+         sparse_reports["dirichlet_expectation:topw"]),
         ("phi_pass", "svinet_torch/csrc/phi_pass.cu",
          "tools/pallas_gather_bench.py:69", reports["phi_pass"]),
         # the three below were parts of the XLA sweep program on the TPU
@@ -1617,6 +1978,9 @@ def main() -> int:
          reports["fused_phi_s3_pass"]),
         ("heldout_sums", "svinet_torch/csrc/heldout_sums.cu",
          "svinet_tpu/evals/likelihood.py:85", h_report),
+        # the -sparse-w union pass was a part of the XLA sweep program
+        ("sparse_union_pass", "svinet_torch/csrc/sparse_union.cu",
+         f"{sm}:252", sparse_reports["sparse_union_pass"]),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,
@@ -1638,6 +2002,8 @@ def main() -> int:
          "launches_per_sweep": per_sweep[name], **report,
          "library_ms": None}
         for name, source, replaces, report in rows]
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,30 +285,32 @@ _ENGINE_FLAGS = (
     ("gen", "-gen"), ("ppc", "-ppc"), ("lcstats", "-lcstats"),
     ("gml", "-gml"), ("findk", "-findk"), ("orig", "-orig"),
     ("single", "-single"), ("batch", "-batch"),
-    ("preprocess", "-preprocess"), ("informative_sampling", "-infset"),
+    ("informative_sampling", "-infset"),
     ("stratified", "-stratified"), ("randomnode", "-rnode"),
     ("randompair", "-rpair"),
 )
 _UNPORTED_FLAGS = (
-    ("sparse_w", "-sparse-w"), ("mesh_devices", "-mesh"),
+    ("mesh_devices", "-mesh"),
     ("mesh_rowshard", "-mesh-rowshard"), ("mesh_locality", "-mesh-locality"),
     ("dist_coordinator", "-dist-coordinator"),
     ("dist_nprocs", "-dist-nprocs"), ("dist_procid", "-dist-procid"),
     ("checkpoint_freq", "-checkpoint-freq"), ("resume", "-resume"),
-    ("use_init_communities", "-init-communities"),
-    ("load_test_sets", "-load-test-sets"), ("profile_dir", "-profile"),
 )
 
 
 def check_slice(cfg: Config) -> None:
     """Raise SystemExit naming the first flag the port does not run."""
     for field, flag in _ENGINE_FLAGS:
+        # -preprocess sets informative_sampling too (the -infset engine
+        # reads what it writes); main stops after writing it
+        if field == "informative_sampling" and cfg.preprocess:
+            continue
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported; "
                              f"only -link-sampling runs")
-    if not cfg.link_sampling:
-        raise SystemExit("svinet_torch: only -link-sampling is ported; "
-                         "pass -link-sampling")
+    if not (cfg.link_sampling or cfg.preprocess):
+        raise SystemExit("svinet_torch: only -link-sampling (and "
+                         "-preprocess) is ported; pass -link-sampling")
     for field, flag in _UNPORTED_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
@@ -321,7 +323,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return -1
     cfg = parse_args(argv)
     check_slice(cfg)
-    device = resolve_device()
 
     network = Network(cfg)
     network.read(cfg.datfname)
@@ -331,9 +332,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     network.drop_singles()
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
+    if cfg.preprocess and not cfg.link_sampling:
+        # host only: neighbors.bin (svinet_tpu/cli.py:400-402, reached
+        # after the engines that run first there)
+        network.set_neighborhood_sets(cfg)
+        return 0
 
     from svinet_torch.svi.linksampling import LinkSampling
-    engine = LinkSampling(cfg, network, device)
+    engine = LinkSampling(cfg, network, resolve_device())
 
     # SIGTERM only sets a flag; the engine saves the model files at the
     # next report boundary and keeps running (reference: src/main.cc:29-46)

@@ -271,6 +271,48 @@ __device__ __forceinline__ void block_colsum(const float (&v)[VEC * N], int k,
   __syncthreads();  // smem may be filled again
 }
 
+// The same two steps for a kernel whose groups stride over several items:
+// each group keeps its running row of column sums in `smem` itself
+// (kBlockThreads * VEC * N floats, each thread its own places), so the
+// sums cost no registers. smem_row_zero at the start, smem_row_add after
+// each item, smem_colsum_write once at the end by every thread of the
+// block: the block adds its groups' rows in group order into `dst`.
+template <int VEC, int G, int N>
+__device__ __forceinline__ void smem_row_zero(float* smem) {
+  constexpr int W = G * VEC * N;
+  const int grp = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) smem[grp * W + (g + j * G) * VEC + u] = 0.0f;
+}
+
+template <int VEC, int G, int N>
+__device__ __forceinline__ void smem_row_add(const float (&v)[VEC * N],
+                                             float* smem) {
+  constexpr int W = G * VEC * N;
+  const int grp = threadIdx.x / G;
+  const int g = threadIdx.x % G;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int u = 0; u < VEC; ++u)
+      smem[grp * W + (g + j * G) * VEC + u] += v[j * VEC + u];
+}
+
+template <int VEC, int G, int N>
+__device__ __forceinline__ void smem_colsum_write(int k, const float* smem,
+                                                  float* dst) {
+  constexpr int W = G * VEC * N;
+  __syncthreads();
+  for (int c = threadIdx.x; c < k; c += kBlockThreads) {
+    float s = 0.0f;
+    for (int r = 0; r < kBlockThreads / G; ++r) s += smem[r * W + c];
+    dst[c] = s;
+  }
+}
+
 // out[c] = sum over r < rows of partial[r * ld + c], in row order; one
 // thread per column.
 static __global__ void colsum_partials_kernel(const float* __restrict__ partial,
@@ -288,6 +330,68 @@ inline void launch_colsum_partials(const float* partial, int rows, int ld,
   colsum_partials_kernel<<<(k + kBlockThreads - 1) / kBlockThreads,
                            kBlockThreads, 0, stream>>>(partial, rows, ld, k,
                                                        out);
+}
+
+// Step 1 for rows already in device memory: block b adds rows b, b + B,
+// b + 2B, ... of `rows` (n of K values) in order into partial row b.
+static __global__ void __launch_bounds__(kBlockThreads)
+rows_colsum_kernel(const float* __restrict__ rows, int64_t n, int k,
+                   float* __restrict__ partial) {
+  for (int c = threadIdx.x; c < k; c += kBlockThreads) {
+    float s = 0.0f;
+    for (int64_t r = blockIdx.x; r < n; r += gridDim.x)
+      s += rows[r * k + c];
+    partial[static_cast<int64_t>(blockIdx.x) * k + c] = s;
+  }
+}
+
+// Returns the number of partial rows written (at most kReduceBlocks).
+inline unsigned launch_rows_colsum(const float* rows, int64_t n, int k,
+                                   float* partial, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(
+      n < kReduceBlocks ? (n > 0 ? n : 1) : kReduceBlocks);
+  rows_colsum_kernel<<<blocks, kBlockThreads, 0, stream>>>(rows, n, k,
+                                                           partial);
+  return blocks;
+}
+
+// out[hub_node[h]] = the sum of hub h's scratch rows (hub_segptr[h] to
+// hub_segptr[h + 1] of `partial`, K values each), in segment order.
+static __global__ void __launch_bounds__(kBlockThreads)
+combine_segments_kernel(const float* __restrict__ partial,
+                        const int32_t* __restrict__ hub_node,
+                        const int32_t* __restrict__ hub_segptr,
+                        float* __restrict__ out, int k) {
+  const int64_t h = blockIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= k) return;
+  float s = 0.0f;
+  for (int64_t r = hub_segptr[h]; r < hub_segptr[h + 1]; ++r)
+    s += partial[r * k + c];
+  out[static_cast<int64_t>(hub_node[h]) * k + c] = s;
+}
+
+inline void launch_combine_segments(const float* partial,
+                                    const int32_t* hub_node,
+                                    const int32_t* hub_segptr, float* out,
+                                    int64_t n_hubs, int k,
+                                    cudaStream_t stream) {
+  if (n_hubs == 0) return;
+  const dim3 grid(static_cast<unsigned>(n_hubs),
+                  (k + kBlockThreads - 1) / kBlockThreads);
+  combine_segments_kernel<<<grid, kBlockThreads, 0, stream>>>(
+      partial, hub_node, hub_segptr, out, k);
+}
+
+// The card's number of SMs (the current device's, read once).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
 }
 
 // A pass over the links' adjacency (ops/edges.py:Adjacency) takes nodes

@@ -25,6 +25,22 @@
 //  - under -bf16 the result is stored as bf16 by the same pass (6 bytes an
 //    element, not 8 and then a cast's 6 more).
 //
+// The top-W form (-sparse-w; svinet_tpu/svi/sweep_math.py:241-245, which
+// computes Elogpi, then jax.lax.top_k(gamma, W) and a gather of Elogpi at
+// the W columns): the same pass also writes, per row, the W columns of
+// the largest gamma in descending order, lower column first among equal
+// values (jax.lax.top_k's order: columns left at exactly alpha tie, and a
+// sparse sweep leaves many there), and Elogpi at those columns. The row
+// is already in registers, so the selection is W rounds of a group
+// arg-max over 64-bit keys (gamma's bits, then the column's complement):
+// each lane keeps its four largest keys sorted and offers the first, and
+// only the lane whose key won pops it, scanning its columns again when
+// its four are used up. A round costs about 40 instructions (five
+// shuffle steps on 64 bits); the first version rescanned the winner's
+// whole share of the row every round and took 10 ms at (1M, 500), W=16
+// (H100 80GB HBM3, 700 W, chip_smoke.py). Above 512 columns one warp per
+// row scans its row from the L1.
+//
 // digamma(x), x > 0: psi(x) = psi(x+5) - sum_{i<5} 1/(x+i), then the
 // asymptotic series at y = x + 5 >= 5, whose first omitted term is
 // 1/(240 y^8) < 1.1e-8. The lift's terms are paired,
@@ -37,6 +53,8 @@
 // x ~ 1e19; beyond that they reach inf, the reciprocal is 0 and the pair
 // (then below 1e-18) drops out without a NaN. Absolute error against
 // float64 stays below 5e-5 over [5e-3, 1e6].
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -120,6 +138,156 @@ dirichlet_wide_kernel(const float* __restrict__ x, OutT* __restrict__ out,
     svt::store_scalar(orow + c, expectation_f(xr[c], ds));
 }
 
+// The top-W selection. A column's key is its gamma's bits above the
+// column's complement: gamma > 0, so keys order as (value first, lower
+// column first among equal values), jax.lax.top_k's order, and no two
+// keys are equal. Each lane keeps, sorted, the kBuf largest of its own
+// keys below its last pick; a round takes the group's largest head, and
+// only the lane that held it pops its buffer (and scans its columns again
+// once the buffer is empty).
+constexpr int kBuf = 4;
+
+__device__ __forceinline__ uint64_t column_key(float v, int c) {
+  return (static_cast<uint64_t>(__float_as_uint(v)) << 32) |
+         (0xffffffffu - static_cast<uint32_t>(c));
+}
+
+// Offer `key` to the sorted buffer (largest first); 0 is an empty slot.
+__device__ __forceinline__ void buffer_insert(uint64_t (&buf)[kBuf],
+                                              uint64_t key) {
+  if (key <= buf[kBuf - 1]) return;
+#pragma unroll
+  for (int i = kBuf - 1; i > 0; --i)
+    buf[i] = key > buf[i - 1] ? buf[i - 1] : (key > buf[i] ? key : buf[i]);
+  buf[0] = key > buf[0] ? key : buf[0];
+}
+
+__device__ __forceinline__ void buffer_pop(uint64_t (&buf)[kBuf]) {
+#pragma unroll
+  for (int i = 0; i + 1 < kBuf; ++i) buf[i] = buf[i + 1];
+  buf[kBuf - 1] = 0;
+}
+
+template <int G>
+__device__ __forceinline__ uint64_t group_max_key(uint64_t key,
+                                                  unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const uint64_t other = __shfl_xor_sync(mask, key, off);
+    key = other > key ? other : key;
+  }
+  return key;
+}
+
+// W rounds over the group's buffers; `refill(below)` fills this lane's
+// empty buffer with its largest keys below `below`. Lane 0 of the group
+// writes the picked columns to id_row.
+template <int G, class Refill>
+__device__ __forceinline__ void select_top(uint64_t (&buf)[kBuf], int w,
+                                           unsigned mask, int g,
+                                           int32_t* id_row, Refill refill) {
+  for (int t = 0; t < w; ++t) {
+    const uint64_t best = group_max_key<G>(buf[0], mask);
+    if (g == 0)
+      id_row[t] = static_cast<int32_t>(0xffffffffu -
+                                       static_cast<uint32_t>(best));
+    if (buf[0] == best) {
+      buffer_pop(buf);
+      if (buf[0] == 0) refill(best);
+    }
+  }
+}
+
+// The values at the picked columns, read back from the Elogpi row the
+// group wrote (plain loads: __syncwarp orders the group's stores before
+// them).
+__device__ __forceinline__ void gather_picked(const float* orow,
+                                              const int32_t* id_row,
+                                              float* val_row, int w, int g,
+                                              int group, unsigned mask) {
+  __syncwarp(mask);
+  for (int t = g; t < w; t += group) val_row[t] = orow[id_row[t]];
+}
+
+// The top-W form of dirichlet_rows_kernel (f32 out, rest = 0): Elogpi,
+// then ids (rows, w) int32 and topvals (rows, w) f32.
+template <int VEC, int G, int N>
+__global__ void __launch_bounds__(svt::kBlockThreads)
+dirichlet_topw_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int32_t* __restrict__ ids, float* __restrict__ topvals,
+                      int64_t rows, int k, int w) {
+  constexpr int L = VEC * N;
+  const int lane = threadIdx.x % svt::kWarp;
+  const int g = lane % G;
+  const unsigned mask = svt::group_mask<G>(lane);
+  const int64_t r =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  if (r >= rows) return;  // the whole group leaves together
+  float v[L], e[L];
+  svt::load_row<VEC, G, N>(x + r * k, k, g, 0.0f, v);
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < L; ++i) s += v[i];
+  const float ds = digamma_f(svt::group_sum<G>(s, mask));
+#pragma unroll
+  for (int i = 0; i < L; ++i) e[i] = expectation_f(v[i], ds);
+  float* orow = out + r * k;
+  svt::store_row<VEC, G, N>(orow, k, g, e);
+
+  uint64_t buf[kBuf];
+  auto refill = [&](uint64_t below) {
+#pragma unroll
+    for (int i = 0; i < kBuf; ++i) buf[i] = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        const int c = (g + j * G) * VEC + u;
+        const uint64_t key = column_key(v[j * VEC + u], c);
+        if (c < k && key < below) buffer_insert(buf, key);
+      }
+  };
+  refill(~uint64_t{0});
+  int32_t* id_row = ids + r * w;
+  select_top<G>(buf, w, mask, g, id_row, refill);
+  gather_picked(orow, id_row, topvals + r * w, w, g, G, mask);
+}
+
+// K > 512: one warp per row, the row read again from the L1 for each scan.
+__global__ void __launch_bounds__(svt::kBlockThreads)
+dirichlet_topw_wide_kernel(const float* __restrict__ x,
+                           float* __restrict__ out, int32_t* __restrict__ ids,
+                           float* __restrict__ topvals, int64_t rows, int k,
+                           int w) {
+  const int lane = threadIdx.x % svt::kWarp;
+  const int64_t r =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) /
+      svt::kWarp;
+  if (r >= rows) return;
+  const float* xr = x + r * k;
+  float s = 0.0f;
+  for (int c = lane; c < k; c += svt::kWarp) s += xr[c];
+  const float ds = digamma_f(svt::warp_sum(s));
+  float* orow = out + r * k;
+  for (int c = lane; c < k; c += svt::kWarp)
+    orow[c] = expectation_f(xr[c], ds);
+
+  uint64_t buf[kBuf];
+  auto refill = [&](uint64_t below) {
+#pragma unroll
+    for (int i = 0; i < kBuf; ++i) buf[i] = 0;
+    for (int c = lane; c < k; c += svt::kWarp) {
+      const uint64_t key = column_key(xr[c], c);
+      if (key < below) buffer_insert(buf, key);
+    }
+  };
+  refill(~uint64_t{0});
+  int32_t* id_row = ids + r * w;
+  select_top<svt::kWarp>(buf, w, svt::kFull, lane, id_row, refill);
+  gather_picked(orow, id_row, topvals + r * w, w, lane, svt::kWarp,
+                svt::kFull);
+}
+
 template <class OutT>
 void launch_dirichlet(const float* x, OutT* out, int64_t rows, int k,
                       float rest, cudaStream_t stream) {
@@ -142,6 +310,31 @@ void launch_dirichlet(const float* x, OutT* out, int64_t rows, int k,
 }
 
 }  // namespace
+
+// The top-W form: out (rows, k) f32, ids (rows, w) int32, topvals (rows, w)
+// f32; 1 <= w <= k.
+extern "C" int svt_dirichlet_topw(const float* x, float* out, int32_t* ids,
+                                  float* topvals, int64_t rows, int k, int w,
+                                  cudaStream_t stream) {
+  if (rows <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  if (w < 1 || w > k) return static_cast<int>(cudaErrorInvalidValue);
+  if (k > svt::kRegMaxK) {
+    dirichlet_topw_wide_kernel<<<svt::blocks_for(rows, svt::kWarp),
+                                 svt::kBlockThreads, 0, stream>>>(
+        x, out, ids, topvals, rows, k, w);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool aligned = k % 4 == 0 && svt::aligned16(x) && svt::aligned16(out);
+  svt::dispatch_row(k, aligned, [&](auto vec, auto grp, auto cnt) {
+    constexpr int VEC = decltype(vec)::value;
+    constexpr int G = decltype(grp)::value;
+    constexpr int N = decltype(cnt)::value;
+    dirichlet_topw_kernel<VEC, G, N><<<svt::blocks_for(rows, G),
+                                       svt::kBlockThreads, 0, stream>>>(
+        x, out, ids, topvals, rows, k, w);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
 
 // out is (rows, k) f32, or bf16 when out_bf16 is set
 extern "C" int svt_dirichlet_expectation(const float* x, void* out,

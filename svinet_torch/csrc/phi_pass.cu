@@ -33,15 +33,27 @@
 // Hubs. A node with more than seg_len neighbours would serialise on one
 // warp, so its list arrives cut into segments (ops/edges.py). The same
 // kernel, launched over the segments, sums each into its own row of a
-// scratch buffer, and phi_combine_kernel adds a hub's rows in segment
-// order into gacc: still no atomics, still reproducible.
+// scratch buffer, and common.cuh's combine_segments_kernel adds a hub's
+// rows in segment order into gacc: still no atomics, still reproducible.
+//
+// sumk, the column sums of gacc (every link's phi counted at both ends),
+// comes out of the register kernel's own launches: each group adds every
+// row it writes to a running row of column sums that it keeps in shared
+// memory (the groups stride over the nodes, at most common.cuh's
+// kReduceBlocks blocks), the block adds its groups' rows in order into one
+// scratch row, and colsum_partials_kernel adds the scratch rows of both
+// passes (nodes, hub segments) in order. Before, sumk was a PyTorch
+// gacc.sum(0): a second read of the 2 GB gacc at n=1M, K=500, 0.755 ms of
+// a 48 ms stretch step on an H100 at 700 W (tools/profile_stretch.py).
 //
 // K above 512 does not fit the register layout and takes
 // phi_pull_wide_kernel: one warp per node, an online softmax over
 // 32-column chunks (any K, no register array), a second read of the
 // neighbour row to form phi, and the running sum kept in the owner's
 // gacc row itself (read and written only by the lane that owns the
-// column). It moves about twice the bytes of the register kernel.
+// column). It moves about twice the bytes of the register kernel. It keeps
+// no running column sums: sumk comes from common.cuh's rows_colsum_kernel
+// over the gacc rows it wrote (one more read of gacc, in a fixed order).
 //
 // Kernel 5: the fused phi + s3 pass of -fuse-s3
 // (svinet_tpu/svi/sweep_math.py:160-206, fused_phi_s3_pass). The same
@@ -91,12 +103,13 @@ extern "C" int svt_phi_pass(const float* elogpi, const float* elb0,
                             const int32_t* hub_segptr,
                             const int32_t* seg_node, const int32_t* seg_begin,
                             const int32_t* seg_end, float* partial,
-                            float* gacc, int64_t n, int64_t n_hubs,
-                            int64_t n_segs, int k, int seg_len,
-                            cudaStream_t stream) {
+                            float* gacc, float* sumk_partial, float* sumk,
+                            int64_t n, int64_t n_hubs, int64_t n_segs, int k,
+                            int seg_len, cudaStream_t stream) {
   return svt::phi_pass(elogpi, elb0, conv, rowptr, nbr, hub_node, hub_segptr,
-                       seg_node, seg_begin, seg_end, partial, gacc, n, n_hubs,
-                       n_segs, k, seg_len, stream);
+                       seg_node, seg_begin, seg_end, partial, gacc,
+                       sumk_partial, sumk, n, n_hubs, n_segs, k, seg_len,
+                       stream);
 }
 
 // Kernel 5: svt_phi_pass, and s3 (K,) = sum over links of
@@ -109,11 +122,12 @@ extern "C" int svt_phi_s3_pass(const float* elogpi, const float* mphi,
                                const int32_t* seg_node,
                                const int32_t* seg_begin,
                                const int32_t* seg_end, float* partial,
-                               float* gacc, float* s3_partial, float* s3,
-                               int64_t n, int64_t n_hubs, int64_t n_segs,
-                               int k, int seg_len, cudaStream_t stream) {
+                               float* gacc, float* sumk_partial, float* sumk,
+                               float* s3_partial, float* s3, int64_t n,
+                               int64_t n_hubs, int64_t n_segs, int k,
+                               int seg_len, cudaStream_t stream) {
   return svt::phi_s3_pass(elogpi, mphi, elb0, rowptr, nbr, hub_node,
                           hub_segptr, seg_node, seg_begin, seg_end, partial,
-                          gacc, s3_partial, s3, n, n_hubs, n_segs, k, seg_len,
-                          stream);
+                          gacc, sumk_partial, sumk, s3_partial, s3, n, n_hubs,
+                          n_segs, k, seg_len, stream);
 }

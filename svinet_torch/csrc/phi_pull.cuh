@@ -23,6 +23,9 @@ struct PhiArgs {
   // kernel 5 only
   const T* mphi;       // (n,K) mean indicators of the sweep before
   float* s3_partial;   // (blocks,K) scratch for the column sums of s3
+  // (blocks,K) scratch for the column sums of the rows written to `out`:
+  // sumk, added across blocks by colsum_partials_kernel
+  float* sumk_partial;
 };
 
 // Whether exp is one ex2.approx of a scaled argument (__expf) in place of
@@ -44,7 +47,8 @@ constexpr bool kFastExp = std::is_same<T, bf16>::value;
 
 // FUSED = false is kernel 2; FUSED = true is kernel 5, which also sums
 // mphi[p] * mphi[q] over the links it meets from their lower end. CONV is
-// kernel 2's -freeze form.
+// kernel 2's -freeze form. The groups stride over the items, and each adds
+// the row it writes to its running column sums (sumk) in shared memory.
 template <int VEC, int G, int N, bool FUSED, bool CONV, class T>
 __global__ void __launch_bounds__(kBlockThreads)
 phi_pull_kernel(const PhiArgs<T> a) {
@@ -58,9 +62,9 @@ phi_pull_kernel(const PhiArgs<T> a) {
   const int32_t* nbr = a.items.nbr;
   const int64_t first =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
-  // kernel 2 is launched with a group for every item, so its loop runs
-  // once; kernel 5's groups stride over the items and keep s3 across them
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x / G;
+  __shared__ float sumk_smem[kBlockThreads * L];
+  smem_row_zero<VEC, G, N>(sumk_smem);
 
   float base[L], acc[L], x[L];
   float own[LF], s3[LF];
@@ -163,7 +167,10 @@ phi_pull_kernel(const PhiArgs<T> a) {
                                  static_cast<float>(free_nbrs));
     }
     store_row<VEC, G, N>(a.out + item * k, k, g, acc);
+    smem_row_add<VEC, G, N>(acc, sumk_smem);
   }
+  smem_colsum_write<VEC, G, N>(
+      k, sumk_smem, a.sumk_partial + static_cast<int64_t>(blockIdx.x) * k);
   if constexpr (FUSED) {
     __shared__ float smem[kBlockThreads * L];
     block_colsum<VEC, G, N>(
@@ -235,36 +242,24 @@ phi_pull_wide_kernel(const PhiArgs<T> a) {
   }
 }
 
-// gacc[hub] = sum of the hub's scratch rows, in segment order.
-__global__ void __launch_bounds__(kBlockThreads)
-phi_combine_kernel(const float* __restrict__ partial,
-                   const int32_t* __restrict__ hub_node,
-                   const int32_t* __restrict__ hub_segptr,
-                   float* __restrict__ gacc, int k) {
-  const int64_t h = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= k) return;
-  float s = 0.0f;
-  for (int64_t r = hub_segptr[h]; r < hub_segptr[h + 1]; ++r)
-    s += partial[r * k + c];
-  gacc[static_cast<int64_t>(hub_node[h]) * k + c] = s;
-}
-
 // Launch over a.items; with `fused`, kernel 5 (K <= kRegMaxK only). Returns
-// the number of blocks, which for kernel 5 is the number of s3 scratch rows
-// written.
+// the number of blocks of the register kernel, which is the number of sumk
+// (and, for kernel 5, s3) scratch rows written; 0 for the wide kernel.
 template <class T>
 unsigned launch_pull(const PhiArgs<T>& a, bool fused, cudaStream_t stream) {
   unsigned blocks = 0;
   if (a.items.n_items == 0) return blocks;
   const bool conv = a.conv != nullptr;
   if (a.k > kRegMaxK) {
-    blocks = blocks_for(a.items.n_items, kWarp);
+    // no scratch rows: launch_phi sums the written rows afterwards
+    const unsigned wide_blocks = blocks_for(a.items.n_items, kWarp);
     if (conv)
-      phi_pull_wide_kernel<true, T><<<blocks, kBlockThreads, 0, stream>>>(a);
+      phi_pull_wide_kernel<true, T>
+          <<<wide_blocks, kBlockThreads, 0, stream>>>(a);
     else
-      phi_pull_wide_kernel<false, T><<<blocks, kBlockThreads, 0, stream>>>(a);
-    return blocks;
+      phi_pull_wide_kernel<false, T>
+          <<<wide_blocks, kBlockThreads, 0, stream>>>(a);
+    return 0;
   }
   const bool aligned = a.k % 4 == 0 && aligned_unit(a.elogpi) &&
                        aligned16(a.elb0) && aligned16(a.out) &&
@@ -273,12 +268,11 @@ unsigned launch_pull(const PhiArgs<T>& a, bool fused, cudaStream_t stream) {
     constexpr int VEC = decltype(vec)::value;
     constexpr int G = decltype(grp)::value;
     constexpr int N = decltype(cnt)::value;
+    blocks = reduce_blocks_for(a.items.n_items, G);
     if (fused) {
-      blocks = reduce_blocks_for(a.items.n_items, G);
       phi_pull_kernel<VEC, G, N, true, false, T>
           <<<blocks, kBlockThreads, 0, stream>>>(a);
     } else {
-      blocks = blocks_for(a.items.n_items, G);
       if (conv)
         phi_pull_kernel<VEC, G, N, false, true, T>
             <<<blocks, kBlockThreads, 0, stream>>>(a);
@@ -290,15 +284,18 @@ unsigned launch_pull(const PhiArgs<T>& a, bool fused, cudaStream_t stream) {
   return blocks;
 }
 
-// The pass over nodes, the pass over hub segments and the hubs' combine.
-// Returns the number of s3 scratch rows written (kernel 5).
+// The pass over nodes, the pass over hub segments, the hubs' combine and
+// sumk from the scratch rows of both passes. Returns the number of scratch
+// rows written (for kernel 5, of s3's too).
 template <class T>
 unsigned launch_phi(PhiArgs<T> a, bool fused, const int32_t* hub_node,
                     const int32_t* hub_segptr, const int32_t* seg_node,
                     const int32_t* seg_begin, const int32_t* seg_end,
-                    float* partial, int64_t n_hubs, int64_t n_segs,
-                    cudaStream_t stream) {
+                    float* partial, float* sumk, int64_t n_hubs,
+                    int64_t n_segs, cudaStream_t stream) {
   float* gacc = a.out;
+  float* sumk_partial = a.sumk_partial;
+  const int64_t n = a.items.n_items;
   unsigned rows = launch_pull(a, fused, stream);
   if (n_segs > 0) {
     a.items.seg_node = seg_node;
@@ -306,31 +303,37 @@ unsigned launch_phi(PhiArgs<T> a, bool fused, const int32_t* hub_node,
     a.items.seg_end = seg_end;
     a.items.n_items = n_segs;
     a.out = partial;
+    a.sumk_partial += static_cast<int64_t>(rows) * a.k;
     if (fused) a.s3_partial += static_cast<int64_t>(rows) * a.k;
     rows += launch_pull(a, fused, stream);
-    const dim3 grid(static_cast<unsigned>(n_hubs),
-                    (a.k + kBlockThreads - 1) / kBlockThreads);
-    phi_combine_kernel<<<grid, kBlockThreads, 0, stream>>>(
-        partial, hub_node, hub_segptr, gacc, a.k);
+    launch_combine_segments(partial, hub_node, hub_segptr, gacc, n_hubs, a.k,
+                            stream);
   }
+  // the wide kernel keeps no row of sums: sumk from the gacc it wrote
+  if (a.k > kRegMaxK)
+    rows = launch_rows_colsum(gacc, n, a.k, sumk_partial, stream);
+  launch_colsum_partials(sumk_partial, static_cast<int>(rows), a.k, a.k, sumk,
+                         stream);
   return rows;
 }
 
-// Kernel 2. elogpi (n,K) of type T, elb0 (K,) and gacc (n,K) f32; conv
-// (n,) int32 or null; partial is scratch of n_segs rows of K.
+// Kernel 2. elogpi (n,K) of type T, elb0 (K,), gacc (n,K) and sumk (K,)
+// f32; conv (n,) int32 or null; partial is scratch of n_segs rows of K,
+// sumk_partial of 2 * kReduceBlocks rows of K.
 template <class T>
 int phi_pass(const T* elogpi, const float* elb0, const int32_t* conv,
              const int32_t* rowptr, const int32_t* nbr,
              const int32_t* hub_node, const int32_t* hub_segptr,
              const int32_t* seg_node, const int32_t* seg_begin,
-             const int32_t* seg_end, float* partial, float* gacc, int64_t n,
-             int64_t n_hubs, int64_t n_segs, int k, int seg_len,
-             cudaStream_t stream) {
+             const int32_t* seg_end, float* partial, float* gacc,
+             float* sumk_partial, float* sumk, int64_t n, int64_t n_hubs,
+             int64_t n_segs, int k, int seg_len, cudaStream_t stream) {
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   const PhiArgs<T> a{{rowptr, nbr, nullptr, nullptr, nullptr, n, seg_len},
-                     elogpi, elb0, gacc, k, conv, nullptr, nullptr};
+                     elogpi, elb0, gacc, k, conv, nullptr, nullptr,
+                     sumk_partial};
   launch_phi(a, false, hub_node, hub_segptr, seg_node, seg_begin, seg_end,
-             partial, n_hubs, n_segs, stream);
+             partial, sumk, n_hubs, n_segs, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -342,15 +345,17 @@ int phi_s3_pass(const T* elogpi, const T* mphi, const float* elb0,
                 const int32_t* hub_node, const int32_t* hub_segptr,
                 const int32_t* seg_node, const int32_t* seg_begin,
                 const int32_t* seg_end, float* partial, float* gacc,
-                float* s3_partial, float* s3, int64_t n, int64_t n_hubs,
-                int64_t n_segs, int k, int seg_len, cudaStream_t stream) {
+                float* sumk_partial, float* sumk, float* s3_partial, float* s3,
+                int64_t n, int64_t n_hubs, int64_t n_segs, int k, int seg_len,
+                cudaStream_t stream) {
   if (k <= 0) return static_cast<int>(cudaGetLastError());
   if (k > kRegMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const PhiArgs<T> a{{rowptr, nbr, nullptr, nullptr, nullptr, n, seg_len},
-                     elogpi, elb0, gacc, k, nullptr, mphi, s3_partial};
+                     elogpi, elb0, gacc, k, nullptr, mphi, s3_partial,
+                     sumk_partial};
   const unsigned rows =
       launch_phi(a, true, hub_node, hub_segptr, seg_node, seg_begin, seg_end,
-                 partial, n_hubs, n_segs, stream);
+                 partial, sumk, n_hubs, n_segs, stream);
   launch_colsum_partials(s3_partial, static_cast<int>(rows), k, k, s3, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,14 +51,17 @@ _F32 = ctypes.c_float
 # given: twice csrc/common.cuh's kReduceBlocks (two sums, or the pass over
 # nodes and the pass over hub segments)
 REDUCE_SCRATCH_ROWS = 2 * 1056
-_PHI = (_P,) * 12 + (_I64, _I64, _I64, _I32, _I32, _P)
-_PHI_S3 = (_P,) * 14 + (_I64, _I64, _I64, _I32, _I32, _P)
+_PHI = (_P,) * 14 + (_I64, _I64, _I64, _I32, _I32, _P)
+_PHI_S3 = (_P,) * 16 + (_I64, _I64, _I64, _I32, _I32, _P)
 # entry point -> argument types (pointers, sizes, then the stream)
 SIGNATURES = {
     # x, out, rows, k, rest, whether out is bf16
     "svt_dirichlet_expectation": (_P, _P, _I64, _I32, _F32, _I32, _P),
-    # elogpi, elb0, conv, the seven adjacency arrays, partial, gacc, n,
-    # n_hubs, n_segs, k, seg_len; the second over bf16 rows
+    # x, out, ids, topvals, rows, k, w
+    "svt_dirichlet_topw": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # elogpi, elb0, conv, the seven adjacency arrays, partial, gacc,
+    # sumk_partial, sumk, n, n_hubs, n_segs, k, seg_len; the second over
+    # bf16 rows
     "svt_phi_pass": _PHI,
     "svt_phi_pass_bf16": _PHI,
     # gacc, deg, sumk, mphi, mphi_bf16, partial, s12, conv_prev, conv_out,
@@ -71,10 +74,14 @@ SIGNATURES = {
     # gamma, beta, pairs, y, w, partial, out, pairs, k, 1 - epsilon
     "svt_heldout_sums": (_P,) * 7 + (_I64, _I32, _F32, _P),
     # elogpi, mphi, elb0, the seven adjacency arrays, partial, gacc,
-    # s3_partial, s3, n, n_hubs, n_segs, k, seg_len; the second over bf16
-    # rows
+    # sumk_partial, sumk, s3_partial, s3, n, n_hubs, n_segs, k, seg_len; the
+    # second over bf16 rows
     "svt_phi_s3_pass": _PHI_S3,
     "svt_phi_s3_pass_bf16": _PHI_S3,
+    # elogpi, ids, topvals, elb0, mphi, the seven adjacency arrays,
+    # seg_rows, partial, gacc, sumk, s3, n, n_hubs, n_segs, k, w, seg_len
+    "svt_sparse_union": (_P,) * 17 + (_I64, _I64, _I64, _I32, _I32, _I32,
+                                      _P),
 }
 
 _lock = threading.Lock()

@@ -6,10 +6,13 @@ JAX engine computes through XLA (svinet_tpu/ops/expectations.py:21-22).
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. The kernel is chosen by K alone: up to 512 columns a row is
 held in registers by a group of lanes (several rows to a warp when K is
-small), above that one warp reads its row twice.
+small), above that one warp reads its row twice. Its top-W form
+(-sparse-w) also picks, per row, the W largest columns of its input.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -59,3 +62,46 @@ def dirichlet_expectation(x: torch.Tensor, rest: float = 0.0,
 
 dirichlet_expectation.launches = 0
 dirichlet_expectation.forms = {}
+
+
+def top_columns_plain(x: torch.Tensor, w: int) -> torch.Tensor:
+    """(rows, w) int32: the columns of the w largest values of each row,
+    largest first and the lower column first among equal values, as
+    jax.lax.top_k orders them (a descending stable sort; torch.topk
+    promises no order among ties)."""
+    return torch.sort(x, dim=1, descending=True,
+                      stable=True).indices[:, :w].to(torch.int32)
+
+
+def dirichlet_expectation_topw_plain(x: torch.Tensor, w: int
+                                     ) -> Tuple[torch.Tensor, ...]:
+    elogpi = dirichlet_expectation_plain(x)
+    ids = top_columns_plain(x, w)
+    return elogpi, ids, elogpi.gather(1, ids.long())
+
+
+def dirichlet_expectation_topw(x: torch.Tensor, w: int
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The top-W form of kernel 1 (svinet_tpu/svi/sweep_math.py:241-245):
+    (Elogpi (n,K) f32, ids (n,w) int32, topvals (n,w) f32), where ids are
+    the columns of the w largest entries of x per row (top_columns_plain's
+    order) and topvals = Elogpi[row, ids]. One pass on the card: the row
+    kernel 1 holds for Elogpi is searched in w rounds of a group arg-max
+    over (value, column) keys; counted as the form "topw"."""
+    if not 1 <= w <= x.shape[-1]:
+        raise ValueError(f"w must lie in [1, {x.shape[-1]}], got {w}")
+    if x.device.type == "cpu":
+        return dirichlet_expectation_topw_plain(x, w)
+    build.require_cuda(x, "dirichlet_expectation_topw")
+    if x.dim() != 2:
+        raise ValueError(f"dirichlet_expectation_topw takes (rows, k), "
+                         f"got {tuple(x.shape)}")
+    build.check_cuda(x, "x", torch.float32, tuple(x.shape), x.device)
+    rows, k = x.shape
+    out = torch.empty_like(x)
+    ids = torch.empty((rows, w), dtype=torch.int32, device=x.device)
+    topvals = torch.empty((rows, w), dtype=torch.float32, device=x.device)
+    build.launch("svt_dirichlet_topw", x.device, x.data_ptr(), out.data_ptr(),
+                 ids.data_ptr(), topvals.data_ptr(), rows, k, w)
+    build.count_launch(dirichlet_expectation, "topw")
+    return out, ids, topvals

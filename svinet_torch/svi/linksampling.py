@@ -1,5 +1,6 @@
 """LinkSampling engine, single device, with -fuse-s3, -report-batch,
--bf16, -freeze and -prune (svinet_tpu/svi/linksampling.py).
+-bf16, -freeze, -prune, -sparse-w, -init-communities, -load-test-sets and
+-profile (svinet_tpu/svi/linksampling.py).
 
 One iteration is one full sweep over the training links with the
 closed-form phi per link,
@@ -17,6 +18,7 @@ runs B such intervals before the host reads anything.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -25,9 +27,9 @@ import torch
 
 from svinet_torch.config import Config
 from svinet_torch.graph import Network
-from svinet_torch.io.writers import load_model
+from svinet_torch.io.writers import ReportFile, load_model, write_edgelist
 from svinet_torch.evals.likelihood import (
-    heldout_sums_blocked, link_probs, result_from_sums)
+    heldout_stats, heldout_sums_blocked, link_probs, result_from_sums)
 from svinet_torch.evals.precision import auc as auc_fn
 from svinet_torch.ops.edges import (
     Adjacency, build_adjacency, choose_edge_block, pad_edges)
@@ -35,7 +37,7 @@ from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
     LSConsts, edge_blocks, finish_lambda, fused_phi_s3_pass,
-    mean_indicator_update, phi_pass, s3_pass)
+    mean_indicator_update, phi_pass, s3_pass, sparse_union_sweep)
 
 # the logit bias that keeps a padded column of a compacted sweep out of
 # the phi softmax (svinet_tpu/svi/sweep_math.py:317)
@@ -222,6 +224,23 @@ def fused_multi_sweep_ho(gamma, lam, mphi, adj: Adjacency, deg,
     return (gamma, lam, mphi, trace[0], *x)
 
 
+def sparse_multi_sweep(gamma, lam, mphi, adj: Adjacency, deg,
+                       consts: LSConsts, annealing: bool, w: int,
+                       n_sweeps: int, ho=None):
+    """n_sweeps -sparse-w sweeps (sweep_math.sparse_union_sweep), then,
+    when `ho` = (pairs, y, weights, epsilon, blocks) is given, the six
+    validation heldout sums on the final state
+    (svinet_tpu/svi/linksampling.py:263-285). `mphi` carries the mean
+    indicators from sweep to sweep and is overwritten. Returns
+    (gamma, lam, mphi), and the sums after them with `ho`."""
+    for _ in range(n_sweeps):
+        gamma, lam, mphi = sparse_union_sweep(gamma, lam, mphi, adj, deg,
+                                              consts, annealing, w)
+    if ho is None:
+        return gamma, lam, mphi
+    return gamma, lam, mphi, heldout_sums_blocked(gamma, lam, *ho)
+
+
 # ---------------------------------------------------------------------
 # Active-K column compaction (-prune, svinet_tpu/svi/linksampling.py:
 # 295-334). Columns where no node has gamma - alpha >= 1 sit at
@@ -275,6 +294,23 @@ def init_gamma_from_links(rng: np.random.Generator, edges: np.ndarray,
     return gamma
 
 
+def init_gamma_from_communities(members, deg: np.ndarray, n: int, k: int,
+                                alpha: float) -> np.ndarray:
+    """-init-communities: gamma_p = alpha + deg_p * phi_p, where phi_p is
+    the normalised membership vector (alpha everywhere, plus n / (number
+    of p's memberships) at each of p's initial communities; reference:
+    LinkSampling::init_gamma_external, src/linksampling.cc:403-453).
+    Community ids >= k are ignored. A numpy copy of
+    svinet_tpu/svi/linksampling.py:372-385."""
+    phi = np.full((n, k), alpha)
+    for p, comms in enumerate(members):
+        cs = [c for c in comms if c < k]
+        if cs:
+            phi[p, cs] += float(n) / len(comms)
+    phi /= phi.sum(axis=1, keepdims=True)
+    return alpha + deg[:, None] * phi
+
+
 def init_gamma_from_links_device(gen: torch.Generator, edges, mask, n: int,
                                  k: int, alpha: float, num_blocks: int):
     """init_gamma_from_links drawn on the device block by block, for edge
@@ -313,6 +349,18 @@ class LinkSampling(EngineBase):
 
         if cfg.model_load and cfg.gamma_location:
             g0, l0 = load_model(cfg.gamma_location, n, k, cfg.t)
+        elif cfg.use_init_communities and cfg.init_communities_fname:
+            network.load_init_communities(cfg.init_communities_fname)
+            with open(cfg.file_str("init_memberships.txt"), "w") as f:
+                for p, comms in enumerate(network.init_communities_seq):
+                    row = "\t".join(str(c) for c in comms)
+                    f.write(f"{int(network.seq2id[p])}\t{row}\n")
+            # the degree over all links, held-out ones included
+            deg_all = (network.row_ptr[1:] - network.row_ptr[:-1]).astype(
+                np.float64)
+            g0 = init_gamma_from_communities(
+                network.init_communities_seq, deg_all, n, k, cfg.alpha)
+            l0 = np.tile([cfg.eta0, cfg.eta1], (k, 1))
         elif len(network.edges) * k > DEVICE_INIT_MIN:
             ie, im = pad_edges(network.edges, block)
             gen = torch.Generator(device=device)
@@ -338,6 +386,22 @@ class LinkSampling(EngineBase):
         # cleared, src/linksampling.cc:472-473); 0 = free, else column + 1
         self._conv = (torch.zeros(n, dtype=torch.int32, device=device)
                       if cfg.freeze_converged else None)
+        # -sparse-w W: the top-W union sweep once annealing is over
+        # (svinet_tpu/svi/linksampling.py:502-518). It carries its own mean
+        # indicators for the lagged s3, zeros before its first sweep, so
+        # that sweep's s3 is 0; they are not self.mphi, whose presence
+        # makes a dense sweep fused
+        self._sparse_mphi = None
+        if cfg.sparse_w:
+            if cfg.freeze_converged:
+                raise SystemExit("-sparse-w does not support -freeze")
+            if cfg.sparse_w >= k:
+                print(f"+ -sparse-w {cfg.sparse_w} >= k={k}; running dense")
+                cfg.sparse_w = 0
+            else:
+                cfg.prune = False
+                cfg.fuse_s3 = False
+                cfg.plog("sparse union width", cfg.sparse_w)
         if cfg.fuse_s3 and cfg.freeze_converged:
             print("+ -fuse-s3 has no converged-freezing fast path; "
                   "running unfused to honor -freeze")
@@ -353,6 +417,28 @@ class LinkSampling(EngineBase):
                                     device=device)
         if cfg.bf16_rows:
             cfg.plog("bf16 rows", True)
+
+        # -load-test-sets: fixed uniform/biased heldout pair files from the
+        # cwd, each with its own per-report likelihood trace (reference:
+        # LinkSampling::load_test_sets, src/linksampling.cc:1075-1145)
+        self._test_sets = []
+        if cfg.load_test_sets:
+            present = [name for name in ("uniform", "biased")
+                       if os.path.exists(f"{name}-heldout-pairs.txt")]
+            if not present:
+                raise SystemExit(
+                    "+ -load-test-sets: neither uniform-heldout-pairs.txt "
+                    "nor biased-heldout-pairs.txt found in the cwd")
+            for name in present:
+                pairs, ys = network.load_pairs_file(
+                    f"{name}-heldout-pairs.txt")
+                write_edgelist(cfg.file_str(f"{name}-test-pairs.txt"),
+                               pairs, ys, network.seq2id)
+                cfg.plog(f"loaded {name} test pairs:", len(pairs))
+                self._test_sets.append(
+                    (name, self._device_pairs(pairs),
+                     self._device_pairs(ys.astype(np.int32)),
+                     ReportFile(cfg.file_str(f"{name}-hol.txt"))))
 
         # the validation pairs, padded once to whole blocks, ride the tail
         # of every step; _ho_res holds the sums of the last step
@@ -374,6 +460,9 @@ class LinkSampling(EngineBase):
         the state is column-compacted (the report expands it first and
         evaluates then)."""
         self._ho_res = None
+        if self.cfg.sparse_w and not self.annealing:
+            self._sparse_step(n_sweeps)
+            return
         if self._ho is None or self._compact is not None:
             self.gamma, self.lam, self.mphi, x = multi_sweep(
                 self.gamma, self.lam, self.mphi, self.adj, self.deg,
@@ -382,6 +471,26 @@ class LinkSampling(EngineBase):
             self._conv, self._mphi_bf16 = x.conv, x.mphi_bf16
             return
         self._ho_res = self._run_trace(n_sweeps, 1)[0]
+
+    def _sparse_step(self, n_sweeps: int) -> None:
+        """-sparse-w's sweeps, with the heldout tail when there is a
+        validation split (svinet_tpu/svi/linksampling.py:816-838). -bf16
+        does nothing here, as in the JAX engine, which returns before its
+        bf16 gate."""
+        if self._sparse_mphi is None:
+            self._sparse_mphi = torch.zeros((self.n, self.k),
+                                            dtype=torch.float32,
+                                            device=self.device)
+        ho = None
+        if self._ho is not None:
+            hp, hy, hw, nb = self._ho
+            ho = (hp, hy, hw, self.cfg.epsilon, nb)
+        out = sparse_multi_sweep(
+            self.gamma, self.lam, self._sparse_mphi, self.adj, self.deg,
+            self.consts, self.annealing, int(self.cfg.sparse_w), n_sweeps, ho)
+        self.gamma, self.lam, self._sparse_mphi = out[:3]
+        if ho is not None:
+            self._ho_res = out[3]
 
     def _sweep_extras(self) -> SweepExtras:
         """The engine's -bf16, -freeze and -prune state for the sweeps of
@@ -506,6 +615,7 @@ class LinkSampling(EngineBase):
         stop = super().report()
         if not self._light_report:
             self._log_convergence()
+            self._report_test_sets()
         if self.annealing:
             h = getattr(self, "_anneal_hist", [])
             h.append(self.stopper.prev_h)     # prev_h = this report's nshol
@@ -542,6 +652,25 @@ class LinkSampling(EngineBase):
         if not stop:
             self._maybe_compact()
         return stop
+
+    def _report_test_sets(self) -> None:
+        """-load-test-sets: a {name}-hol.txt row per report and
+        {name}_auc.txt ("y P(link)" rows) rewritten (reference:
+        src/linksampling.cc:1056-1074, ~1150)."""
+        cfg = self.cfg
+        for name, pairs, ys, rf in self._test_sets:
+            res = heldout_stats(self.gamma, self.lam, pairs, ys, cfg.epsilon)
+            rf.write(self.iteration, self.duration(), res, cfg.zeros_prob,
+                     cfg.ones_prob)
+            probs = link_probs(self.gamma, self.lam, pairs).cpu().numpy()
+            with open(cfg.file_str(f"{name}_auc.txt"), "w") as f:
+                for yy, u in zip(ys.cpu().numpy(), probs):
+                    f.write(f"{int(yy)} {u:.3f}\n")
+
+    def close(self) -> None:
+        super().close()
+        for *_, rf in self._test_sets:
+            rf.close()
 
     def _anneal_plateau(self) -> bool:
         """A 1e-6 per-iteration relative change sustained over the last
@@ -636,15 +765,34 @@ class LinkSampling(EngineBase):
         self.iteration = j + (b_eff - 1) * r + 1
         return False
 
-    def infer(self) -> None:
-        """Sweep until the stopping rule or -max-iterations;
-        reports fire at iterations 0, r, 2r, ... (r = -rfreq), and every
-        sweep up to the next boundary runs in one step. With
+    def infer(self, max_seconds: Optional[float] = None) -> None:
+        """Sweep until the stopping rule, -max-iterations or max_seconds
+        (wall seconds since the engine was made, checked before each
+        step); reports fire at iterations 0, r, 2r, ... (r = -rfreq), and
+        every sweep up to the next boundary runs in one step. With
         -report-batch B > 1 and a validation split, B whole intervals run
         per host round trip (_trace_intervals), except under -freeze (the
-        batched trace does not thread the converged flags) and while the
-        state is column-compacted
-        (svinet_tpu/svi/linksampling.py:1288-1299, 1316)."""
+        batched trace does not thread the converged flags), under
+        -sparse-w and while the state is column-compacted
+        (svinet_tpu/svi/linksampling.py:1288-1316). -profile DIR traces the
+        loop with torch.profiler into DIR (:1199-1211)."""
+        if not self.cfg.profile_dir:
+            self._infer_loop(max_seconds)
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        # started before the iteration-0 report, whose launches are the
+        # first the profiler meets: it drops the first kernels after it
+        # starts, and this way they are not the first sweep's
+        with profile(activities=acts) as prof:
+            self._infer_loop(max_seconds)
+        prof.export_chrome_trace(
+            os.path.join(self.cfg.profile_dir, "svinet_torch_trace.json"))
+
+    def _infer_loop(self, max_seconds: Optional[float]) -> None:
         cfg = self.cfg
         timef = open(cfg.file_str("time.txt"), "w")
         try:
@@ -656,9 +804,15 @@ class LinkSampling(EngineBase):
             batch = max(1, int(cfg.report_batch))
             # without a validation split there are no sums to trace
             use_trace = (batch > 1 and self._ho is not None
-                         and not cfg.freeze_converged)
+                         and not cfg.freeze_converged and not cfg.sparse_w)
             while True:
                 if cfg.max_iterations and self.iteration > cfg.max_iterations:
+                    self.do_on_stop()
+                    return
+                # the time budget gates both paths (the -report-batch
+                # branch continues before the loop's tail)
+                if (max_seconds is not None
+                        and time.time() - self._start > max_seconds):
                     self.do_on_stop()
                     return
                 j = ((self.iteration + r - 1) // r) * r

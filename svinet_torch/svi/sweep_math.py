@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from svinet_torch.kernels import build
+from svinet_torch.ops.digamma import (
+    dirichlet_expectation, dirichlet_expectation_topw)
 from svinet_torch.ops.edges import Adjacency, choose_edge_block
 
 
@@ -218,8 +220,9 @@ def phi_pass(elogpi, elb0, adj: Adjacency, conv=None
     With conv, a link with exactly one frozen end fetches no row. Hub
     segments (adj.seg_*) are summed into a scratch buffer and combined in
     a fixed order by two further small launches, made only when the graph
-    has hubs. sumk is gacc.sum(0), which equals 2 * sum(phi) up to
-    summation order."""
+    has hubs. sumk, the column sums of the rows written (2 * sum(phi) up
+    to summation order), comes from the same launches: per-block partial
+    rows, added in a fixed order by one more small launch."""
     if elogpi.device.type == "cpu":
         block = choose_edge_block(adj.nbr.shape[0], elogpi.shape[1])
         return phi_pass_pull_plain(elogpi, elb0, adj, block, conv)
@@ -230,13 +233,16 @@ def phi_pass(elogpi, elb0, adj: Adjacency, conv=None
     build.check_cuda(elb0, "elb0", torch.float32, (k,), dev)
     n_hubs, n_segs = _check_adjacency(adj, n, dev)
     gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    sumk = torch.empty(k, dtype=torch.float32, device=dev)
     partial = torch.empty((n_segs, k), dtype=torch.float32, device=dev)
+    sumk_partial = _reduce_scratch(k, dev)
     build.launch("svt_phi_pass_bf16" if bf16 else "svt_phi_pass", dev,
                  elogpi.data_ptr(), elb0.data_ptr(), _conv_ptr(conv, n, dev),
                  *(t.data_ptr() for t in adj.tensors()), partial.data_ptr(),
-                 gacc.data_ptr(), n, n_hubs, n_segs, k, adj.seg_len)
+                 gacc.data_ptr(), sumk_partial.data_ptr(), sumk.data_ptr(), n,
+                 n_hubs, n_segs, k, adj.seg_len)
     build.count_launch(phi_pass, _form(bf16, conv))
-    return gacc, gacc.sum(dim=0)
+    return gacc, sumk
 
 
 phi_pass.launches = 0
@@ -541,20 +547,187 @@ def fused_phi_s3_pass(elogpi, mphi_prev, elb0, adj: Adjacency,
     build.check_cuda(elb0, "elb0", torch.float32, (k,), dev)
     n_hubs, n_segs = _check_adjacency(adj, n, dev)
     gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    sumk = torch.empty(k, dtype=torch.float32, device=dev)
     partial = torch.empty((n_segs, k), dtype=torch.float32, device=dev)
     s3 = torch.empty(k, dtype=torch.float32, device=dev)
-    s3_partial = _reduce_scratch(k, dev)
+    # two scratch buffers, each held until the launch is enqueued
+    sumk_partial, s3_partial = _reduce_scratch(k, dev), _reduce_scratch(k, dev)
     build.launch("svt_phi_s3_pass_bf16" if bf16 else "svt_phi_s3_pass", dev,
                  elogpi.data_ptr(), mphi_prev.data_ptr(), elb0.data_ptr(),
                  *(t.data_ptr() for t in adj.tensors()), partial.data_ptr(),
-                 gacc.data_ptr(), s3_partial.data_ptr(), s3.data_ptr(), n,
-                 n_hubs, n_segs, k, adj.seg_len)
+                 gacc.data_ptr(), sumk_partial.data_ptr(), sumk.data_ptr(),
+                 s3_partial.data_ptr(), s3.data_ptr(), n, n_hubs, n_segs, k,
+                 adj.seg_len)
     build.count_launch(fused_phi_s3_pass, _form(bf16, None))
-    return gacc, gacc.sum(dim=0), s3
+    return gacc, sumk, s3
 
 
 fused_phi_s3_pass.launches = 0
 fused_phi_s3_pass.forms = {}
+
+
+# ---------------------------------------------------------------------
+# -sparse-w: the top-W union pass (svinet_tpu/svi/sweep_math.py:209-286).
+# Per node the W columns of the largest gamma and their Elogpi values; per
+# link a softmax over the union of the two lists, with exact logits
+# gathered at (node, column).
+
+def sparse_union_pass_plain(elogpi, ids, topvals, elb0, mphi, edges, mask,
+                            num_blocks: int) -> Tuple[torch.Tensor, ...]:
+    """The JAX block function (svinet_tpu/svi/sweep_math.py:252-277) over
+    the padded edge list: per link the 2W candidate columns, their logits,
+    a stable sort of the ids to mark duplicates (the first copy is kept),
+    the softmax over the kept slots, phi added at (p, id) and (q, id), sumk
+    at 2 phi, s3 at mphi[p,id] * mphi[q,id] on kept slots. ids (n,W)
+    int32, topvals (n,W) f32. Returns (gacc (n,K), sumk (K,), s3 (K,))."""
+    n, k = elogpi.shape
+    dev = elogpi.device
+    gacc = torch.zeros(n * k, dtype=torch.float32, device=dev)
+    sumk = torch.zeros(k, dtype=torch.float32, device=dev)
+    s3 = torch.zeros(k, dtype=torch.float32, device=dev)
+    flat_e, flat_m = elogpi.reshape(-1), mphi.reshape(-1).float()
+    idl = ids.long()
+    for blk, msk in edge_blocks(edges, mask, num_blocks):
+        p, q = blk[:, 0].long(), blk[:, 1].long()
+        idp, idq = idl[p], idl[q]
+        cand = torch.cat([idp, idq], dim=1)
+        lq_at_p = flat_e[q[:, None] * k + idp]
+        lp_at_q = flat_e[p[:, None] * k + idq]
+        logits = torch.cat([topvals[p] + lq_at_p, lp_at_q + topvals[q]],
+                           dim=1) + elb0[cand]
+        sort_ids, order = torch.sort(cand, dim=1, stable=True)
+        sort_logits = logits.gather(1, order)
+        dup = torch.cat([torch.zeros_like(sort_ids[:, :1], dtype=torch.bool),
+                         sort_ids[:, 1:] == sort_ids[:, :-1]], dim=1)
+        phi = torch.softmax(sort_logits.masked_fill(dup, -torch.inf), dim=-1)
+        phi = phi.masked_fill(dup, 0.0) * msk[:, None]
+        slot_p = (p[:, None] * k + sort_ids).flatten()
+        slot_q = (q[:, None] * k + sort_ids).flatten()
+        gacc.index_add_(0, slot_p, phi.flatten())
+        gacc.index_add_(0, slot_q, phi.flatten())
+        sumk.index_add_(0, sort_ids.flatten(), 2.0 * phi.flatten())
+        contrib = (flat_m[slot_p] * flat_m[slot_q]).view_as(phi)
+        contrib = contrib.masked_fill(dup, 0.0) * msk[:, None]
+        s3.index_add_(0, sort_ids.flatten(), contrib.flatten())
+    return gacc.view(n, k), sumk, s3
+
+
+def _union_entries(elogpi, ids, topvals, elb0, p, q):
+    """The 2W slots of the entries (owner p, neighbour q) as kernel 7 forms
+    them: (columns (B,2W): p's list then q's, logits (B,2W) with a
+    duplicate of q's list at -inf, kept (B,2W) bool)."""
+    n, k = elogpi.shape
+    flat_e = elogpi.reshape(-1)
+    idp, idq = ids[p].long(), ids[q].long()
+    lp = (topvals[p] + flat_e[q[:, None] * k + idp]) + elb0[idp]
+    lq = (flat_e[p[:, None] * k + idq] + topvals[q]) + elb0[idq]
+    in_p = torch.zeros((p.shape[0], k), dtype=torch.bool, device=p.device)
+    in_p.scatter_(1, idp, True)
+    kept_q = ~in_p.gather(1, idq)
+    cols = torch.cat([idp, idq], dim=1)
+    kept = torch.cat([torch.ones_like(kept_q), kept_q], dim=1)
+    logits = torch.cat([lp, lq], dim=1).masked_fill(~kept, -torch.inf)
+    return cols, logits, kept
+
+
+def sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0, mphi,
+                                 adj: Adjacency, block: int
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """Kernel 7's arithmetic in plain PyTorch: walk the 2E directed entries
+    (owner p, neighbour q) of the adjacency in blocks of `block`; p's list
+    first, a column of q's list dropped when it is in p's (a K-bit mask of
+    p's list, no sort); phi over the kept slots added to the owner's row
+    only, and to sumk (every link is met from both ends); s3 from the
+    entries with q > p, every link once. Returns (gacc, sumk, s3) as
+    sparse_union_pass_plain does. sumk and s3 are summed in float64: a
+    column that every node's list holds (columns tied at alpha) takes a
+    term from every link, and an f32 running sum of millions of terms
+    stops growing once its unit in the last place passes the terms."""
+    n, k = elogpi.shape
+    dev = elogpi.device
+    gacc = torch.zeros(n * k, dtype=torch.float32, device=dev)
+    sumk = torch.zeros(k, dtype=torch.float64, device=dev)
+    s3 = torch.zeros(k, dtype=torch.float64, device=dev)
+    flat_m = mphi.reshape(-1).float()
+    for p, q in _pull_entries(adj, block):
+        cols, logits, kept = _union_entries(elogpi, ids, topvals, elb0, p, q)
+        phi = torch.softmax(logits, dim=-1).masked_fill(~kept, 0.0)
+        gacc.index_add_(0, (p[:, None] * k + cols).flatten(), phi.flatten())
+        sumk.index_add_(0, cols.flatten(), phi.flatten().double())
+        low = q > p
+        lc, lp, lq = cols[low], p[low, None], q[low, None]
+        contrib = (flat_m[lp * k + lc] * flat_m[lq * k + lc]).masked_fill(
+            ~kept[low], 0.0)
+        s3.index_add_(0, lc.flatten(), contrib.flatten().double())
+    return gacc.view(n, k), sumk.float(), s3.float()
+
+
+def sparse_union_pass(elogpi, ids, topvals, elb0, mphi_prev, adj: Adjacency
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Kernel 7 (csrc/sparse_union.cu) on a CUDA tensor,
+    sparse_union_pass_pull_plain on a CPU tensor. elogpi, topvals,
+    mphi_prev f32; ids (n,W) int32 with 1 <= W <= K, from
+    ops/digamma.py:dirichlet_expectation_topw. Returns (gacc, sumk, s3):
+    gacc (n,K) the phi of every link added at both ends over the union of
+    the two lists, sumk (K,) its column sums, s3 (K,) the cross-moment of
+    mphi_prev over the kept slots of every link.
+
+    On the card one launch walks the adjacency, nodes and hub segments
+    alike: the warp that owns node p holds its row of phi sums in shared
+    memory and writes gacc[p] once; sumk and s3 leave as per-block rows
+    that two small launches add in a fixed order, and a hub's segments
+    are combined in segment order: no atomics into device memory, the same
+    bits every time."""
+    n, k = elogpi.shape
+    w = ids.shape[1]
+    if not 1 <= w <= k:
+        raise ValueError(f"the lists must hold 1 to {k} columns, got {w}")
+    if elogpi.device.type == "cpu":
+        # a block holds (B, K) of p's mask beside its (B, 2W) slots
+        block = choose_edge_block(adj.nbr.shape[0], max(k, 2 * w))
+        return sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0,
+                                            mphi_prev, adj, block)
+    build.require_cuda(elogpi, "sparse_union_pass")
+    dev = elogpi.device
+    build.check_cuda(elogpi, "elogpi", torch.float32, (n, k), dev)
+    build.check_cuda(ids, "ids", torch.int32, (n, w), dev)
+    build.check_cuda(topvals, "topvals", torch.float32, (n, w), dev)
+    build.check_cuda(elb0, "elb0", torch.float32, (k,), dev)
+    build.check_cuda(mphi_prev, "mphi_prev", torch.float32, (n, k), dev)
+    n_hubs, n_segs = _check_adjacency(adj, n, dev)
+    gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    sumk = torch.empty(k, dtype=torch.float32, device=dev)
+    s3 = torch.empty(k, dtype=torch.float32, device=dev)
+    seg_rows = torch.empty((n_segs, k), dtype=torch.float32, device=dev)
+    partial = _reduce_scratch(k, dev)
+    build.launch("svt_sparse_union", dev, elogpi.data_ptr(), ids.data_ptr(),
+                 topvals.data_ptr(), elb0.data_ptr(), mphi_prev.data_ptr(),
+                 *(t.data_ptr() for t in adj.tensors()), seg_rows.data_ptr(),
+                 partial.data_ptr(), gacc.data_ptr(), sumk.data_ptr(),
+                 s3.data_ptr(), n, n_hubs, n_segs, k, w, adj.seg_len)
+    build.count_launch(sparse_union_pass, "f32")
+    return gacc, sumk, s3
+
+
+sparse_union_pass.launches = 0
+sparse_union_pass.forms = {}
+
+
+def sparse_union_sweep(gamma, lam, mphi, adj: Adjacency, deg,
+                       consts: LSConsts, annealing: bool, w: int):
+    """One -sparse-w sweep (svinet_tpu/svi/sweep_math.py:209-286): the
+    top-W form of kernel 1 on gamma, kernel 1 on lambda, kernel 7 with the
+    mean indicators of the sweep before, kernel 3 writing this sweep's
+    mean indicators over `mphi`, finish_lambda. Returns (gamma, lam, mphi):
+    gamma and lam are not modified, `mphi` is overwritten and returned."""
+    elogpi, ids, topvals = dirichlet_expectation_topw(gamma, w)
+    elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
+    gacc, sumk, s3 = sparse_union_pass(elogpi, ids, topvals, elb0, mphi, adj)
+    del elogpi, ids, topvals
+    out = mean_indicator_update(gacc, sumk, deg, consts, annealing,
+                                mphi_out=mphi)
+    return (out.gnext, finish_lambda(out.s1, out.s2, s3, out.lam0, consts),
+            out.mphi)
 
 
 def finish_lambda(s1, s2, s3, lam0, consts: LSConsts) -> torch.Tensor:

@@ -35,8 +35,12 @@ design around the L2 that is kept off the path (csrc/alt/s3_slab.cu through
 tools/s3_slab.py), at n = 250k to 2M with K = 500 and 20 links a node and
 at narrower shapes; kernel 5 against kernel 2 then kernel 4 around
 sweep_math.FUSED_MAX_WORK; kernel 6 (the held-out sums) beside the plain
-tail it replaces. --only names the parts to run. --quick builds, launches
-every kernel once at these widths, compares and stops.
+tail it replaces; -sparse-w's top-W form of kernel 1 and kernel 7 (the
+union pass, csrc/sparse_union.cu) against kernel 1, kernel 2 then kernel 4
+(the dense passes they replace) and as whole sweeps, at W = 8, 16, 32, 64
+on the stretch graph (n=1M, K=500, 20M links) and on the planted n=20k
+graph at K = 500, 2000 and 8000. --only names the parts to run. --quick
+builds, launches every kernel once at these widths, compares and stops.
 
 Prints the card and its power limit first; writes the compiler's report
 to DIR/ptxas.log and the results to DIR/bench_kernels.json (DIR defaults
@@ -59,7 +63,8 @@ import torch
 
 from svinet_torch.kernels import build
 from svinet_torch.ops.digamma import (
-    dirichlet_expectation, dirichlet_expectation_plain)
+    dirichlet_expectation, dirichlet_expectation_plain,
+    dirichlet_expectation_topw, dirichlet_expectation_topw_plain)
 from svinet_torch.ops.edges import (
     build_adjacency, choose_edge_block, pad_edges)
 from svinet_torch.svi.linksampling import (
@@ -69,7 +74,8 @@ from svinet_torch.evals.likelihood import (
 from svinet_torch.svi.sweep_math import (
     LSConsts, fused_phi_s3_pass, fused_phi_s3_pass_pull_plain,
     mean_indicator_update, mean_indicator_update_plain, phi_pass,
-    phi_pass_pull_plain, s3_pass, s3_pass_plain, s3_pass_pull_plain)
+    phi_pass_pull_plain, s3_pass, s3_pass_plain, s3_pass_pull_plain,
+    sparse_union_pass, sparse_union_pass_pull_plain, sparse_union_sweep)
 from svinet_torch.synth import planted_blocks, random_edges
 from svinet_torch.tools import s3_slab
 
@@ -110,18 +116,20 @@ def stream() -> int:
 
 def phi_bf16_entry(lib: build.Library, elogpi_b, elb0, adj):
     """A call of `lib`'s svt_phi_pass_bf16 into fixed buffers, returning
-    gacc: the kernel alone, without the wrapper's allocation and column
-    sum."""
+    gacc: the kernel alone, without the wrapper's allocations."""
     n, k = elogpi_b.shape
     n_hubs, n_segs = adj.hub_node.shape[0], adj.seg_node.shape[0]
     gacc = torch.empty((n, k), dtype=torch.float32, device="cuda")
+    sumk = torch.empty(k, dtype=torch.float32, device="cuda")
     partial = torch.empty((n_segs, k), dtype=torch.float32, device="cuda")
+    sumk_partial = torch.empty((build.REDUCE_SCRATCH_ROWS, k),
+                               dtype=torch.float32, device="cuda")
 
     def call():
         lib.call("svt_phi_pass_bf16", elogpi_b.data_ptr(), elb0.data_ptr(),
                  None, *(t.data_ptr() for t in adj.tensors()),
-                 partial.data_ptr(), gacc.data_ptr(), n, n_hubs, n_segs, k,
-                 adj.seg_len, stream())
+                 partial.data_ptr(), gacc.data_ptr(), sumk_partial.data_ptr(),
+                 sumk.data_ptr(), n, n_hubs, n_segs, k, adj.seg_len, stream())
         return gacc
 
     return call
@@ -660,13 +668,101 @@ def bench_heldout(n: int, k: int, n_pairs: int, quick: bool) -> dict:
     return row
 
 
+def _late_gamma(member, k: int, gen) -> torch.Tensor:
+    """A state such as a fit with K far above the true number of
+    communities reaches: each node's mass (about its degree, here 20) in
+    its planted block's column and a little in three random ones, every
+    other column at alpha = 1/K exactly."""
+    n = member.shape[0]
+    alpha = 1.0 / k
+    gamma = torch.full((n, k), alpha, device="cuda")
+    rows = torch.arange(n, device="cuda")
+    home = torch.as_tensor(member, device="cuda").long() % k
+    gamma[rows, home] += 16.0 + 4.0 * torch.rand(n, generator=gen,
+                                                 device="cuda")
+    for _ in range(3):
+        col = torch.randint(0, k, (n,), generator=gen, device="cuda")
+        gamma[rows, col] += torch.rand(n, generator=gen, device="cuda")
+    return gamma
+
+
+def bench_sparse(label: str, links, member, n: int, k: int, widths,
+                 quick: bool) -> list:
+    """-sparse-w at each W of `widths` on one graph and state: the top-W
+    form of kernel 1 then kernel 7 against kernel 1, kernel 2 then kernel 4
+    (the passes they replace), and a whole sparse sweep against a whole
+    dense unfused sweep; torch.topk beside the form as a yardstick (it
+    orders ties otherwise). Kernel 7 and the form are held to their plain
+    versions at every W."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    adj = build_adjacency(links, n, "cuda")
+    gamma = _late_gamma(member, k, gen)
+    lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device="cuda")
+    elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
+    mphi = torch.rand((n, k), generator=gen, device="cuda") / k
+    deg = torch.as_tensor(np.bincount(links.ravel(), minlength=n).astype(
+        np.float32), device="cuda")
+    consts = LSConsts.make(1.0 / k, 1.0, 1.0, len(links), n)
+    big = n * k >= 10**8
+    reps = 2 if big else 10
+    rows = []
+    elogpi = dirichlet_expectation(gamma)
+    dense = timed({
+        "kernel1": lambda: dirichlet_expectation(gamma),
+        "kernel2": lambda: phi_pass(elogpi, elb0, adj),
+        "kernel4": lambda: s3_pass(mphi, adj),
+        "dense_sweep": lambda: sweep(gamma, lam, adj, deg, consts, False)},
+        reps)
+    for w in widths:
+        e, ids, tv = dirichlet_expectation_topw(gamma, w)
+        e_p, ids_p, tv_p = dirichlet_expectation_topw_plain(gamma, w)
+        assert torch.equal(ids, ids_p), (label, w)
+        # kernel 1's bar: 5e-5, or 2^-22 of the value (psi near -2000 at
+        # alpha = 1/2000)
+        assert torch.allclose(tv, tv_p, rtol=2.0**-22, atol=5e-5), (label, w)
+        del e_p, ids_p, tv_p
+        got = sparse_union_pass(e, ids, tv, elb0, mphi, adj)
+        want = sparse_union_pass_pull_plain(
+            e, ids, tv, elb0, mphi, adj,
+            choose_edge_block(adj.nbr.shape[0], max(k, 2 * w)))
+        for a, b in zip(got, want):
+            assert torch.allclose(a, b, rtol=1e-4, atol=1e-4), (label, w)
+        del got, want
+        sparse_mphi = mphi.clone()
+        ms = timed({
+            "topw_form": lambda: dirichlet_expectation_topw(gamma, w),
+            "torch_topk": lambda: torch.topk(gamma, w, dim=1),
+            "kernel7": lambda: sparse_union_pass(e, ids, tv, elb0, mphi, adj),
+            "sparse_sweep": lambda: sparse_union_sweep(
+                gamma, lam, sparse_mphi, adj, deg, consts, False, w)},
+            reps)
+        ms.update(dense)
+        ms["topw_then_kernel7"] = ms["topw_form"] + ms["kernel7"]
+        ms["kernel1_2_4"] = dense["kernel1"] + dense["kernel2"] + \
+            dense["kernel4"]
+        row = {"kernel": "sparse_union_pass", "graph": label, "n": n, "k": k,
+               "w": w, "links": len(links), "ms": ms,
+               "sparse_over_dense_passes": ms["topw_then_kernel7"]
+               / ms["kernel1_2_4"],
+               "sparse_over_dense_sweep": ms["sparse_sweep"]
+               / ms["dense_sweep"]}
+        log(json.dumps(row))
+        rows.append(row)
+        del e, ids, tv, sparse_mphi
+        if quick:
+            break
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--no-stretch", action="store_true")
     ap.add_argument("--only", default="",
                     help="comma-separated parts to run: designs, compact, "
-                         "graph, s3forms, crossover, heldout (default all)")
+                         "graph, s3forms, crossover, heldout, sparse "
+                         "(default all)")
     ap.add_argument("--out", default=str(build.BUILD_DIR),
                     help="directory for the result files")
     args = ap.parse_args()
@@ -732,6 +828,22 @@ def main() -> int:
             shapes.append((1_000_000, 500, 20_000_000))
         for n, k, e in shapes:
             results["rows"].append(bench_fused_crossover(n, k, e))
+            torch.cuda.empty_cache()
+    if part("sparse"):
+        widths = (8, 16, 32, 64)
+        planted, member = planted_blocks(20_000, 20, 20, 7)
+        links = np.unique(np.sort(planted[planted[:, 0] != planted[:, 1]],
+                                  axis=1), axis=0)
+        for k in (500, 2_000, 8_000):
+            results["rows"] += bench_sparse("planted-20k", links, member,
+                                            20_000, k, widths, args.quick)
+            torch.cuda.empty_cache()
+        if stretch:
+            n = 1_000_000
+            links = np.unique(random_edges(n, 20_000_000, 0), axis=0)
+            member = np.random.default_rng(5).integers(0, 500, n)
+            results["rows"] += bench_sparse("stretch", links, member, n, 500,
+                                            widths, False)
             torch.cuda.empty_cache()
     if part("heldout"):
         for n, k, m in ((20_000, 20, 4_000), (100_000, 640, 50_000),

@@ -8,14 +8,15 @@ stretch shape of chip_smoke.py), warms it up, traces one step(1) (one
 sweep plus the held-out tail) with torch.profiler, and prints the device
 time by kernel or op, the step's wall time and the device's busy share;
 then the same again past annealing with and without -bf16 (the sweep over
-bf16 rows beside the f32 sweep of the same phase), and with -fuse-s3, all
-on the same engine. Every trace is a profiler of its own whose first step
-is a discarded warm-up (a profiler drops the first kernels launched after
-it starts), and must hold the launches of kernels 1 to 4 and 6 that a step
-of one sweep makes, or it is taken again and then refused. Each trace is
-printed by kernel name and, above that, summed by hand kernel (the step
-table: kernels 1 to 4 and 6, the sums across blocks, and what is left to
-plain PyTorch). Prints the card and its power limit first; writes the
+bf16 rows beside the f32 sweep of the same phase), with -sparse-w 16 past
+annealing, and with -fuse-s3, all on the same engine. Every trace is a
+profiler of its own whose first step is a discarded warm-up (a profiler
+drops the first kernels launched after it starts), and must hold the
+launches of the hand kernels that a step of one sweep makes (kernels 1 to
+4 and 6; under -sparse-w the top-W form of kernel 1, kernels 1, 7, 3 and
+6), or it is taken again and then refused. Each trace is printed by kernel
+name and, above that, summed by hand kernel (the step table: the hand
+kernels, the sums across blocks, and what is left to plain PyTorch). Prints the card and its power limit first; writes the
 tables to DIR/profile_stretch.txt (DIR defaults to build/svinet_torch).
 """
 
@@ -42,12 +43,21 @@ from svinet_torch.synth import random_edges
 STEP_LAUNCHES = {"dirichlet_rows_kernel": 2, "phi_pull_kernel": 1,
                  "mean_indicator_kernel": 1, "s3_pull_kernel": 1,
                  "heldout_sums": 1}
+# and a -sparse-w step: the top-W form of kernel 1 on gamma, kernel 1 on
+# lambda, kernels 7, 3 and 6
+SPARSE_STEP_LAUNCHES = {"dirichlet_topw_kernel": 1,
+                        "dirichlet_rows_kernel": 1, "sparse_union_kernel": 1,
+                        "mean_indicator_kernel": 1, "heldout_sums": 1}
+SPARSE_W = 16
 # the rows of the step table: a hand kernel's name, and the parts of kernel
 # names that belong to it
-STEP_TABLE = (("kernel 2, phi_pass", ("phi_pull", "phi_combine")),
+STEP_TABLE = (("kernel 2, phi_pass", ("phi_pull",)),
               ("kernel 4, s3_pass", ("s3_pull",)),
+              ("kernel 7, sparse_union_pass", ("sparse_union",)),
               ("kernel 3, mean_indicator_update", ("mean_indicator",)),
+              ("kernel 1, top-W form", ("dirichlet_topw",)),
               ("kernel 1, dirichlet_expectation", ("dirichlet_",)),
+              ("hub segments combined", ("combine_segments",)),
               ("kernel 6, heldout_sums", ("heldout_sums",)),
               ("sums across blocks", ("colsum_partials",)))
 TRACE_ATTEMPTS = 3
@@ -81,29 +91,29 @@ def _traced_step(eng):
     return kernels, launches, wall_ms, prof
 
 
-def trace_step(eng, label: str) -> list:
-    """Warm up, trace one step(1) that holds every launch of kernels 1 to 4
-    and 6, and return the report's lines."""
+def trace_step(eng, label: str, expect=STEP_LAUNCHES) -> list:
+    """Warm up, trace one step(1) that holds every launch `expect` names
+    (by a part of the kernel's name), and return the report's lines."""
     eng.step(1)
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         kernels, launches, wall_ms, prof = _traced_step(eng)
         seen = {part: sum(c for name, c in launches.items() if part in name)
-                for part in STEP_LAUNCHES}
-        if seen == STEP_LAUNCHES:
+                for part in expect}
+        if seen == expect:
             break
-        print(f"{label}: trace {attempt} holds {seen} of {STEP_LAUNCHES}",
+        print(f"{label}: trace {attempt} holds {seen} of {expect}",
               flush=True)
     else:
         raise RuntimeError(f"{label}: no trace of {TRACE_ATTEMPTS} held "
-                           f"every launch of kernels 1 to 4 and 6")
+                           f"every launch of {sorted(expect)}")
     busy_ms = sum(kernels.values()) / 1e3
     lines = [f"{label}: n={eng.n} K={eng.k} training links "
              f"{len(eng.network.training_links)}: step(1) wall "
              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
              f"({100 * busy_ms / wall_ms:.1f}%), peak device memory in the "
              f"step {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-             f"trace {attempt} of at most {TRACE_ATTEMPTS}, kernels 1 to 4 "
-             f"and 6 all in it ({seen})"]
+             f"trace {attempt} of at most {TRACE_ATTEMPTS}, every hand "
+             f"kernel's launch in it ({seen})"]
     # the step table: device time by hand kernel, the rest plain PyTorch
     left = dict(kernels)
     for title, parts in STEP_TABLE:
@@ -114,7 +124,7 @@ def trace_step(eng, label: str) -> list:
     us = sum(left.values())
     lines.append(f"{us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
                  f"x{sum(launches[name] for name in left):<3d} plain PyTorch "
-                 f"(gacc.sum(0), finish_lambda, beta, copies)")
+                 f"(finish_lambda, beta, copies)")
     lines.append("by kernel name:")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:25]:
         lines.append(f"{us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
@@ -153,6 +163,11 @@ def main() -> int:
             eng.cfg.bf16_rows = True
             lines += trace_step(eng, "-bf16, annealing over")
             eng.cfg.bf16_rows = False
+            eng.cfg.sparse_w = SPARSE_W
+            lines += trace_step(eng, f"-sparse-w {SPARSE_W}, annealing over",
+                                SPARSE_STEP_LAUNCHES)
+            eng.cfg.sparse_w = 0
+            eng._sparse_mphi = None
             eng.annealing = True
             # what LinkSampling.__init__ does under -fuse-s3, on the same
             # network and state (set-up is over a minute of host time)

@@ -90,18 +90,21 @@ def test_cuda_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("flags,named", [
     (["-link-sampling", "-mesh-rowshard"], "-mesh-rowshard"),
     (["-link-sampling", "-dist-coordinator", "host:1"], "-dist-coordinator"),
-    (["-link-sampling", "-sparse-w", "8"], "-sparse-w"),
-    (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8"],
-     "-sparse-w"),
+    (["-link-sampling", "-sparse-w", "8", "-resume"], "-resume"),
+    (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8",
+      "-checkpoint-freq", "5"], "-checkpoint-freq"),
     (["-link-sampling", "-mesh-locality"], "-mesh-locality"),
     (["-link-sampling", "-dist-procid", "1"], "-dist-procid"),
     (["-link-sampling", "-mesh", "2"], "-mesh"),
     (["-link-sampling", "-dist-nprocs", "2"], "-dist-nprocs"),
     (["-link-sampling", "-checkpoint-freq", "5"], "-checkpoint-freq"),
     (["-link-sampling", "-resume"], "-resume"),
-    (["-link-sampling", "-init-communities", "c.txt"], "-init-communities"),
-    (["-link-sampling", "-load-test-sets"], "-load-test-sets"),
-    (["-link-sampling", "-profile", "p"], "-profile"),
+    (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2"],
+     "-mesh"),
+    (["-link-sampling", "-load-test-sets", "-dist-nprocs", "2"],
+     "-dist-nprocs"),
+    (["-link-sampling", "-profile", "p", "-mesh-rowshard"],
+     "-mesh-rowshard"),
     (["-batch"], "-batch"),
     (["-link-sampling", "-findk"], "-findk"),
     ([], "-link-sampling"),
@@ -115,11 +118,15 @@ def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["-bf16"], ["-freeze"], ["-prune"], ["-prune", "-prune-frac", "0.25"],
     ["-bf16", "-freeze", "-prune", "-fuse-s3", "-report-batch", "4"],
+    ["-sparse-w", "8"], ["-sparse-w", "8", "-bf16", "-report-batch", "4"],
+    ["-init-communities", "c.txt"], ["-load-test-sets"], ["-profile", "p"],
+    ["-preprocess"],
 ])
 def test_cli_takes_the_ported_sweep_flags(flags, monkeypatch):
-    """-bf16, -freeze and -prune pass the slice check, alone and together
-    with the flags ported before them; the run then fails on the missing
-    input file, not on a refusal."""
+    """-bf16, -freeze, -prune, -sparse-w, -init-communities,
+    -load-test-sets, -profile and -preprocess pass the slice check, alone
+    and together with the flags ported before them; the run then fails on
+    the missing input file, not on a refusal."""
     from svinet_torch.cli import check_slice, parse_args
     argv = ["-file", "absent.txt", "-n", "10", "-k", "2", "-link-sampling",
             *flags]
