@@ -113,8 +113,12 @@ SPARSE_W_PLANTED = 4
 # 2f7a12d): 401.3-418.7 M over f32 rows, 631.3-648.4 M over bf16 rows
 STRETCH_MIN_EDGES_S = 360e6
 STRETCH_MIN_EDGES_S_BF16 = 570e6
-# -sparse-w's width on the stretch shape (phase 3)
+# -sparse-w's width on the stretch shape (phase 3) and the floor of its
+# step(3) (training edges/s), a little under the reading of the present
+# kernels, 583.4 M (H100 80GB HBM3, 700 W, chip_smoke.py at the tree that
+# added it; the first designs of the two sparse kernels: 495.8-497.1 M)
 SPARSE_W_STRETCH = 16
+STRETCH_MIN_EDGES_S_SPARSE = 520e6
 PLANTED = dict(n=20_000, k=20, avg_deg=20, seed=7)
 STRETCH = dict(n=1_000_000, k=500, n_edges=20_000_000)
 # kernel shapes; the first of each is the one the JSON summary reports
@@ -986,10 +990,13 @@ def _tied_gamma(gen, n, k, dev):
 
 
 def topw_bound(n, k, w):
-    """gamma read once, Elogpi written once, ids and topvals written once;
-    kernel 1's 40 operations an element and, per pick, about 15 of a
-    32-lane group's shuffle and compare steps a lane."""
-    return bound(8.0 * n * k + 8.0 * n * w, 40.0 * n * k + 15.0 * 32 * n * w)
+    """gamma read once, Elogpi written once, ids, topvals and topm written
+    once and the mean indicators read at the picks; kernel 1's 40
+    operations an element and, per row, the selection's bitonic sort of
+    the group's maxima and of the picks (15 steps of a 32-lane group, about
+    8 operations a lane each, twice) and its counts (about 6 a column)."""
+    return bound(8.0 * n * k + 16.0 * n * w,
+                 40.0 * n * k + 2 * 15 * 8 * 32.0 * n + 6.0 * n * k)
 
 
 def _union_counts(ids, adj, k):
@@ -1017,38 +1024,64 @@ def _union_counts(ids, adj, k):
     return int(need_e.sum()), int(need_m.sum()), kept_links
 
 
-def union_bound_floor(n, k, w, n_links, adj, counts):
-    """(bound, floor) of kernel 7 on these inputs. Bound: each value it
-    needs read once at 4 bytes (the distinct Elogpi and mphi values, ids
-    and topvals, the adjacency), gacc written once; per slot of a directed
-    entry about 8 operations (two adds, max, subtract, exp, sum, divide,
-    add) and 2 per s3 term. Floor: one 32-byte sector per gathered value
-    (W of the neighbour's Elogpi a directed entry, W plus the kept slots of
-    the neighbour's mphi a link, the neighbour's ids and topvals a
-    directed entry in 32-byte sectors), plus the owner's Elogpi and mphi
-    rows read once and gacc written once."""
+def union_bound_floor(n, k, w, n_links, adj, counts, layout="rows"):
+    """(bound, floor, sectors) of kernel 7 on these inputs.
+
+    Bound: each value it needs read once at 4 bytes (the distinct Elogpi
+    and mphi values, ids, topvals and topm, the adjacency), gacc written
+    once; per slot of a directed entry about 8 operations (two adds, max,
+    subtract, exp, sum, divide, add) and 2 per s3 term.
+
+    Floor: one 32-byte sector per gathered value, plus what is read or
+    written once in order. `layout` "rows", the present kernel: Elogpi
+    and the mean indicators side by side in (n, K, 2) rows, so the pair at
+    the owner's W columns of the neighbour's row is one sector (2E W), the
+    neighbour's ids and topvals are read in sectors beside each other a
+    directed entry and its topm a link (2 * 2E + E sectors of 4W bytes
+    rounded up); the owner's pairs at the neighbour's columns come from
+    its own row, read once (8 bytes an element), and gacc is written once
+    (4). At n=1M, K=500, 19.9M links, W=16: 2E W + 2E 4 + 2E, about 0.84 G
+    sectors. "apart", the first design (csrc/alt/sparse_union_v1.cu):
+    Elogpi and mphi apart, so W sectors of the neighbour's Elogpi a
+    directed entry, W of its mphi at the owner's columns and the kept slots
+    of its mphi at its own columns a link, its ids and topvals a directed
+    entry; about 1.42 G sectors there. Random sectors come at about 32 G/s
+    on an H100 (tools/bench_kernels.py --only sectors), not at the 3.35
+    TB/s the floor divides by."""
     need_e, need_m, kept = counts
     entries = 2 * n_links
-    b = bound(4.0 * (need_e + need_m) + 8.0 * n * w + 4.0 * n * k
+    lists = 3 if layout == "rows" else 2
+    b = bound(4.0 * (need_e + need_m) + 4.0 * lists * n * w + 4.0 * n * k
               + _index_bytes(adj) + 12.0 * k,
               8.0 * entries * 2 * w + 2.0 * (n_links * w + kept))
-    sectors = entries * w + n_links * w + kept + 2 * entries * -(-4 * w // 32)
+    list_sectors = -(-4 * w // 32)
+    if layout == "rows":
+        sectors = (entries * w + 2 * entries * list_sectors
+                   + n_links * list_sectors)
+    else:
+        sectors = (entries * w + n_links * w + kept
+                   + 2 * entries * list_sectors)
     floor = (32.0 * sectors + 12.0 * n * k) / PEAK_BYTES_S * 1e3
-    return b, floor
+    return b, floor, sectors
 
 
 def phase1_sparse(dev):
     """-sparse-w's two kernels at every shape of SPARSE_SHAPES: the top-W
-    form of kernel 1 against dirichlet_expectation_topw_plain (ids exactly
-    equal, values at kernel 1's bar), then kernel 7 on its output against
-    sparse_union_pass_pull_plain and the edge-list form held to JAX
+    form of kernel 1, writing Elogpi into the (n, K, 2) rows of the sparse
+    sweep and reading topm from them, against
+    dirichlet_expectation_topw_plain (ids and topm exactly equal, values at
+    kernel 1's bar); kernel 3 writing mphi into the rows' odd half (whole
+    pairs, 0 in the even half) against its contiguous form, bit for bit;
+    then kernel 7 on the form's output
+    against sparse_union_pass_pull_plain and the edge-list form held to JAX
     (PHI_TOL abs/rel), two launches of each bitwise equal; at W = K
     (SPARSE_FULL_SHAPES) kernel 7 against kernel 2 then kernel 4. Returns
-    the reports of the first shape, and kernel 2's sumk check."""
+    the reports of the first shape."""
     from svinet_torch.ops.digamma import (
         dirichlet_expectation_topw, dirichlet_expectation_topw_plain)
     from svinet_torch.svi.sweep_math import (
-        phi_pass, s3_pass, sparse_union_pass, sparse_union_pass_plain,
+        LSConsts, mean_indicator_update, phi_pass, s3_pass,
+        sparse_union_occupancy, sparse_union_pass, sparse_union_pass_plain,
         sparse_union_pass_pull_plain)
     tol = dict(rtol=PHI_TOL, atol=PHI_TOL)
     gen = torch.Generator(device=dev)
@@ -1062,25 +1095,36 @@ def phase1_sparse(dev):
                  f"({len(adj.seg_node)} segments)")
         reps = 5 if n * k >= 10**7 else 50
         gamma = _tied_gamma(gen, n, k, dev)
+        mphi = 0.2 * torch.rand((n, k), generator=gen, device=dev)
 
-        # ---- the top-W form of kernel 1
-        e_k, i_k, v_k = dirichlet_expectation_topw(gamma, w)
-        e_2, i_2, v_2 = dirichlet_expectation_topw(gamma, w)
-        e_p, i_p, v_p = dirichlet_expectation_topw_plain(gamma, w)
+        # ---- the top-W form of kernel 1, into the rows kernel 7 gathers
+        rows = torch.empty((n, k, 2), device=dev)
+        rows[..., 1] = mphi
+        rows_2 = rows.clone()
+        e_k, i_k, v_k, m_k = dirichlet_expectation_topw(gamma, w, pair=rows)
+        _, i_2, v_2, m_2 = dirichlet_expectation_topw(gamma, w, pair=rows_2)
+        rows_p = rows_2.clone()
+        e_p, i_p, v_p, m_p = dirichlet_expectation_topw_plain(gamma, w,
+                                                              pair=rows_p)
         torch.cuda.synchronize()
-        assert torch.equal(e_k, e_2) and torch.equal(i_k, i_2)
-        assert torch.equal(v_k, v_2)
+        assert torch.equal(rows, rows_2) and torch.equal(i_k, i_2)
+        assert torch.equal(v_k, v_2) and torch.equal(m_k, m_2)
+        assert torch.equal(rows[..., 1], mphi), "the odd half was written"
         assert torch.equal(i_k, i_p), (shape, "ids differ",
                                        int((i_k != i_p).sum()))
+        assert torch.equal(m_k, m_p), (shape, "topm differs")
         # the values are the kernel's own Elogpi at the picked columns
         assert torch.equal(v_k, e_k.gather(1, i_k.long()))
         assert _dexp_close(e_k, e_p) and _dexp_close(v_k, v_p), shape
         err_t = max(float((e_k - e_p).abs().max()),
                     float((v_k - v_p).abs().max()))
-        del e_2, i_2, v_2, e_p, i_p, v_p
-        t_ms = cuda_ms(lambda: dirichlet_expectation_topw(gamma, w), reps)
-        t_plain = cuda_ms(lambda: dirichlet_expectation_topw_plain(gamma, w),
-                          reps)
+        del rows_2, rows_p, i_2, v_2, m_2, e_p, i_p, v_p, m_p
+        t_ms = cuda_ms(lambda: dirichlet_expectation_topw(gamma, w,
+                                                          pair=rows), reps)
+        rows_t = rows.clone()
+        t_plain = cuda_ms(lambda: dirichlet_expectation_topw_plain(
+            gamma, w, pair=rows_t), reps)
+        del rows_t
         # a yardstick only: torch.topk orders ties otherwise, so it is not
         # the same function and the port never calls it
         topk_ms = cuda_ms(lambda: torch.topk(gamma, w, dim=1), reps)
@@ -1088,14 +1132,14 @@ def phase1_sparse(dev):
         log(f"phase 1: dirichlet_expectation_topw {shape}: kernel "
             f"{t_ms:.4f} ms, plain (sort) {t_plain:.4f} ms, torch.topk alone "
             f"{topk_ms:.4f} ms, bound {t_bnd[0]:.4f} ms ({t_bnd[1]}), ids "
-            f"equal, max abs err {err_t:.3e}, two launches bitwise equal")
+            f"and topm equal, max abs err {err_t:.3e}, two launches bitwise "
+            f"equal")
 
         # ---- kernel 7 on the form's output
-        mphi = 0.2 * torch.rand((n, k), generator=gen, device=dev)
-        g_k, s_k, t3_k = sparse_union_pass(e_k, i_k, v_k, elb0, mphi, adj)
-        g_2, s_2, t3_2 = sparse_union_pass(e_k, i_k, v_k, elb0, mphi, adj)
+        g_k, s_k, t3_k = sparse_union_pass(rows, i_k, v_k, m_k, elb0, adj)
+        g_2, s_2, t3_2 = sparse_union_pass(rows, i_k, v_k, m_k, elb0, adj)
         g_p, s_p, t3_p = sparse_union_pass_pull_plain(
-            e_k, i_k, v_k, elb0, mphi, adj, block)
+            rows, i_k, v_k, m_k, elb0, adj, block)
         torch.cuda.synchronize()
         assert (torch.equal(g_k, g_2) and torch.equal(s_k, s_2)
                 and torch.equal(t3_k, t3_2)), (shape, "two launches differ")
@@ -1110,7 +1154,7 @@ def phase1_sparse(dev):
         assert abs(total - 2 * n_links) < 1e-3 * total, total
         assert torch.allclose(s_k, g_k.sum(0), **tol)
         del g_p
-        g_e, s_e, t3_e = sparse_union_pass_plain(e_k, i_k, v_k, elb0, mphi,
+        g_e, s_e, t3_e = sparse_union_pass_plain(rows, i_k, v_k, m_k, elb0,
                                                  edges, mask, nb)
         assert torch.allclose(g_k, g_e, **tol) and torch.allclose(
             s_k, s_e, **tol) and torch.allclose(t3_k, t3_e, **tol), shape
@@ -1118,30 +1162,70 @@ def phase1_sparse(dev):
         if w == k:
             # the union of two full lists is every column once: the dense
             # pass, kernel 2 then kernel 4 on the same mphi
-            g_d, s_d = phi_pass(e_k, elb0, adj)
+            g_d, s_d = phi_pass(e_k.contiguous(), elb0, adj)
             t3_d = s3_pass(mphi, adj)
             assert torch.allclose(g_k, g_d, **tol), float(
                 (g_k - g_d).abs().max())
             assert torch.allclose(s_k, s_d, **tol)
             assert torch.allclose(t3_k, t3_d, **tol), _rel_err(t3_k, t3_d)
             del g_d
-        ms = cuda_ms(lambda: sparse_union_pass(e_k, i_k, v_k, elb0, mphi,
+        ms = cuda_ms(lambda: sparse_union_pass(rows, i_k, v_k, m_k, elb0,
                                                adj), reps)
         plain_ms = cuda_ms(lambda: sparse_union_pass_pull_plain(
-            e_k, i_k, v_k, elb0, mphi, adj, block), max(1, reps // 5))
-        dense_ms = cuda_ms(lambda: (phi_pass(e_k, elb0, adj),
+            rows, i_k, v_k, m_k, elb0, adj, block), max(1, reps // 5))
+        e_c = e_k.contiguous()
+        dense_ms = cuda_ms(lambda: (phi_pass(e_c, elb0, adj),
                                     s3_pass(mphi, adj)), reps)
+        del e_c
         counts = _union_counts(i_k, adj, k)
-        bnd, floor = union_bound_floor(n, k, w, n_links, adj, counts)
+        bnd, floor, sectors = union_bound_floor(n, k, w, n_links, adj,
+                                                counts)
+        occ = sparse_union_occupancy(k, w)
         log(f"phase 1: sparse_union_pass {shape}: kernel {ms:.4f} ms "
             f"(with the top-W form {ms + t_ms:.4f} ms; kernel 2 then kernel "
             f"4 on the same state {dense_ms:.4f} ms), plain {plain_ms:.4f} "
             f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor (a 32-byte sector "
-            f"a gathered value) {floor:.4f} ms, values needed: Elogpi "
-            f"{counts[0]}, mphi {counts[1]}, kept q-side slots {counts[2]} "
-            f"of {n_links * w}; max err gacc (abs), sumk and s3 (relative) "
-            f"{err7:.3e}, two launches bitwise equal"
+            f"a gathered value or pair) {floor:.4f} ms ({sectors / 1e9:.4f} "
+            f"G sectors), values needed: "
+            f"Elogpi {counts[0]}, mphi {counts[1]}, kept q-side slots "
+            f"{counts[2]} of {n_links * w}; {occ['registers']} registers, "
+            f"{occ['smem_per_warp']} B of shared memory a warp, "
+            f"{occ['warps_per_sm']} warps an SM; max err gacc (abs), sumk "
+            f"and s3 (relative) {err7:.3e}, two launches bitwise equal"
             + (", equal to kernel 2 then kernel 4" if w == k else ""))
+
+        # ---- kernel 3 writing mphi into the rows' odd half, whole pairs
+        deg = (adj.rowptr[1:] - adj.rowptr[:-1]).float()
+        consts = LSConsts.make(1.0 / k, 1.0, 1.0, n_links, n)
+        want = mean_indicator_update(g_k.clone(), s_k, deg, consts, True)
+        got = mean_indicator_update(g_k.clone(), s_k, deg, consts, True,
+                                    mphi_out=rows)
+        torch.cuda.synchronize()
+        assert torch.equal(rows[..., 1], want.mphi), shape
+        assert not rows[..., 0].any(), (shape, "even half not cleared")
+        assert torch.equal(got.gnext, want.gnext), shape
+        # s1 and s2 are summed in units of 2 columns here and of 4 there, so
+        # in another order where the group of lanes a row takes differs
+        assert torch.allclose(got.s1, want.s1, **tol) and torch.allclose(
+            got.s2, want.s2, **tol), shape
+        del want, got
+        if reports is None:
+            gc = g_k.clone()
+            m3 = torch.empty_like(mphi)
+            m3_ms = cuda_ms(lambda: mean_indicator_update(
+                gc, s_k, deg, consts, False, mphi_out=m3), reps)
+            m3s_ms = cuda_ms(lambda: mean_indicator_update(
+                gc, s_k, deg, consts, False, mphi_out=rows), reps)
+            log(f"phase 1: mean_indicator_update {shape}: mphi into the "
+                f"rows' odd half (whole pairs) {m3s_ms:.4f} ms, into an (n, "
+                f"K) array {m3_ms:.4f} ms (bound {mean_bound(n, k)[0]:.4f} "
+                f"ms, {mean_bound(n, k, 8)[0]:.4f} with the pairs); equal "
+                f"bit for bit, the even half 0")
+            del gc, m3
+        else:
+            log(f"phase 1: mean_indicator_update {shape}: mphi into the "
+                f"rows' odd half equal to the (n, K) form bit for bit, the "
+                f"even half 0")
         if reports is None:
             # the form gathers nothing at random: its floor is its bound
             reports = {"dirichlet_expectation:topw": dict(
@@ -1149,7 +1233,7 @@ def phase1_sparse(dev):
                        floor_ms=t_bnd[0]),
                        "sparse_union_pass": dict(
                            _report(err7, ms, plain_ms, bnd), floor_ms=floor)}
-        del gamma, e_k, i_k, v_k, mphi, adj, edges, mask
+        del gamma, rows, e_k, i_k, v_k, m_k, mphi, adj, edges, mask, g_k
         torch.cuda.empty_cache()
     return reports
 
@@ -1699,6 +1783,7 @@ def phase3(dev, workdir):
                     "fused_phi_s3_pass": 0, "heldout_sums": 1,
                     "sparse_union_pass": 0}
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     _zero_counts()
     t1 = time.perf_counter()
     eng.step(3)
@@ -1720,7 +1805,8 @@ def phase3(dev, workdir):
         f"{init_err:.3e}, 3 sweeps + heldout tail {dt:.3f} s = "
         f"{rate:.0f} edges/s, heldout avg {res.avg:.6f}, peak "
         f"device memory {peak / 2**30:.2f} GiB since set-up began, "
-        f"{step_peak / 2**30:.2f} GiB in these steps, launches by form "
+        f"{step_peak / 2**30:.2f} GiB in these steps ({held / 2**30:.2f} "
+        f"GiB held as they began), launches by form "
         f"{forms}")
     assert rate >= STRETCH_MIN_EDGES_S, rate
     # the same engine past its annealing, with -bf16 (what the engine does
@@ -1744,6 +1830,7 @@ def phase3(dev, workdir):
     res_b = result_from_sums(eng._ho_res)
     torch.cuda.synchronize()
     dt_b = time.perf_counter() - t1
+    peak_b = torch.cuda.max_memory_allocated(dev)
     counted, forms_b = _read_counts()
     assert counted == three_sweeps, counted
     assert forms_b == {"dirichlet_expectation:bf16": 3,
@@ -1758,7 +1845,7 @@ def phase3(dev, workdir):
         f"edges/s (f32 rows, same phase: {dt_post:.3f} s = "
         f"{3 * n_train / dt_post:.0f} edges/s), heldout avg {res_b.avg:.6f} "
         f"(f32 before: {res.avg:.6f}), peak device memory in these steps "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches "
+        f"{peak_b / 2**30:.2f} GiB, launches "
         f"by form {forms_b}")
     eng.cfg.bf16_rows = False
     eng.annealing = True
@@ -1776,6 +1863,7 @@ def phase3(dev, workdir):
     res_f = result_from_sums(eng._ho_res)
     torch.cuda.synchronize()
     dt_f = time.perf_counter() - t1
+    peak_f = torch.cuda.max_memory_allocated(dev)
     counted, forms_f = _read_counts()
     assert counted == three_sweeps, counted
     # the fused pass of a shape this size is kernel 2 then kernel 4
@@ -1786,7 +1874,7 @@ def phase3(dev, workdir):
     log(f"phase 3: -fuse-s3 on the same engine: 3 sweeps + heldout tail "
         f"{dt_f:.3f} s = {3 * n_train / dt_f:.0f} edges/s, heldout avg "
         f"{res_f.avg:.6f}, peak device memory in these steps "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches "
+        f"{peak_f / 2**30:.2f} GiB, launches "
         f"by form {forms_f}")
     # -fuse-s3 with -bf16 past annealing: kernel 3 writes the carried f32
     # mphi and its bf16 rows, kernels 2 and 4 gather bf16 rows
@@ -1825,12 +1913,16 @@ def phase3(dev, workdir):
     eng.step(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     _zero_counts()
     t1 = time.perf_counter()
     eng.step(3)
     res_s = result_from_sums(eng._ho_res)
     torch.cuda.synchronize()
     dt_s = time.perf_counter() - t1
+    # read before the checks below: torch.isfinite on the (n, K) state
+    # holds temporaries of 3.3 GB, more than these steps do
+    sparse_peak = torch.cuda.max_memory_allocated(dev)
     counted, forms_s = _read_counts()
     assert forms_s == {"dirichlet_expectation:topw": 3,
                        "dirichlet_expectation:f32": 3,
@@ -1839,14 +1931,42 @@ def phase3(dev, workdir):
                        "heldout_sums:f32": 1}, forms_s
     assert torch.isfinite(eng.gamma).all() and torch.isfinite(eng.lam).all()
     assert np.isfinite(res_s.avg) and res_s.count == res.count
+    rate_s = 3 * n_train / dt_s
     log(f"phase 3: -sparse-w {SPARSE_W_STRETCH}, annealing over: 3 sweeps + "
-        f"heldout tail {dt_s:.3f} s = {3 * n_train / dt_s:.0f} edges/s, "
+        f"heldout tail {dt_s:.3f} s = {rate_s:.0f} edges/s, "
         f"heldout avg {res_s.avg:.6f}, peak device memory in these steps "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches "
-        f"by form {forms_s}")
+        f"{sparse_peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held as "
+        f"they began), launches by form {forms_s}")
+    assert rate_s >= STRETCH_MIN_EDGES_S_SPARSE, rate_s
+    # kernel 7 and the top-W form alone on the engine's own stretch state,
+    # beside kernel 7's bound and its floor in this layout and in the first
+    # design's (Elogpi and mphi apart)
+    from svinet_torch.ops.digamma import (
+        dirichlet_expectation, dirichlet_expectation_topw)
+    from svinet_torch.svi.sweep_math import sparse_union_pass
+    w, rows = SPARSE_W_STRETCH, eng._sparse_rows
+    elb0 = dirichlet_expectation(eng.lam)[:, 0].contiguous()
+    _, ids, tv, tm = dirichlet_expectation_topw(eng.gamma, w, pair=rows)
+    k7_ms = cuda_ms(lambda: sparse_union_pass(rows, ids, tv, tm, elb0,
+                                              eng.adj), 3)
+    tw_ms = cuda_ms(lambda: dirichlet_expectation_topw(eng.gamma, w,
+                                                       pair=rows), 3)
+    counts = _union_counts(ids, eng.adj, k)
+    b7, f7, s7 = union_bound_floor(n, k, w, n_train, eng.adj, counts)
+    b6, f6, s6 = union_bound_floor(n, k, w, n_train, eng.adj, counts, "apart")
+    log(f"phase 3: on the stretch state at W={w}: sparse_union_pass "
+        f"{k7_ms:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}), floor {f7:.4f} ms "
+        f"({s7 / 1e9:.4f} G sectors; Elogpi and mphi apart: bound {b6[0]:.4f} "
+        f"ms, "
+        f"floor {f6:.4f} ms, {s6 / 1e9:.4f} G sectors), values "
+        f"needed: Elogpi {counts[0]}, mphi {counts[1]}, kept q-side slots "
+        f"{counts[2]} of {n_train * w}; dirichlet_expectation_topw "
+        f"{tw_ms:.4f} ms (bound {topw_bound(n, k, w)[0]:.4f} ms)")
+    del ids, tv, tm, counts
     # the checks below take the mean indicators the sparse steps carried
     eng.cfg.sparse_w = 0
-    eng.mphi, eng._sparse_mphi = eng._sparse_mphi, None
+    eng.mphi = rows[..., 1].contiguous()
+    eng._sparse_rows = rows = None
     eng.annealing = True
     # kernel 4 at the full 19.9M links, on the mean indicators the engine
     # carries, against its plain version (PHI_TOL abs/rel)

@@ -85,6 +85,11 @@ __device__ __forceinline__ void load_unit(const float* src, float* dst) {
     dst[1] = t.y;
     dst[2] = t.z;
     dst[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = NC ? __ldg(reinterpret_cast<const float2*>(src))
+                        : *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x;
+    dst[1] = t.y;
   } else {
     dst[0] = NC ? __ldg(src) : *src;
   }
@@ -97,6 +102,7 @@ __device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
 
 template <int VEC, bool NC = true>
 __device__ __forceinline__ void load_unit(const bf16* src, float* dst) {
+  static_assert(VEC != 2, "bf16 rows come in units of 4 or 1");
   if constexpr (VEC == 4) {
     const uint2 t = NC ? __ldg(reinterpret_cast<const uint2*>(src))
                        : *reinterpret_cast<const uint2*>(src);
@@ -121,6 +127,8 @@ __device__ __forceinline__ void store_unit(float* dst, const float* src) {
   if constexpr (VEC == 4)
     *reinterpret_cast<float4*>(dst) =
         make_float4(src[0], src[1], src[2], src[3]);
+  else if constexpr (VEC == 2)
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
   else
     dst[0] = src[0];
 }
@@ -128,6 +136,7 @@ __device__ __forceinline__ void store_unit(float* dst, const float* src) {
 // round to nearest even, as a cast to bfloat16 does
 template <int VEC>
 __device__ __forceinline__ void store_unit(bf16* dst, const float* src) {
+  static_assert(VEC != 2, "bf16 rows come in units of 4 or 1");
   if constexpr (VEC == 4) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(src[0], src[1]);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(src[2], src[3]);
@@ -480,6 +489,92 @@ inline void dispatch_row(int k, bool aligned, F&& f) {
     else SVT_ROW(1, 32, 16);
   }
 #undef SVT_ROW
+}
+
+// The same for a kernel that writes (n, K, 2) rows of pairs (-sparse-w's
+// Elogpi and mean indicators side by side) from a K-value row: units of
+// VEC = 2 values when K is even and the rows start on 16-byte boundaries,
+// so that a lane's unit is one 16-byte store of two whole pairs and a
+// warp's store fills consecutive 32-byte sectors; else VEC = 1, one
+// 8-byte pair a lane. (A store of half a pair makes the L2 merge partial
+// sectors: ten times the time of whole ones, tools/bench_kernels.py
+// --only sectors.)
+template <class F>
+inline void dispatch_pair_row(int k, bool aligned, F&& f) {
+  using std::integral_constant;
+  if (!aligned || k % 2 != 0) {
+    dispatch_row(k, false, f);  // units of one value
+    return;
+  }
+#define SVT_ROW(G, N)                                      \
+  f(integral_constant<int, 2>{}, integral_constant<int, G>{}, \
+    integral_constant<int, N>{})
+  const int units = k / 2;
+  if (units <= 1) SVT_ROW(1, 1);
+  else if (units <= 2) SVT_ROW(2, 1);
+  else if (units <= 4) SVT_ROW(4, 1);
+  else if (units <= 8) SVT_ROW(8, 1);
+  else if (units <= 16) SVT_ROW(16, 1);
+  else if (units <= 32) SVT_ROW(32, 1);
+  else if (units <= 64) SVT_ROW(32, 2);
+  else if (units <= 128) SVT_ROW(32, 4);
+  else SVT_ROW(32, 8);
+#undef SVT_ROW
+}
+
+// This lane's part of a K-value row into the pairs of (K, 2) row `pairs`:
+// pairs[c][HALF] = src value of column c, and the other half of each pair
+// = other[...] (the pairs' other values, as this lane holds them), in
+// whole pairs, one store a unit.
+template <int VEC, int G, int N>
+__device__ __forceinline__ void store_pairs(float* pairs, int k, int g,
+                                            int half,
+                                            const float (&src)[VEC * N],
+                                            const float (&other)[VEC * N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = (g + j * G) * VEC;
+    if (c >= k) continue;
+    const float* s = src + j * VEC;
+    const float* o = other + j * VEC;
+    if constexpr (VEC == 2) {
+      *reinterpret_cast<float4*>(pairs + 2 * c) =
+          half ? make_float4(o[0], s[0], o[1], s[1])
+               : make_float4(s[0], o[0], s[1], o[1]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u)
+        *reinterpret_cast<float2*>(pairs + 2 * (c + u)) =
+            half ? make_float2(o[u], s[u]) : make_float2(s[u], o[u]);
+    }
+  }
+}
+
+// The `half` values of this lane's pairs of (K, 2) row `pairs` (layout
+// <VEC, G, N>; units past the row get 0), read as whole pairs.
+template <int VEC, int G, int N>
+__device__ __forceinline__ void load_pair_half(const float* pairs, int k,
+                                               int g, int half,
+                                               float (&dst)[VEC * N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = (g + j * G) * VEC;
+    float* d = dst + j * VEC;
+    if constexpr (VEC == 2) {
+      const float4 t = c < k ? *reinterpret_cast<const float4*>(pairs + 2 * c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      d[0] = half ? t.y : t.x;
+      d[1] = half ? t.w : t.z;
+    } else {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        const float2 t =
+            c + u < k ? *reinterpret_cast<const float2*>(pairs + 2 * (c + u))
+                      : make_float2(0.f, 0.f);
+        d[u] = half ? t.y : t.x;
+      }
+    }
+  }
 }
 
 inline bool aligned16(const void* p) {

@@ -28,6 +28,14 @@
 // kernel of its own: the launch is repeated over column tiles of at most
 // 512, each with the row stride K.
 //
+// Under -sparse-w the f32 mphi goes into the odd half of the (n, K, 2)
+// rows kernel 7 gathers (Elogpi and mphi side by side), whose even half,
+// this sweep's Elogpi, is dead by then: the kernel stores whole pairs
+// (0, mphi), a 16-byte store of two pairs a lane (units of VEC = 2, common.cuh
+// dispatch_pair_row). Storing the odd half alone took 8.44 ms where the
+// (n, K) form takes 2.45 at n=1M, K=500 (H100 80GB HBM3, 700 W,
+// chip_smoke.py): the L2 merges each half-written sector.
+//
 // Forms. Under -bf16 the s3 pass gathers mphi as bf16 rows, so the kernel
 // also (or only) stores mphi rounded to bf16: the default sweep then never
 // writes the f32 mphi (10 bytes an element instead of 12), -fuse-s3 writes
@@ -49,7 +57,8 @@ struct MeanArgs {
   float* gacc;        // (n, ld): gacc in, gnext out
   const float* deg;   // (n,)
   const float* sumk;  // this tile's columns
-  float* mphi;        // (n, ld) out, or null
+  float* mphi;        // (n, ld) out, (n, ld, 2) pairs (0, mphi), or null
+  int m_pairs;        // whether mphi is the (n, ld, 2) pairs of -sparse-w
   svt::bf16* mphi_bf16;  // (n, ld) out, or null
   float* part1;       // (blocks, ld) scratch for s1
   float* part2;       // (blocks, ld) scratch for s2
@@ -112,10 +121,18 @@ mean_indicator_kernel(const MeanArgs a) {
       }
     }
     svt::store_row<VEC, G, N>(grow, k, g, v);
-    if (a.mphi != nullptr)
+    if (a.mphi != nullptr && !a.m_pairs) {
       svt::store_row<VEC, G, N>(a.mphi + r * a.ld, k, g, m);
-    if (a.mphi_bf16 != nullptr)
-      svt::store_row<VEC, G, N>(a.mphi_bf16 + r * a.ld, k, g, m);
+    } else if (a.mphi != nullptr) {
+      float zero[L];
+#pragma unroll
+      for (int i = 0; i < L; ++i) zero[i] = 0.0f;
+      svt::store_pairs<VEC, G, N>(a.mphi + 2 * r * a.ld, k, g, 1, m, zero);
+    }
+    if constexpr (VEC != 2) {  // bf16 rows are not written in pairs
+      if (a.mphi_bf16 != nullptr)
+        svt::store_row<VEC, G, N>(a.mphi_bf16 + r * a.ld, k, g, m);
+    }
     if constexpr (CONV) {
       // columns of this row with gnext - alpha >= 1, and the first of
       // them; units past the tile hold no column and are left out
@@ -159,12 +176,13 @@ mean_indicator_kernel(const MeanArgs a) {
 }  // namespace
 
 // gacc (n,K) becomes gnext in place; s12 (2,K) = [s1; s2] is written;
-// partial is scratch of 2 * svt::kReduceBlocks rows of K. mphi (n,K) f32
-// and mphi_bf16 (n,K) bf16 are written where not null. With conv_prev
+// partial is scratch of 2 * svt::kReduceBlocks rows of K. mphi (n,K) f32,
+// or with m_pairs (n,K,2) f32 pairs (0, mphi), and mphi_bf16 (n,K) bf16
+// are written where not null (mphi_bf16 not with m_pairs). With conv_prev
 // (n,) int32, conv_out (n,) receives the sticky converged flags of gnext;
 // count_first is (n,2) int32 scratch, needed only for K above 512.
 extern "C" int svt_mean_indicator(float* gacc, const float* deg,
-                                  const float* sumk, float* mphi,
+                                  const float* sumk, float* mphi, int m_pairs,
                                   void* mphi_bf16, float* partial, float* s12,
                                   const int32_t* conv_prev, int32_t* conv_out,
                                   void* count_first, int64_t n, int k,
@@ -174,17 +192,24 @@ extern "C" int svt_mean_indicator(float* gacc, const float* deg,
   svt::bf16* mb = static_cast<svt::bf16*>(mphi_bf16);
   float* part1 = partial;
   float* part2 = partial + static_cast<int64_t>(svt::kReduceBlocks) * k;
+  if (m_pairs && (mb != nullptr || conv_prev != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = k % 4 == 0 && svt::aligned16(gacc) &&
-                       svt::aligned16(mphi) && svt::aligned_unit(mb) &&
+                       (m_pairs || svt::aligned16(mphi)) &&
+                       svt::aligned_unit(mb) &&
                        svt::aligned16(sumk) && svt::aligned16(partial);
   const bool conv = conv_prev != nullptr;
+  const bool aligned_pairs = svt::aligned16(gacc) && svt::aligned16(mphi) &&
+                             svt::aligned16(sumk);
   unsigned blocks = 0;
   for (int c0 = 0; c0 < k; c0 += svt::kRegMaxK) {
     const int kt = k - c0 < svt::kRegMaxK ? k - c0 : svt::kRegMaxK;
     const MeanArgs a{gacc + c0,
                      deg,
                      sumk + c0,
-                     mphi == nullptr ? nullptr : mphi + c0,
+                     mphi == nullptr ? nullptr
+                                     : mphi + c0 * (m_pairs ? 2 : 1),
+                     m_pairs,
                      mb == nullptr ? nullptr : mb + c0,
                      part1 + c0,
                      part2 + c0,
@@ -201,12 +226,24 @@ extern "C" int svt_mean_indicator(float* gacc, const float* deg,
                      c0,
                      c0 == 0,
                      c0 + kt == k};
+    // every tile is launched with the first tile's blocks, so that the
+    // scratch rows of all columns are the same in number
+    if (m_pairs) {
+      svt::dispatch_pair_row(kt, aligned_pairs, [&](auto vec, auto grp,
+                                                    auto cnt) {
+        constexpr int VEC = decltype(vec)::value;
+        constexpr int G = decltype(grp)::value;
+        constexpr int N = decltype(cnt)::value;
+        if (blocks == 0) blocks = svt::reduce_blocks_for(n, G);
+        mean_indicator_kernel<VEC, G, N, false>
+            <<<blocks, svt::kBlockThreads, 0, stream>>>(a);
+      });
+      continue;
+    }
     svt::dispatch_row(kt, aligned, [&](auto vec, auto grp, auto cnt) {
       constexpr int VEC = decltype(vec)::value;
       constexpr int G = decltype(grp)::value;
       constexpr int N = decltype(cnt)::value;
-      // every tile is launched with the first tile's blocks, so that the
-      // scratch rows of all columns are the same in number
       if (blocks == 0) blocks = svt::reduce_blocks_for(n, G);
       if (conv)
         mean_indicator_kernel<VEC, G, N, true>

@@ -57,17 +57,18 @@ _PHI_S3 = (_P,) * 16 + (_I64, _I64, _I64, _I32, _I32, _P)
 SIGNATURES = {
     # x, out, rows, k, rest, whether out is bf16
     "svt_dirichlet_expectation": (_P, _P, _I64, _I32, _F32, _I32, _P),
-    # x, out, ids, topvals, rows, k, w
-    "svt_dirichlet_topw": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # x, pairs (rows, k, 2), ids, topvals, topm, rows, k, w
+    "svt_dirichlet_topw": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     # elogpi, elb0, conv, the seven adjacency arrays, partial, gacc,
     # sumk_partial, sumk, n, n_hubs, n_segs, k, seg_len; the second over
     # bf16 rows
     "svt_phi_pass": _PHI,
     "svt_phi_pass_bf16": _PHI,
-    # gacc, deg, sumk, mphi, mphi_bf16, partial, s12, conv_prev, conv_out,
-    # count_first, n, k, alpha, n_nodes, ones, annealing
-    "svt_mean_indicator": (_P,) * 10 + (_I64, _I32, _F32, _F32, _F32, _I32,
-                                        _P),
+    # gacc, deg, sumk, mphi, its element stride, mphi_bf16, partial, s12,
+    # conv_prev, conv_out, count_first, n, k, alpha, n_nodes, ones,
+    # annealing
+    "svt_mean_indicator": (_P,) * 4 + (_I32,) + (_P,) * 6 + (
+        _I64, _I32, _F32, _F32, _F32, _I32, _P),
     # mphi, whether it is bf16, conv, rowptr, nbr, seg_node, seg_begin,
     # seg_end, partial, s3, n, n_segs, k, seg_len
     "svt_s3_pass": (_P, _I32) + (_P,) * 8 + (_I64, _I64, _I32, _I32, _P),
@@ -78,10 +79,13 @@ SIGNATURES = {
     # second over bf16 rows
     "svt_phi_s3_pass": _PHI_S3,
     "svt_phi_s3_pass_bf16": _PHI_S3,
-    # elogpi, ids, topvals, elb0, mphi, the seven adjacency arrays,
-    # seg_rows, partial, gacc, sumk, s3, n, n_hubs, n_segs, k, w, seg_len
+    # rows (Elogpi and mphi side by side), ids, topvals, topm, elb0, the
+    # seven adjacency arrays, seg_rows, partial, gacc, sumk, s3, n, n_hubs,
+    # n_segs, k, w, seg_len
     "svt_sparse_union": (_P,) * 17 + (_I64, _I64, _I64, _I32, _I32, _I32,
                                       _P),
+    # k, w, info (3 ints out): no launch, no stream
+    "svt_sparse_union_info": (_I32, _I32, _P),
 }
 
 _lock = threading.Lock()

@@ -73,35 +73,55 @@ def top_columns_plain(x: torch.Tensor, w: int) -> torch.Tensor:
                       stable=True).indices[:, :w].to(torch.int32)
 
 
-def dirichlet_expectation_topw_plain(x: torch.Tensor, w: int
+def _check_pair(x, pair) -> None:
+    n, k = x.shape
+    if tuple(pair.shape) != (n, k, 2) or pair.dtype != torch.float32:
+        raise ValueError(f"pair must be ({n}, {k}, 2) float32, got "
+                         f"{tuple(pair.shape)} {pair.dtype}")
+    if not pair.is_contiguous():
+        raise ValueError("pair must be contiguous")
+
+
+def dirichlet_expectation_topw_plain(x: torch.Tensor, w: int,
+                                     pair: torch.Tensor
                                      ) -> Tuple[torch.Tensor, ...]:
-    elogpi = dirichlet_expectation_plain(x)
+    """dirichlet_expectation_topw in plain PyTorch (a stable descending
+    sort for the ids)."""
+    _check_pair(x, pair)
     ids = top_columns_plain(x, w)
-    return elogpi, ids, elogpi.gather(1, ids.long())
+    idl = ids.long()
+    elogpi = pair[..., 0].copy_(dirichlet_expectation_plain(x))
+    return elogpi, ids, elogpi.gather(1, idl), pair[..., 1].gather(1, idl)
 
 
-def dirichlet_expectation_topw(x: torch.Tensor, w: int
+def dirichlet_expectation_topw(x: torch.Tensor, w: int, pair: torch.Tensor
                                ) -> Tuple[torch.Tensor, ...]:
-    """The top-W form of kernel 1 (svinet_tpu/svi/sweep_math.py:241-245):
-    (Elogpi (n,K) f32, ids (n,w) int32, topvals (n,w) f32), where ids are
-    the columns of the w largest entries of x per row (top_columns_plain's
-    order) and topvals = Elogpi[row, ids]. One pass on the card: the row
-    kernel 1 holds for Elogpi is searched in w rounds of a group arg-max
-    over (value, column) keys; counted as the form "topw"."""
+    """The top-W form of kernel 1 (svinet_tpu/svi/sweep_math.py:241-245)
+    into `pair`, the (n, K, 2) f32 rows of -sparse-w (Elogpi and the mean
+    indicators of the sweep before side by side, csrc/sparse_union.cu).
+    Returns (Elogpi, ids (n,w) int32, topvals (n,w) f32, topm (n,w) f32):
+    Elogpi is written into the even half of `pair` and returned as a view
+    of it; ids are the columns of the w largest entries of x per row
+    (top_columns_plain's order), topvals = Elogpi[row, ids] and topm the
+    odd half at ids. One pass on the card: the row kernel 1 holds for
+    Elogpi is searched by a threshold and one sort of the picks
+    (csrc/dirichlet_expectation.cu); counted as the form "topw"."""
     if not 1 <= w <= x.shape[-1]:
         raise ValueError(f"w must lie in [1, {x.shape[-1]}], got {w}")
     if x.device.type == "cpu":
-        return dirichlet_expectation_topw_plain(x, w)
+        return dirichlet_expectation_topw_plain(x, w, pair)
     build.require_cuda(x, "dirichlet_expectation_topw")
     if x.dim() != 2:
         raise ValueError(f"dirichlet_expectation_topw takes (rows, k), "
                          f"got {tuple(x.shape)}")
     build.check_cuda(x, "x", torch.float32, tuple(x.shape), x.device)
     rows, k = x.shape
-    out = torch.empty_like(x)
+    build.check_cuda(pair, "pair", torch.float32, (rows, k, 2), x.device)
     ids = torch.empty((rows, w), dtype=torch.int32, device=x.device)
     topvals = torch.empty((rows, w), dtype=torch.float32, device=x.device)
-    build.launch("svt_dirichlet_topw", x.device, x.data_ptr(), out.data_ptr(),
-                 ids.data_ptr(), topvals.data_ptr(), rows, k, w)
+    topm = torch.empty((rows, w), dtype=torch.float32, device=x.device)
+    build.launch("svt_dirichlet_topw", x.device, x.data_ptr(),
+                 pair.data_ptr(), ids.data_ptr(), topvals.data_ptr(),
+                 topm.data_ptr(), rows, k, w)
     build.count_launch(dirichlet_expectation, "topw")
-    return out, ids, topvals
+    return pair[..., 0], ids, topvals, topm

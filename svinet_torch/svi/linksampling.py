@@ -224,21 +224,24 @@ def fused_multi_sweep_ho(gamma, lam, mphi, adj: Adjacency, deg,
     return (gamma, lam, mphi, trace[0], *x)
 
 
-def sparse_multi_sweep(gamma, lam, mphi, adj: Adjacency, deg,
+def sparse_multi_sweep(gamma, lam, rows, adj: Adjacency, deg,
                        consts: LSConsts, annealing: bool, w: int,
-                       n_sweeps: int, ho=None):
+                       n_sweeps: int, ho=None, donate_gamma: bool = False):
     """n_sweeps -sparse-w sweeps (sweep_math.sparse_union_sweep), then,
     when `ho` = (pairs, y, weights, epsilon, blocks) is given, the six
     validation heldout sums on the final state
-    (svinet_tpu/svi/linksampling.py:263-285). `mphi` carries the mean
-    indicators from sweep to sweep and is overwritten. Returns
-    (gamma, lam, mphi), and the sums after them with `ho`."""
-    for _ in range(n_sweeps):
-        gamma, lam, mphi = sparse_union_sweep(gamma, lam, mphi, adj, deg,
-                                              consts, annealing, w)
+    (svinet_tpu/svi/linksampling.py:263-285). `rows`, (n, K, 2) f32,
+    carries the mean indicators from sweep to sweep in its odd half and is
+    overwritten; `donate_gamma` hands gamma's storage to the first sweep
+    (sparse_union_sweep). Returns (gamma, lam, rows), and the sums after
+    them with `ho`."""
+    for i in range(n_sweeps):
+        gamma, lam, rows = sparse_union_sweep(
+            gamma, lam, rows, adj, deg, consts, annealing, w,
+            donate_gamma=donate_gamma or i > 0)
     if ho is None:
-        return gamma, lam, mphi
-    return gamma, lam, mphi, heldout_sums_blocked(gamma, lam, *ho)
+        return gamma, lam, rows
+    return gamma, lam, rows, heldout_sums_blocked(gamma, lam, *ho)
 
 
 # ---------------------------------------------------------------------
@@ -389,9 +392,10 @@ class LinkSampling(EngineBase):
         # -sparse-w W: the top-W union sweep once annealing is over
         # (svinet_tpu/svi/linksampling.py:502-518). It carries its own mean
         # indicators for the lagged s3, zeros before its first sweep, so
-        # that sweep's s3 is 0; they are not self.mphi, whose presence
-        # makes a dense sweep fused
-        self._sparse_mphi = None
+        # that sweep's s3 is 0: the odd half of its (n, K, 2) rows, whose
+        # even half each sweep fills with Elogpi (sweep_math.union_rows).
+        # They are not self.mphi, whose presence makes a dense sweep fused
+        self._sparse_rows = None
         if cfg.sparse_w:
             if cfg.freeze_converged:
                 raise SystemExit("-sparse-w does not support -freeze")
@@ -477,18 +481,21 @@ class LinkSampling(EngineBase):
         validation split (svinet_tpu/svi/linksampling.py:816-838). -bf16
         does nothing here, as in the JAX engine, which returns before its
         bf16 gate."""
-        if self._sparse_mphi is None:
-            self._sparse_mphi = torch.zeros((self.n, self.k),
+        if self._sparse_rows is None:
+            self._sparse_rows = torch.zeros((self.n, self.k, 2),
                                             dtype=torch.float32,
                                             device=self.device)
         ho = None
         if self._ho is not None:
             hp, hy, hw, nb = self._ho
             ho = (hp, hy, hw, self.cfg.epsilon, nb)
+        # gamma's storage becomes the first sweep's phi sums and then the
+        # new gamma: one (n, K) array less at the step's peak
         out = sparse_multi_sweep(
-            self.gamma, self.lam, self._sparse_mphi, self.adj, self.deg,
-            self.consts, self.annealing, int(self.cfg.sparse_w), n_sweeps, ho)
-        self.gamma, self.lam, self._sparse_mphi = out[:3]
+            self.gamma, self.lam, self._sparse_rows, self.adj, self.deg,
+            self.consts, self.annealing, int(self.cfg.sparse_w), n_sweeps, ho,
+            donate_gamma=True)
+        self.gamma, self.lam, self._sparse_rows = out[:3]
         if ho is not None:
             self._ho_res = out[3]
 

@@ -22,6 +22,7 @@ the free end's mphi at that column.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -303,7 +304,11 @@ def mean_indicator_update(gacc, sumk, deg, consts: LSConsts, annealing: bool,
     launches: no atomics, the same bits every time). `mphi_out`, an (n,K)
     f32 buffer the caller no longer needs, receives mphi and is returned
     in its place, on either device (-fuse-s3 hands over the mphi of the
-    sweep before).
+    sweep before). It may also be -sparse-w's (n, K, 2) rows, whose even
+    half (Elogpi) is dead by then: mphi goes into the odd half and 0 into
+    the even one, whole pairs (a store of half a pair makes the L2 merge
+    the sector: 8.44 against 2.45 ms at n=1M, K=500 on an H100 80GB HBM3
+    at 700 W, chip_smoke.py), and MeanUpdate.mphi is the odd half.
 
     `mphi_bf16` also returns mphi rounded to bfloat16, the rows a -bf16
     sweep's s3 pass gathers, written by the same launch; `mphi_f32=False`
@@ -313,9 +318,16 @@ def mean_indicator_update(gacc, sumk, deg, consts: LSConsts, annealing: bool,
     the launch takes from the gnext rows it holds; conv is not modified."""
     if not (mphi_f32 or mphi_bf16):
         raise ValueError("mean_indicator_update: no mphi asked for")
+    pairs = mphi_out is not None and mphi_out.dim() == 3
+    if pairs and (mphi_bf16 or conv is not None or not mphi_f32):
+        raise ValueError("mphi into (n, K, 2) pairs takes neither bf16 rows "
+                         "nor converged flags")
     if gacc.device.type == "cpu":
         out = mean_indicator_update_plain(gacc, sumk, deg, consts, annealing)
         mphi = out[1]
+        if pairs:
+            mphi_out[..., 0] = 0.0
+            mphi_out = mphi_out[..., 1]
         return MeanUpdate(
             out[0],
             None if not mphi_f32 else
@@ -335,7 +347,8 @@ def mean_indicator_update(gacc, sumk, deg, consts: LSConsts, annealing: bool,
     mphi = None
     if mphi_f32:
         mphi = torch.empty_like(gacc) if mphi_out is None else mphi_out
-        build.check_cuda(mphi, "mphi_out", torch.float32, (n, k), dev)
+        build.check_cuda(mphi, "mphi_out", torch.float32,
+                         (n, k, 2) if pairs else (n, k), dev)
         if mphi.data_ptr() == gacc.data_ptr():
             raise ValueError("mphi_out must not be gacc")
     mphi_b = (torch.empty_like(gacc, dtype=torch.bfloat16) if mphi_bf16
@@ -352,7 +365,8 @@ def mean_indicator_update(gacc, sumk, deg, consts: LSConsts, annealing: bool,
         return None if t is None else t.data_ptr()
 
     build.launch("svt_mean_indicator", dev, gacc.data_ptr(), deg.data_ptr(),
-                 sumk.data_ptr(), ptr(mphi), ptr(mphi_b), partial.data_ptr(),
+                 sumk.data_ptr(), ptr(mphi), int(pairs), ptr(mphi_b),
+                 partial.data_ptr(),
                  s12.data_ptr(), _conv_ptr(conv, n, dev), ptr(conv_out),
                  ptr(count_first), n, k, consts.alpha, consts.n_nodes,
                  consts.ones, int(bool(annealing)))
@@ -360,8 +374,8 @@ def mean_indicator_update(gacc, sumk, deg, consts: LSConsts, annealing: bool,
         mean_indicator_update,
         "+".join(name for name, on in (("f32", mphi_f32), ("bf16", mphi_bf16),
                                        ("conv", conv is not None)) if on))
-    return MeanUpdate(gacc, mphi, s12[0], s12[1], consts.eta0 + sumk, mphi_b,
-                      conv_out)
+    return MeanUpdate(gacc, mphi[..., 1] if pairs else mphi, s12[0], s12[1],
+                      consts.eta0 + sumk, mphi_b, conv_out)
 
 
 mean_indicator_update.launches = 0
@@ -568,24 +582,42 @@ fused_phi_s3_pass.forms = {}
 
 # ---------------------------------------------------------------------
 # -sparse-w: the top-W union pass (svinet_tpu/svi/sweep_math.py:209-286).
-# Per node the W columns of the largest gamma and their Elogpi values; per
+# Per node the W columns of the largest gamma, their Elogpi values
+# (topvals) and the mean indicators of the sweep before at them (topm); per
 # link a softmax over the union of the two lists, with exact logits
-# gathered at (node, column).
+# gathered at (node, column). Elogpi and the mean indicators of the sweep
+# before are held side by side as (n, K, 2) f32 `rows`, so that a value of
+# each at one (node, column) is one 8-byte load on the card
+# (csrc/sparse_union.cu). The rows belong to the sparse sweep alone.
 
-def sparse_union_pass_plain(elogpi, ids, topvals, elb0, mphi, edges, mask,
+def union_rows(elogpi, mphi) -> torch.Tensor:
+    """(n, K, 2) f32 rows [Elogpi, mphi] from two (n, K) arrays, for
+    callers that hold them apart (the engine's sweep writes the rows in
+    place: sparse_union_sweep)."""
+    return torch.stack([elogpi.float(), mphi.float()], dim=-1)
+
+
+def _union_halves(rows):
+    """(flat Elogpi, flat mphi) of the (n, K, 2) rows, each (n*K,)."""
+    return rows[..., 0].reshape(-1), rows[..., 1].reshape(-1)
+
+
+def sparse_union_pass_plain(rows, ids, topvals, topm, elb0, edges, mask,
                             num_blocks: int) -> Tuple[torch.Tensor, ...]:
     """The JAX block function (svinet_tpu/svi/sweep_math.py:252-277) over
     the padded edge list: per link the 2W candidate columns, their logits,
     a stable sort of the ids to mark duplicates (the first copy is kept),
     the softmax over the kept slots, phi added at (p, id) and (q, id), sumk
-    at 2 phi, s3 at mphi[p,id] * mphi[q,id] on kept slots. ids (n,W)
-    int32, topvals (n,W) f32. Returns (gacc (n,K), sumk (K,), s3 (K,))."""
-    n, k = elogpi.shape
-    dev = elogpi.device
+    at 2 phi, s3 at mphi[p,id] * mphi[q,id] on kept slots, each end's mphi
+    at its own columns taken from topm. rows (n,K,2) f32 [Elogpi, mphi of
+    the sweep before]; ids (n,W) int32, topvals and topm (n,W) f32.
+    Returns (gacc (n,K), sumk (K,), s3 (K,))."""
+    n, k = rows.shape[:2]
+    dev = rows.device
     gacc = torch.zeros(n * k, dtype=torch.float32, device=dev)
     sumk = torch.zeros(k, dtype=torch.float32, device=dev)
     s3 = torch.zeros(k, dtype=torch.float32, device=dev)
-    flat_e, flat_m = elogpi.reshape(-1), mphi.reshape(-1).float()
+    flat_e, flat_m = _union_halves(rows)
     idl = ids.long()
     for blk, msk in edge_blocks(edges, mask, num_blocks):
         p, q = blk[:, 0].long(), blk[:, 1].long()
@@ -595,6 +627,9 @@ def sparse_union_pass_plain(elogpi, ids, topvals, elb0, mphi, edges, mask,
         lp_at_q = flat_e[p[:, None] * k + idq]
         logits = torch.cat([topvals[p] + lq_at_p, lp_at_q + topvals[q]],
                            dim=1) + elb0[cand]
+        # mphi of each end at the 2W slots: its own list's from topm
+        m_p = torch.cat([topm[p], flat_m[p[:, None] * k + idq]], dim=1)
+        m_q = torch.cat([flat_m[q[:, None] * k + idp], topm[q]], dim=1)
         sort_ids, order = torch.sort(cand, dim=1, stable=True)
         sort_logits = logits.gather(1, order)
         dup = torch.cat([torch.zeros_like(sort_ids[:, :1], dtype=torch.bool),
@@ -606,18 +641,16 @@ def sparse_union_pass_plain(elogpi, ids, topvals, elb0, mphi, edges, mask,
         gacc.index_add_(0, slot_p, phi.flatten())
         gacc.index_add_(0, slot_q, phi.flatten())
         sumk.index_add_(0, sort_ids.flatten(), 2.0 * phi.flatten())
-        contrib = (flat_m[slot_p] * flat_m[slot_q]).view_as(phi)
+        contrib = m_p.gather(1, order) * m_q.gather(1, order)
         contrib = contrib.masked_fill(dup, 0.0) * msk[:, None]
         s3.index_add_(0, sort_ids.flatten(), contrib.flatten())
     return gacc.view(n, k), sumk, s3
 
 
-def _union_entries(elogpi, ids, topvals, elb0, p, q):
+def _union_entries(flat_e, ids, topvals, elb0, p, q, k: int):
     """The 2W slots of the entries (owner p, neighbour q) as kernel 7 forms
     them: (columns (B,2W): p's list then q's, logits (B,2W) with a
     duplicate of q's list at -inf, kept (B,2W) bool)."""
-    n, k = elogpi.shape
-    flat_e = elogpi.reshape(-1)
     idp, idq = ids[p].long(), ids[q].long()
     lp = (topvals[p] + flat_e[q[:, None] * k + idp]) + elb0[idp]
     lq = (flat_e[p[:, None] * k + idq] + topvals[q]) + elb0[idq]
@@ -630,7 +663,7 @@ def _union_entries(elogpi, ids, topvals, elb0, p, q):
     return cols, logits, kept
 
 
-def sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0, mphi,
+def sparse_union_pass_pull_plain(rows, ids, topvals, topm, elb0,
                                  adj: Adjacency, block: int
                                  ) -> Tuple[torch.Tensor, ...]:
     """Kernel 7's arithmetic in plain PyTorch: walk the 2E directed entries
@@ -638,39 +671,47 @@ def sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0, mphi,
     first, a column of q's list dropped when it is in p's (a K-bit mask of
     p's list, no sort); phi over the kept slots added to the owner's row
     only, and to sumk (every link is met from both ends); s3 from the
-    entries with q > p, every link once. Returns (gacc, sumk, s3) as
-    sparse_union_pass_plain does. sumk and s3 are summed in float64: a
-    column that every node's list holds (columns tied at alpha) takes a
+    entries with q > p, every link once: mphi[p, c] * mphi[q, c], each
+    end's mphi at its own columns from topm, at the other's from the odd
+    half of rows. Takes sparse_union_pass_plain's arguments but the
+    adjacency; returns what it returns. sumk and s3 are summed in float64:
+    a column that every node's list holds (columns tied at alpha) takes a
     term from every link, and an f32 running sum of millions of terms
     stops growing once its unit in the last place passes the terms."""
-    n, k = elogpi.shape
-    dev = elogpi.device
+    n, k = rows.shape[:2]
+    dev = rows.device
     gacc = torch.zeros(n * k, dtype=torch.float32, device=dev)
     sumk = torch.zeros(k, dtype=torch.float64, device=dev)
     s3 = torch.zeros(k, dtype=torch.float64, device=dev)
-    flat_m = mphi.reshape(-1).float()
+    flat_e, flat_m = _union_halves(rows)
+    w = ids.shape[1]
     for p, q in _pull_entries(adj, block):
-        cols, logits, kept = _union_entries(elogpi, ids, topvals, elb0, p, q)
+        cols, logits, kept = _union_entries(flat_e, ids, topvals, elb0, p, q,
+                                            k)
         phi = torch.softmax(logits, dim=-1).masked_fill(~kept, 0.0)
         gacc.index_add_(0, (p[:, None] * k + cols).flatten(), phi.flatten())
         sumk.index_add_(0, cols.flatten(), phi.flatten().double())
         low = q > p
-        lc, lp, lq = cols[low], p[low, None], q[low, None]
-        contrib = (flat_m[lp * k + lc] * flat_m[lq * k + lc]).masked_fill(
-            ~kept[low], 0.0)
+        lc, lp, lq = cols[low], p[low], q[low]
+        m_p = torch.cat([topm[lp], flat_m[lp[:, None] * k + lc[:, w:]]], 1)
+        m_q = torch.cat([flat_m[lq[:, None] * k + lc[:, :w]], topm[lq]], 1)
+        contrib = (m_p * m_q).masked_fill(~kept[low], 0.0)
         s3.index_add_(0, lc.flatten(), contrib.flatten().double())
     return gacc.view(n, k), sumk.float(), s3.float()
 
 
-def sparse_union_pass(elogpi, ids, topvals, elb0, mphi_prev, adj: Adjacency
-                      ) -> Tuple[torch.Tensor, ...]:
+def sparse_union_pass(rows, ids, topvals, topm, elb0, adj: Adjacency,
+                      gacc_out=None) -> Tuple[torch.Tensor, ...]:
     """Kernel 7 (csrc/sparse_union.cu) on a CUDA tensor,
-    sparse_union_pass_pull_plain on a CPU tensor. elogpi, topvals,
-    mphi_prev f32; ids (n,W) int32 with 1 <= W <= K, from
-    ops/digamma.py:dirichlet_expectation_topw. Returns (gacc, sumk, s3):
-    gacc (n,K) the phi of every link added at both ends over the union of
-    the two lists, sumk (K,) its column sums, s3 (K,) the cross-moment of
-    mphi_prev over the kept slots of every link.
+    sparse_union_pass_pull_plain on a CPU tensor. rows (n,K,2) f32:
+    Elogpi and the mean indicators of the sweep before side by side
+    (union_rows); ids (n,W) int32 with 1 <= W <= K, topvals and topm (n,W)
+    f32, from ops/digamma.py:dirichlet_expectation_topw. Returns (gacc,
+    sumk, s3): gacc (n,K) the phi of every link added at both ends over the
+    union of the two lists, sumk (K,) its column sums, s3 (K,) the
+    cross-moment of the mean indicators over the kept slots of every link.
+    `gacc_out`, an (n, K) f32 buffer the caller no longer needs, receives
+    gacc and is returned in its place.
 
     On the card one launch walks the adjacency, nodes and hub segments
     alike: the warp that owns node p holds its row of phi sums in shared
@@ -678,30 +719,37 @@ def sparse_union_pass(elogpi, ids, topvals, elb0, mphi_prev, adj: Adjacency
     that two small launches add in a fixed order, and a hub's segments
     are combined in segment order: no atomics into device memory, the same
     bits every time."""
-    n, k = elogpi.shape
+    n, k = rows.shape[:2]
     w = ids.shape[1]
     if not 1 <= w <= k:
         raise ValueError(f"the lists must hold 1 to {k} columns, got {w}")
-    if elogpi.device.type == "cpu":
+    if rows.device.type == "cpu":
         # a block holds (B, K) of p's mask beside its (B, 2W) slots
         block = choose_edge_block(adj.nbr.shape[0], max(k, 2 * w))
-        return sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0,
-                                            mphi_prev, adj, block)
-    build.require_cuda(elogpi, "sparse_union_pass")
-    dev = elogpi.device
-    build.check_cuda(elogpi, "elogpi", torch.float32, (n, k), dev)
+        gacc, sumk, s3 = sparse_union_pass_pull_plain(
+            rows, ids, topvals, topm, elb0, adj, block)
+        if gacc_out is not None:
+            gacc = gacc_out.copy_(gacc)
+        return gacc, sumk, s3
+    build.require_cuda(rows, "sparse_union_pass")
+    dev = rows.device
+    build.check_cuda(rows, "rows", torch.float32, (n, k, 2), dev)
     build.check_cuda(ids, "ids", torch.int32, (n, w), dev)
     build.check_cuda(topvals, "topvals", torch.float32, (n, w), dev)
+    build.check_cuda(topm, "topm", torch.float32, (n, w), dev)
     build.check_cuda(elb0, "elb0", torch.float32, (k,), dev)
-    build.check_cuda(mphi_prev, "mphi_prev", torch.float32, (n, k), dev)
     n_hubs, n_segs = _check_adjacency(adj, n, dev)
-    gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    if gacc_out is None:
+        gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+    else:
+        gacc = gacc_out
+        build.check_cuda(gacc, "gacc_out", torch.float32, (n, k), dev)
     sumk = torch.empty(k, dtype=torch.float32, device=dev)
     s3 = torch.empty(k, dtype=torch.float32, device=dev)
     seg_rows = torch.empty((n_segs, k), dtype=torch.float32, device=dev)
     partial = _reduce_scratch(k, dev)
-    build.launch("svt_sparse_union", dev, elogpi.data_ptr(), ids.data_ptr(),
-                 topvals.data_ptr(), elb0.data_ptr(), mphi_prev.data_ptr(),
+    build.launch("svt_sparse_union", dev, rows.data_ptr(), ids.data_ptr(),
+                 topvals.data_ptr(), topm.data_ptr(), elb0.data_ptr(),
                  *(t.data_ptr() for t in adj.tensors()), seg_rows.data_ptr(),
                  partial.data_ptr(), gacc.data_ptr(), sumk.data_ptr(),
                  s3.data_ptr(), n, n_hubs, n_segs, k, w, adj.seg_len)
@@ -713,21 +761,40 @@ sparse_union_pass.launches = 0
 sparse_union_pass.forms = {}
 
 
-def sparse_union_sweep(gamma, lam, mphi, adj: Adjacency, deg,
-                       consts: LSConsts, annealing: bool, w: int):
-    """One -sparse-w sweep (svinet_tpu/svi/sweep_math.py:209-286): the
-    top-W form of kernel 1 on gamma, kernel 1 on lambda, kernel 7 with the
-    mean indicators of the sweep before, kernel 3 writing this sweep's
-    mean indicators over `mphi`, finish_lambda. Returns (gamma, lam, mphi):
-    gamma and lam are not modified, `mphi` is overwritten and returned."""
-    elogpi, ids, topvals = dirichlet_expectation_topw(gamma, w)
+def sparse_union_occupancy(k: int, w: int) -> dict:
+    """What kernel 7's launch for (K, W) gets of an SM on the current
+    card: registers a thread, bytes of shared memory a warp, warps an
+    SM."""
+    info = (ctypes.c_int * 3)()
+    build.library().call("svt_sparse_union_info", k, w, info)
+    return dict(registers=info[0], smem_per_warp=info[1],
+                warps_per_sm=info[2])
+
+
+def sparse_union_sweep(gamma, lam, rows, adj: Adjacency, deg,
+                       consts: LSConsts, annealing: bool, w: int,
+                       donate_gamma: bool = False):
+    """One -sparse-w sweep (svinet_tpu/svi/sweep_math.py:209-286). `rows`
+    is the (n, K, 2) f32 buffer the sparse sweeps carry, whose odd half
+    holds the mean indicators of the sweep before: the top-W form of kernel
+    1 writes Elogpi into its even half and reads topm from the odd one,
+    kernel 1 takes lambda, kernel 7 the rows, and kernel 3 writes this
+    sweep's mean indicators into the odd half (after kernel 7 has read the
+    old ones; 0 into the even half), then finish_lambda. Returns (gamma,
+    lam, rows): lam is not modified; `rows` is overwritten and returned.
+    gamma is not modified either, unless `donate_gamma`: then kernel 7
+    writes gacc into gamma's storage once the top-W form has read it
+    (nothing reads gamma after that), and the new gamma is returned in it;
+    the caller must not use the gamma it passed."""
+    _, ids, topvals, topm = dirichlet_expectation_topw(gamma, w, pair=rows)
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
-    gacc, sumk, s3 = sparse_union_pass(elogpi, ids, topvals, elb0, mphi, adj)
-    del elogpi, ids, topvals
+    gacc, sumk, s3 = sparse_union_pass(rows, ids, topvals, topm, elb0, adj,
+                                       gamma if donate_gamma else None)
+    del gamma, ids, topvals, topm
     out = mean_indicator_update(gacc, sumk, deg, consts, annealing,
-                                mphi_out=mphi)
+                                mphi_out=rows)
     return (out.gnext, finish_lambda(out.s1, out.s2, s3, out.lam0, consts),
-            out.mphi)
+            rows)
 
 
 def finish_lambda(s1, s2, s3, lam0, consts: LSConsts) -> torch.Tensor:

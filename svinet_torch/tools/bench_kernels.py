@@ -35,11 +35,17 @@ design around the L2 that is kept off the path (csrc/alt/s3_slab.cu through
 tools/s3_slab.py), at n = 250k to 2M with K = 500 and 20 links a node and
 at narrower shapes; kernel 5 against kernel 2 then kernel 4 around
 sweep_math.FUSED_MAX_WORK; kernel 6 (the held-out sums) beside the plain
-tail it replaces; -sparse-w's top-W form of kernel 1 and kernel 7 (the
-union pass, csrc/sparse_union.cu) against kernel 1, kernel 2 then kernel 4
-(the dense passes they replace) and as whole sweeps, at W = 8, 16, 32, 64
-on the stretch graph (n=1M, K=500, 20M links) and on the planted n=20k
-graph at K = 500, 2000 and 8000. --only names the parts to run. --quick
+tail it replaces; the card's rate for random 32-byte sectors of a 2 GB
+array with 1, 2, 4 and 8 loads of 4 or 8 bytes in flight a lane
+(csrc/alt/sector_probe.cu); -sparse-w's top-W form of kernel 1 and kernel
+7 (the union pass, csrc/sparse_union.cu) against the first designs of both
+(csrc/alt/topw_v1.cu, csrc/alt/sparse_union_v1.cu), against kernel 1,
+kernel 2 then kernel 4 (the dense passes they replace) and as whole
+sweeps, at W = 8, 16, 32, 64 on the stretch graph (n=1M, K=500, 20M links;
+the engine's state after three annealing sweeps and a late-fit state) and
+on the planted n=20k graph at K = 500, 2000 and 8000, with kernel 7's
+registers, shared memory and warps an SM. --only names the parts to run
+(sectors, sparse, ...). --quick
 builds, launches every kernel once at these widths, compares and stops.
 
 Prints the card and its power limit first; writes the compiler's report
@@ -50,6 +56,7 @@ to build/svinet_torch).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import os
@@ -68,20 +75,40 @@ from svinet_torch.ops.digamma import (
 from svinet_torch.ops.edges import (
     build_adjacency, choose_edge_block, pad_edges)
 from svinet_torch.svi.linksampling import (
-    SweepExtras, compact_columns, from_edges, sweep, sweep_ho_trace)
+    SweepExtras, compact_columns, from_edges, init_gamma_from_links_device,
+    sweep, sweep_ho_trace)
 from svinet_torch.evals.likelihood import (
     _pi_beta, heldout_sums, heldout_sums_from_pi, heldout_sums_rows_plain)
 from svinet_torch.svi.sweep_math import (
     LSConsts, fused_phi_s3_pass, fused_phi_s3_pass_pull_plain,
     mean_indicator_update, mean_indicator_update_plain, phi_pass,
     phi_pass_pull_plain, s3_pass, s3_pass_plain, s3_pass_pull_plain,
-    sparse_union_pass, sparse_union_pass_pull_plain, sparse_union_sweep)
+    sparse_union_occupancy, sparse_union_pass, sparse_union_pass_pull_plain,
+    sparse_union_sweep, union_rows)
 from svinet_torch.synth import planted_blocks, random_edges
 from svinet_torch.tools import s3_slab
 
 _P, _I64, _I32 = build._P, build._I64, build._I32
 ALT_SIGNATURES = {
     "svt_dirichlet_expectation_v1": (_P, _P, _I64, _I32, _P),
+    # the first designs of the top-W form and kernel 7 (csrc/alt/topw_v1.cu,
+    # csrc/alt/sparse_union_v1.cu): x, out, ids, topvals, rows, k, w; and
+    # elogpi, ids, topvals, elb0, mphi, the seven adjacency arrays,
+    # seg_rows, partial, gacc, sumk, s3, n, n_hubs, n_segs, k, w, seg_len
+    "svt_dirichlet_topw_v1": (_P, _P, _P, _P, _I64, _I32, _I32, _P),
+    "svt_sparse_union_v1": (_P,) * 17 + (_I64, _I64, _I64, _I32, _I32, _I32,
+                                         _P),
+    # csrc/alt/sector_probe.cu: src, log2 of its sectors, bytes a load,
+    # loads in flight a lane, rounds, seed, out, threads launched (out)
+    "svt_sector_probe": (_P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P),
+    # src, log2 of its sectors, pattern, requests in flight, rounds, seed,
+    # out, threads (out); and dst, values, layout
+    "svt_sector_pair_probe": (_P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P),
+    # src, rows, k, bytes an element, lanes a row, rounds in flight, rounds,
+    # seed, out, threads (out)
+    "svt_row_probe": (_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
+                      _P),
+    "svt_write_probe": (_P, _I64, _I32, _P),
     "svt_phi_pass_edge_atomic": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     "svt_phi_half_push": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     **s3_slab.SIGNATURES,
@@ -686,72 +713,245 @@ def _late_gamma(member, k: int, gen) -> torch.Tensor:
     return gamma
 
 
-def bench_sparse(label: str, links, member, n: int, k: int, widths,
-                 quick: bool) -> list:
-    """-sparse-w at each W of `widths` on one graph and state: the top-W
-    form of kernel 1 then kernel 7 against kernel 1, kernel 2 then kernel 4
-    (the passes they replace), and a whole sparse sweep against a whole
-    dense unfused sweep; torch.topk beside the form as a yardstick (it
-    orders ties otherwise). Kernel 7 and the form are held to their plain
-    versions at every W."""
+def _engine_gamma(links, adj, deg, n: int, k: int, gen) -> torch.Tensor:
+    """The state the engine holds when annealing ends early on a graph
+    with no communities (chip_smoke.py phase 3 on the stretch shape): its
+    device-side init (init_gamma_from_links_device), then three annealing
+    sweeps. No column is tied."""
+    block = choose_edge_block(len(links), k)
+    edges_np, mask_np = pad_edges(links, block)
+    gamma = init_gamma_from_links_device(
+        gen, torch.as_tensor(edges_np, device="cuda"),
+        torch.as_tensor(mask_np, device="cuda"), n, k, 1.0 / k,
+        edges_np.shape[0] // block)
+    lam = torch.tensor([[1.0, 1.0]] * k, device="cuda")
+    consts = LSConsts.make(1.0 / k, 1.0, 1.0, len(links), n)
+    for _ in range(3):
+        gamma, lam = sweep(gamma, lam, adj, deg, consts, True)
+    return gamma
+
+
+def _sparse_v1_calls(alt, gamma, w, elb0, mphi, adj):
+    """The first designs of the top-W form and kernel 7 (csrc/alt/) as
+    calls into fixed
+    buffers: (topw(), kernel7(), and the buffers (elogpi, ids, topvals,
+    gacc, sumk, s3))."""
+    n, k = gamma.shape
+    n_hubs, n_segs = adj.hub_node.shape[0], adj.seg_node.shape[0]
+    elogpi = torch.empty_like(gamma)
+    ids = torch.empty((n, w), dtype=torch.int32, device="cuda")
+    topvals = torch.empty((n, w), device="cuda")
+    gacc = torch.empty_like(gamma)
+    sumk = torch.empty(k, device="cuda")
+    s3 = torch.empty(k, device="cuda")
+    seg_rows = torch.empty((n_segs, k), device="cuda")
+    partial = torch.empty((build.REDUCE_SCRATCH_ROWS, k), device="cuda")
+
+    def topw():
+        alt.call("svt_dirichlet_topw_v1", gamma.data_ptr(),
+                 elogpi.data_ptr(), ids.data_ptr(), topvals.data_ptr(), n, k,
+                 w, stream())
+
+    def kernel7():
+        alt.call("svt_sparse_union_v1", elogpi.data_ptr(), ids.data_ptr(),
+                 topvals.data_ptr(), elb0.data_ptr(), mphi.data_ptr(),
+                 *(t.data_ptr() for t in adj.tensors()), seg_rows.data_ptr(),
+                 partial.data_ptr(), gacc.data_ptr(), sumk.data_ptr(),
+                 s3.data_ptr(), n, n_hubs, n_segs, k, w, adj.seg_len,
+                 stream())
+
+    return topw, kernel7, (elogpi, ids, topvals, gacc, sumk, s3)
+
+
+def bench_sparse(alt, label: str, links, member, n: int, k: int, widths,
+                 quick: bool, states=("late-fit",)) -> list:
+    """-sparse-w at each W of `widths` on one graph, in each of `states`
+    ("late-fit": _late_gamma; "engine": _engine_gamma): the top-W form of
+    kernel 1 then kernel 7 against the first designs of both (csrc/alt/) and
+    against kernel 1, kernel 2 then kernel 4 (the passes they replace),
+    and a whole sparse sweep against a whole dense unfused sweep;
+    torch.topk beside the form as a yardstick (it orders ties otherwise).
+    Each W's kernels are held to their plain versions (ids and topm
+    exactly) and to the first designs; then all are timed in turns."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     adj = build_adjacency(links, n, "cuda")
-    gamma = _late_gamma(member, k, gen)
+    deg = torch.as_tensor(np.bincount(links.ravel(), minlength=n).astype(
+        np.float32), device="cuda")
     lam = 0.5 + 4.5 * torch.rand((k, 2), generator=gen, device="cuda")
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
     mphi = torch.rand((n, k), generator=gen, device="cuda") / k
-    deg = torch.as_tensor(np.bincount(links.ravel(), minlength=n).astype(
-        np.float32), device="cuda")
     consts = LSConsts.make(1.0 / k, 1.0, 1.0, len(links), n)
     big = n * k >= 10**8
     reps = 2 if big else 10
+    out = []
+    for state in states:
+        gamma = (_engine_gamma(links, adj, deg, n, k, gen)
+                 if state == "engine" else _late_gamma(member, k, gen))
+        elogpi = dirichlet_expectation(gamma)
+        dense = timed({
+            "kernel1": lambda: dirichlet_expectation(gamma),
+            "kernel2": lambda: phi_pass(elogpi, elb0, adj),
+            "kernel4": lambda: s3_pass(mphi, adj),
+            "dense_sweep": lambda: sweep(gamma, lam, adj, deg, consts,
+                                         False)}, reps)
+        del elogpi
+        rows = union_rows(torch.zeros_like(gamma), mphi)
+        for w in widths:
+            _, ids, tv, tm = dirichlet_expectation_topw(gamma, w, pair=rows)
+            _, ids_p, tv_p, tm_p = dirichlet_expectation_topw_plain(
+                gamma, w, pair=rows.clone())
+            assert torch.equal(ids, ids_p), (label, state, w)
+            assert torch.equal(tm, tm_p), (label, state, w)
+            # kernel 1's bar: 5e-5, or 2^-22 of the value (psi near -2000
+            # at alpha = 1/2000)
+            assert torch.allclose(tv, tv_p, rtol=2.0**-22, atol=5e-5), (
+                label, state, w)
+            del ids_p, tv_p, tm_p
+            got = sparse_union_pass(rows, ids, tv, tm, elb0, adj)
+            want = sparse_union_pass_pull_plain(
+                rows, ids, tv, tm, elb0, adj,
+                choose_edge_block(adj.nbr.shape[0], max(k, 2 * w)))
+            for a, b in zip(got, want):
+                assert torch.allclose(a, b, rtol=1e-4, atol=1e-4), (
+                    label, state, w)
+            del want
+            topw_v1, k7_v1, v1_out = _sparse_v1_calls(alt, gamma, w, elb0,
+                                                      mphi, adj)
+            topw_v1()
+            k7_v1()
+            assert torch.equal(v1_out[1], ids), (label, state, w)
+            for a, b in zip(got, v1_out[3:]):
+                assert torch.allclose(a, b, rtol=1e-4, atol=1e-4), (
+                    label, state, w)
+            del got
+            sparse_rows = rows.clone()
+            g_in = gamma.clone()
+            ms = timed({
+                "topw_form": lambda: dirichlet_expectation_topw(
+                    gamma, w, pair=rows),
+                "topw_form_v1": topw_v1,
+                "torch_topk": lambda: torch.topk(gamma, w, dim=1),
+                "kernel7": lambda: sparse_union_pass(rows, ids, tv, tm, elb0,
+                                                     adj),
+                "kernel7_v1": k7_v1,
+                "sparse_sweep": lambda: sparse_union_sweep(
+                    g_in, lam, sparse_rows, adj, deg, consts, False, w)},
+                reps)
+            ms.update(dense)
+            ms["topw_then_kernel7"] = ms["topw_form"] + ms["kernel7"]
+            ms["v1_topw_then_kernel7"] = (ms["topw_form_v1"]
+                                          + ms["kernel7_v1"])
+            ms["kernel1_2_4"] = dense["kernel1"] + dense["kernel2"] + \
+                dense["kernel4"]
+            row = {"kernel": "sparse_union_pass", "graph": label,
+                   "state": state, "n": n, "k": k, "w": w,
+                   "links": len(links), "ms": ms,
+                   "occupancy": sparse_union_occupancy(k, w),
+                   "sparse_over_dense_passes": ms["topw_then_kernel7"]
+                   / ms["kernel1_2_4"],
+                   "sparse_over_dense_sweep": ms["sparse_sweep"]
+                   / ms["dense_sweep"]}
+            log(json.dumps(row))
+            out.append(row)
+            del ids, tv, tm, sparse_rows, g_in, v1_out, topw_v1, k7_v1
+            if quick:
+                break
+        del gamma, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def bench_sectors(alt, quick: bool) -> list:
+    """The card's rate for random 32-byte sectors of a 2 GB array
+    (csrc/alt/sector_probe.cu): every lane of a full card keeps 1, 2, 4 or
+    8 loads in flight, each of 4 bytes (one value) or 8 (an (Elogpi,
+    mphi) pair) from its own random sector. Then kernel 7's access: groups
+    of W lanes read W random columns of one random row of the stretch
+    shape's (1M, 500) array, 4-byte values (2 GB, the first design's
+    Elogpi) or 8-byte pairs (4 GB, the (n, K, 2) rows)."""
+    log_sectors = 26                   # 2^26 sectors of 32 bytes: 2 GB
+    src = torch.rand(2**log_sectors * 8, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(2048 * sms, device="cuda")
+    threads = ctypes.c_int64()
     rows = []
-    elogpi = dirichlet_expectation(gamma)
-    dense = timed({
-        "kernel1": lambda: dirichlet_expectation(gamma),
-        "kernel2": lambda: phi_pass(elogpi, elb0, adj),
-        "kernel4": lambda: s3_pass(mphi, adj),
-        "dense_sweep": lambda: sweep(gamma, lam, adj, deg, consts, False)},
-        reps)
-    for w in widths:
-        e, ids, tv = dirichlet_expectation_topw(gamma, w)
-        e_p, ids_p, tv_p = dirichlet_expectation_topw_plain(gamma, w)
-        assert torch.equal(ids, ids_p), (label, w)
-        # kernel 1's bar: 5e-5, or 2^-22 of the value (psi near -2000 at
-        # alpha = 1/2000)
-        assert torch.allclose(tv, tv_p, rtol=2.0**-22, atol=5e-5), (label, w)
-        del e_p, ids_p, tv_p
-        got = sparse_union_pass(e, ids, tv, elb0, mphi, adj)
-        want = sparse_union_pass_pull_plain(
-            e, ids, tv, elb0, mphi, adj,
-            choose_edge_block(adj.nbr.shape[0], max(k, 2 * w)))
-        for a, b in zip(got, want):
-            assert torch.allclose(a, b, rtol=1e-4, atol=1e-4), (label, w)
-        del got, want
-        sparse_mphi = mphi.clone()
-        ms = timed({
-            "topw_form": lambda: dirichlet_expectation_topw(gamma, w),
-            "torch_topk": lambda: torch.topk(gamma, w, dim=1),
-            "kernel7": lambda: sparse_union_pass(e, ids, tv, elb0, mphi, adj),
-            "sparse_sweep": lambda: sparse_union_sweep(
-                gamma, lam, sparse_mphi, adj, deg, consts, False, w)},
-            reps)
-        ms.update(dense)
-        ms["topw_then_kernel7"] = ms["topw_form"] + ms["kernel7"]
-        ms["kernel1_2_4"] = dense["kernel1"] + dense["kernel2"] + \
-            dense["kernel4"]
-        row = {"kernel": "sparse_union_pass", "graph": label, "n": n, "k": k,
-               "w": w, "links": len(links), "ms": ms,
-               "sparse_over_dense_passes": ms["topw_then_kernel7"]
-               / ms["kernel1_2_4"],
-               "sparse_over_dense_sweep": ms["sparse_sweep"]
-               / ms["dense_sweep"]}
+    for nbytes in (4, 8):
+        for depth in (1, 2, 4, 8):
+            iters = (256 if quick else 2048) // depth
+
+            def probe():
+                alt.call("svt_sector_probe", src.data_ptr(), log_sectors,
+                         nbytes, depth, iters, 1234, out.data_ptr(),
+                         ctypes.byref(threads), stream())
+
+            ms = timed({"probe": probe}, 1 if quick else 5)["probe"]
+            loads = threads.value * iters * depth
+            row = {"kernel": "sector_probe", "bytes": nbytes, "depth": depth,
+                   "threads_per_sm": threads.value / sms, "ms": ms,
+                   "g_sectors_s": loads / ms / 1e6,
+                   "tb_s_of_sectors": loads * 32 / ms / 1e9}
+            log(json.dumps(row))
+            rows.append(row)
+    # two 4-byte values a request: the two sectors of a 64-byte block, or
+    # the same sector of two arrays
+    for pattern, what in ((1, "one 64-byte block"), (2, "two arrays")):
+        for depth in (1, 4):
+            iters = (256 if quick else 2048) // depth
+
+            def pair():
+                alt.call("svt_sector_pair_probe", src.data_ptr(),
+                         log_sectors, pattern, depth, iters, 1234,
+                         out.data_ptr(), ctypes.byref(threads), stream())
+
+            ms = timed({"pair": pair}, 1 if quick else 5)["pair"]
+            requests = threads.value * iters * depth
+            row = {"kernel": "sector_pair_probe", "two_sectors_in": what,
+                   "depth": depth, "ms": ms,
+                   "g_requests_s": requests / ms / 1e6}
+            log(json.dumps(row))
+            rows.append(row)
+    n_rows, k = 1_000_000, 500
+    for nbytes in (4, 8):
+        arr = src if nbytes == 4 else torch.rand(n_rows * k * 2,
+                                                 device="cuda")
+        for w in (1, 4, 8, 16, 32):
+            for depth in (1, 2, 4):
+                iters = (256 if quick else 2048) // depth
+
+                def row_probe():
+                    alt.call("svt_row_probe", arr.data_ptr(), n_rows, k,
+                             nbytes, w, depth, iters, 1234, out.data_ptr(),
+                             ctypes.byref(threads), stream())
+
+                ms = timed({"rows": row_probe}, 1 if quick else 5)["rows"]
+                loads = threads.value * iters * depth
+                row = {"kernel": "row_probe", "bytes": nbytes,
+                       "row_bytes": k * nbytes, "lanes_a_row": w,
+                       "depth": depth, "ms": ms,
+                       "g_values_s": loads / ms / 1e6}
+                log(json.dumps(row))
+                rows.append(row)
+        del arr
+    # 2 GB of values written in the layouts a sweep could keep mphi in,
+    # the other half of the pairs untouched
+    del src
+    n_values = 2**29
+    dst = torch.zeros(2 * n_values, device="cuda")
+    names = ("contiguous", "odd half of (n,K,2) pairs, 4-byte stores",
+             "16-byte halves of 32-byte sectors (blocks of 4 columns)",
+             "whole sectors of 64-byte blocks (blocks of 8 columns)",
+             "whole pairs (0, value)")
+    for layout, name in enumerate(names):
+        def write():
+            alt.call("svt_write_probe", dst.data_ptr(), n_values, layout,
+                     stream())
+
+        ms = timed({"write": write}, 1 if quick else 5)["write"]
+        row = {"kernel": "write_probe", "layout": name, "ms": ms,
+               "gb_s_of_values": 4 * n_values / ms / 1e6}
         log(json.dumps(row))
         rows.append(row)
-        del e, ids, tv, sparse_mphi
-        if quick:
-            break
     return rows
 
 
@@ -761,8 +961,8 @@ def main() -> int:
     ap.add_argument("--no-stretch", action="store_true")
     ap.add_argument("--only", default="",
                     help="comma-separated parts to run: designs, compact, "
-                         "graph, s3forms, crossover, heldout, sparse "
-                         "(default all)")
+                         "graph, s3forms, crossover, heldout, sectors, "
+                         "sparse (default all)")
     ap.add_argument("--out", default=str(build.BUILD_DIR),
                     help="directory for the result files")
     args = ap.parse_args()
@@ -829,21 +1029,26 @@ def main() -> int:
         for n, k, e in shapes:
             results["rows"].append(bench_fused_crossover(n, k, e))
             torch.cuda.empty_cache()
+    if part("sectors"):
+        results["rows"] += bench_sectors(alt, args.quick)
+        torch.cuda.empty_cache()
     if part("sparse"):
         widths = (8, 16, 32, 64)
         planted, member = planted_blocks(20_000, 20, 20, 7)
         links = np.unique(np.sort(planted[planted[:, 0] != planted[:, 1]],
                                   axis=1), axis=0)
         for k in (500, 2_000, 8_000):
-            results["rows"] += bench_sparse("planted-20k", links, member,
-                                            20_000, k, widths, args.quick)
+            results["rows"] += bench_sparse(alt, "planted-20k", links,
+                                            member, 20_000, k, widths,
+                                            args.quick)
             torch.cuda.empty_cache()
         if stretch:
             n = 1_000_000
             links = np.unique(random_edges(n, 20_000_000, 0), axis=0)
             member = np.random.default_rng(5).integers(0, 500, n)
-            results["rows"] += bench_sparse("stretch", links, member, n, 500,
-                                            widths, False)
+            results["rows"] += bench_sparse(alt, "stretch", links, member, n,
+                                            500, widths, False,
+                                            ("engine", "late-fit"))
             torch.cuda.empty_cache()
     if part("heldout"):
         for n, k, m in ((20_000, 20, 4_000), (100_000, 640, 50_000),

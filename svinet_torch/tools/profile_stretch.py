@@ -1,23 +1,29 @@
 """Where one step of the stretch shape goes, by kernel name.
 
     python -m svinet_torch.tools.profile_stretch [--edges 20000000]
-                                                 [--out DIR]
+        [--sparse-w 16,64] [--graph stretch|planted] [--k 500]
+        [--sparse-only] [--out DIR]
 
 Builds a LinkSampling engine on n=1M, K=500 and uniform random edges (the
-stretch shape of chip_smoke.py), warms it up, traces one step(1) (one
-sweep plus the held-out tail) with torch.profiler, and prints the device
-time by kernel or op, the step's wall time and the device's busy share;
-then the same again past annealing with and without -bf16 (the sweep over
-bf16 rows beside the f32 sweep of the same phase), with -sparse-w 16 past
-annealing, and with -fuse-s3, all on the same engine. Every trace is a
-profiler of its own whose first step is a discarded warm-up (a profiler
-drops the first kernels launched after it starts), and must hold the
-launches of the hand kernels that a step of one sweep makes (kernels 1 to
-4 and 6; under -sparse-w the top-W form of kernel 1, kernels 1, 7, 3 and
-6), or it is taken again and then refused. Each trace is printed by kernel
-name and, above that, summed by hand kernel (the step table: the hand
-kernels, the sums across blocks, and what is left to plain PyTorch). Prints the card and its power limit first; writes the
-tables to DIR/profile_stretch.txt (DIR defaults to build/svinet_torch).
+stretch shape of chip_smoke.py; with --graph planted, chip_smoke.py's
+planted n=20k graph of 20 blocks at --k columns), warms it up, traces one
+step(1) (one sweep plus the held-out tail) with torch.profiler, and prints
+the device time by kernel or op, the step's wall time and the device's
+busy share; then the same again past annealing with and without -bf16
+(the sweep over bf16 rows beside the f32 sweep of the same phase), with
+-sparse-w at each --sparse-w width past annealing, and with -fuse-s3, all
+on the same engine (--sparse-only: the -sparse-w steps alone). Every trace
+is a profiler of its own whose first step is a discarded warm-up (a
+profiler drops the first kernels launched after it starts), and must hold
+the launches of the hand kernels that a step of one sweep makes (kernels 1
+to 4 and 6, at least once each; under -sparse-w the top-W form of kernel
+1, kernels 1, 7, 3 and 6), or it is taken again and then refused. Each trace is printed by
+kernel name and, above that, summed by hand kernel (the step table: the
+hand kernels, the sums across blocks, and what is left to plain PyTorch).
+After each trace, one untraced step(3) beside it: its wall time, edges/s
+and peak device memory, with the memory the engine held as it began.
+Prints the card and its power limit first; writes the tables to
+DIR/profile_stretch.txt (DIR defaults to build/svinet_torch).
 """
 
 from __future__ import annotations
@@ -34,21 +40,22 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from svinet_torch.kernels import build
 from svinet_torch.svi.linksampling import from_edges
-from svinet_torch.synth import random_edges
+from svinet_torch.synth import planted_blocks, random_edges
 
 
 # what a step of one sweep launches of the hand kernels, by a part of the
-# kernel's name: kernel 1 twice (gamma and lambda), kernels 2, 3, 4 and 6
-# once
-STEP_LAUNCHES = {"dirichlet_rows_kernel": 2, "phi_pull_kernel": 1,
+# kernel's name (the row and the wide forms alike): kernel 1 twice (gamma
+# and lambda), kernels 2, 3, 4 and 6 once
+STEP_LAUNCHES = {"dirichlet_": 2, "phi_pull": 1,
                  "mean_indicator_kernel": 1, "s3_pull_kernel": 1,
                  "heldout_sums": 1}
 # and a -sparse-w step: the top-W form of kernel 1 on gamma, kernel 1 on
 # lambda, kernels 7, 3 and 6
-SPARSE_STEP_LAUNCHES = {"dirichlet_topw_kernel": 1,
+SPARSE_STEP_LAUNCHES = {"dirichlet_topw": 1,
                         "dirichlet_rows_kernel": 1, "sparse_union_kernel": 1,
                         "mean_indicator_kernel": 1, "heldout_sums": 1}
-SPARSE_W = 16
+# chip_smoke.py's planted graph: n=20k, 20 blocks, 20 links a node, seed 7
+PLANTED = (20_000, 20, 20, 7)
 # the rows of the step table: a hand kernel's name, and the parts of kernel
 # names that belong to it
 STEP_TABLE = (("kernel 2, phi_pass", ("phi_pull",)),
@@ -99,7 +106,9 @@ def trace_step(eng, label: str, expect=STEP_LAUNCHES) -> list:
         kernels, launches, wall_ms, prof = _traced_step(eng)
         seen = {part: sum(c for name, c in launches.items() if part in name)
                 for part in expect}
-        if seen == expect:
+        # at least: above 512 columns kernel 3 takes the row in tiles, one
+        # launch each
+        if all(seen[part] >= expect[part] for part in expect):
             break
         print(f"{label}: trace {attempt} holds {seen} of {expect}",
               flush=True)
@@ -107,13 +116,25 @@ def trace_step(eng, label: str, expect=STEP_LAUNCHES) -> list:
         raise RuntimeError(f"{label}: no trace of {TRACE_ATTEMPTS} held "
                            f"every launch of {sorted(expect)}")
     busy_ms = sum(kernels.values()) / 1e3
-    lines = [f"{label}: n={eng.n} K={eng.k} training links "
-             f"{len(eng.network.training_links)}: step(1) wall "
-             f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    peak1 = torch.cuda.max_memory_allocated()
+    n_train = len(eng.network.training_links)
+    # one untraced step(3), as chip_smoke.py's phase 3 steps
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.step(3)
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    lines = [f"{label}: n={eng.n} K={eng.k} training links {n_train}: "
+             f"step(1) wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
              f"({100 * busy_ms / wall_ms:.1f}%), peak device memory in the "
-             f"step {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-             f"trace {attempt} of at most {TRACE_ATTEMPTS}, every hand "
-             f"kernel's launch in it ({seen})"]
+             f"step {peak1 / 2**30:.2f} GiB; trace {attempt} of at most "
+             f"{TRACE_ATTEMPTS}, every hand kernel's launch in it ({seen})",
+             f"{label}: step(3) wall {1e3 * wall3:.1f} ms = "
+             f"{3 * n_train / wall3:.0f} edges/s, held at its start "
+             f"{held / 2**30:.2f} GiB, peak device memory in the step "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"]
     # the step table: device time by hand kernel, the rest plain PyTorch
     left = dict(kernels)
     for title, parts in STEP_TABLE:
@@ -140,6 +161,12 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--k", type=int, default=500)
     ap.add_argument("--edges", type=int, default=20_000_000)
+    ap.add_argument("--graph", choices=("stretch", "planted"),
+                    default="stretch")
+    ap.add_argument("--sparse-w", default="16,64",
+                    help="comma-separated -sparse-w widths to trace")
+    ap.add_argument("--sparse-only", action="store_true",
+                    help="trace the -sparse-w steps alone")
     ap.add_argument("--out", default=str(build.BUILD_DIR),
                     help="directory for the result files")
     args = ap.parse_args()
@@ -152,28 +179,40 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     lines = [card]
     dev = torch.device("cuda", 0)
+    widths = [int(w) for w in args.sparse_w.split(",") if w]
+    if args.graph == "planted":
+        n, blocks, avg_deg, seed = PLANTED
+        edges = planted_blocks(n, blocks, avg_deg, seed)[0]
+    else:
+        n, edges = args.n, random_edges(args.n, args.edges, 0)
     with tempfile.TemporaryDirectory() as workdir:
-        eng = from_edges(random_edges(args.n, args.edges, 0), args.n, args.k,
-                         dev, os.path.join(workdir, "stretch"))
+        eng = from_edges(edges, n, args.k, dev,
+                         os.path.join(workdir, args.graph))
+        del edges
         try:
-            lines += trace_step(eng, "default flags")
+            if not args.sparse_only:
+                lines += trace_step(eng, "default flags")
             # past annealing, f32 rows and then -bf16 rows
             eng.annealing = False
-            lines += trace_step(eng, "default flags, annealing over")
-            eng.cfg.bf16_rows = True
-            lines += trace_step(eng, "-bf16, annealing over")
-            eng.cfg.bf16_rows = False
-            eng.cfg.sparse_w = SPARSE_W
-            lines += trace_step(eng, f"-sparse-w {SPARSE_W}, annealing over",
-                                SPARSE_STEP_LAUNCHES)
+            if not args.sparse_only:
+                lines += trace_step(eng, "default flags, annealing over")
+                eng.cfg.bf16_rows = True
+                lines += trace_step(eng, "-bf16, annealing over")
+                eng.cfg.bf16_rows = False
+            for w in widths:
+                eng.cfg.sparse_w = w
+                lines += trace_step(eng, f"-sparse-w {w}, annealing over",
+                                    SPARSE_STEP_LAUNCHES)
             eng.cfg.sparse_w = 0
-            eng._sparse_mphi = None
+            eng._sparse_rows = None
             eng.annealing = True
-            # what LinkSampling.__init__ does under -fuse-s3, on the same
-            # network and state (set-up is over a minute of host time)
-            eng.cfg.fuse_s3 = True
-            eng.mphi = torch.zeros_like(eng.gamma)
-            lines += trace_step(eng, "-fuse-s3")
+            if not args.sparse_only:
+                # what LinkSampling.__init__ does under -fuse-s3, on the
+                # same network and state (set-up is over a minute of host
+                # time)
+                eng.cfg.fuse_s3 = True
+                eng.mphi = torch.zeros_like(eng.gamma)
+                lines += trace_step(eng, "-fuse-s3")
         finally:
             eng.close()
     text = "\n".join(lines)

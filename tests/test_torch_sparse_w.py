@@ -28,7 +28,7 @@ from svinet_torch.svi.linksampling import (
     LinkSampling, from_edges, multi_sweep, sparse_multi_sweep)
 from svinet_torch.svi.sweep_math import (
     LSConsts, dirichlet_expectation, sparse_union_pass,
-    sparse_union_pass_plain, sparse_union_pass_pull_plain)
+    sparse_union_pass_plain, sparse_union_pass_pull_plain, union_rows)
 from svinet_torch.synth import planted_blocks, write_planted
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -60,12 +60,15 @@ def test_top_columns_match_jax_top_k(w):
 
 def test_topw_form_on_the_cpu_is_the_plain_version():
     g = torch.tensor(_tied_rows(np.random.default_rng(3), 50, 20))
-    elogpi, ids, topvals = dirichlet_expectation_topw(g, 8)
+    m = torch.rand(50, 20, generator=torch.Generator().manual_seed(1))
+    rows = union_rows(torch.zeros_like(g), m)
+    elogpi, ids, topvals, topm = dirichlet_expectation_topw(g, 8, rows)
     assert torch.equal(elogpi, dirichlet_expectation_plain(g))
     assert torch.equal(ids, top_columns_plain(g, 8))
     assert torch.equal(topvals, elogpi.gather(1, ids.long()))
+    assert torch.equal(topm, m.gather(1, ids.long()))
     with pytest.raises(ValueError):
-        dirichlet_expectation_topw(g, 21)
+        dirichlet_expectation_topw(g, 21, rows)
 
 
 def _graph(rng, n, n_links, hub_deg=0):
@@ -135,18 +138,19 @@ def test_union_pass_matches_jax_block_function(k, w, hub, monkeypatch):
     want = _jax_union_pass(gamma, lam, mphi, edges, mask, deg, w, monkeypatch)
 
     g = torch.tensor(gamma)
-    elogpi, ids, topvals = dirichlet_expectation_topw(g, w)
+    m = torch.tensor(mphi)
+    rows = union_rows(torch.zeros_like(g), m)
+    elogpi, ids, topvals, topm = dirichlet_expectation_topw(g, w, pair=rows)
     np.testing.assert_array_equal(
         ids.numpy(), np.asarray(jax.lax.top_k(jnp.asarray(gamma), w)[1]))
     elb0 = dirichlet_expectation(torch.tensor(lam))[:, 0].contiguous()
-    m = torch.tensor(mphi)
     adj = build_adjacency(links, n)
     assert (len(adj.hub_node) > 0) == bool(hub)
-    got_e = sparse_union_pass_plain(elogpi, ids, topvals, elb0, m,
+    got_e = sparse_union_pass_plain(rows, ids, topvals, topm, elb0,
                                     torch.tensor(edges), torch.tensor(mask), 1)
-    got_p = sparse_union_pass_pull_plain(elogpi, ids, topvals, elb0, m, adj,
+    got_p = sparse_union_pass_pull_plain(rows, ids, topvals, topm, elb0, adj,
                                          128)
-    got_w = sparse_union_pass(elogpi, ids, topvals, elb0, m, adj)
+    got_w = sparse_union_pass(rows, ids, topvals, topm, elb0, adj)
     for got in (got_e, got_p, got_w):
         for name, a, b in zip(("gacc", "sumk", "s3"), got, want):
             np.testing.assert_allclose(a.numpy(), b, err_msg=name, **TOL)
@@ -174,8 +178,10 @@ def test_full_width_sparse_sweep_matches_dense_fused():
     d = torch.tensor(deg)
     gd, ld, md, _ = multi_sweep(*t, torch.tensor(mphi), adj, d, consts, False,
                                 2, True)
-    gs, ls, ms = sparse_multi_sweep(*t, torch.tensor(mphi), adj, d, consts,
-                                    False, k, 2)
+    gs, ls, rs = sparse_multi_sweep(*t, union_rows(torch.zeros(n, k),
+                                                   torch.tensor(mphi)),
+                                    adj, d, consts, False, k, 2)
+    ms = rs[..., 1]
     np.testing.assert_allclose(gs.numpy(), gd.numpy(), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(ls.numpy(), ld.numpy(), rtol=2e-4, atol=2e-3)
     np.testing.assert_allclose(ms.numpy(), md.numpy(), rtol=2e-5, atol=2e-5)
@@ -213,10 +219,12 @@ def test_sparse_multi_sweep_with_heldout_tail_matches_jax(w):
         jnp.float32(0.0), jnp.asarray(hp), jnp.asarray(hy), jnp.asarray(hw),
         jnp.float32(1e-30), len(edges) // 128, 3, w, 1)
     consts = LSConsts.make(1.0 / k, 1.0, 1.0, len(links), n)
-    g, l, m, sums = sparse_multi_sweep(
-        torch.tensor(gamma), torch.tensor(lam), torch.tensor(mphi),
+    g, l, rows, sums = sparse_multi_sweep(
+        torch.tensor(gamma), torch.tensor(lam),
+        union_rows(torch.zeros(n, k), torch.tensor(mphi)),
         build_adjacency(links, n), torch.tensor(deg), consts, False, w, 3,
         (torch.tensor(hp), torch.tensor(hy), torch.tensor(hw), 1e-30, 1))
+    m = rows[..., 1]
     for a, b in ((g, jg), (l, jl), (m, jm)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     np.testing.assert_allclose(sums.numpy(), np.asarray(js), rtol=1e-4)
@@ -244,7 +252,7 @@ def test_engine_runs_dense_at_full_width(tmp_path, capsys):
 def test_engine_clears_prune_and_fuse(tmp_path):
     eng = _engine(tmp_path, sparse_w=3, fuse_s3=True, prune=True)
     assert eng.cfg.sparse_w == 3 and not eng.cfg.fuse_s3 and not eng.cfg.prune
-    assert eng.mphi is None and eng._sparse_mphi is None
+    assert eng.mphi is None and eng._sparse_rows is None
     eng.close()
 
 
@@ -260,22 +268,23 @@ def test_engine_sparse_steps_after_annealing_only(tmp_path, monkeypatch):
                         lambda *a, **kw: calls.append(a[7]) or sparse(*a,
                                                                       **kw))
     eng.step(1)
-    assert calls == [] and eng._sparse_mphi is None
+    assert calls == [] and eng._sparse_rows is None
     eng.annealing = False
     g0, l0 = eng.gamma.clone(), eng.lam.clone()
     eng.step(1)
     assert calls == [3] and eng._ho_res is not None
     # s3 = 0 in the first sparse sweep: lambda1 = eta1 + s1^2 - s2
     from svinet_torch.svi.sweep_math import mean_indicator_update
-    elogpi, ids, topvals = dirichlet_expectation_topw(g0, 3)
+    rows = union_rows(torch.zeros_like(g0), torch.zeros_like(g0))
+    _, ids, topvals, topm = dirichlet_expectation_topw(g0, 3, pair=rows)
     elb0 = dirichlet_expectation(l0)[:, 0].contiguous()
-    gacc, sumk, s3 = sparse_union_pass(elogpi, ids, topvals, elb0,
-                                       torch.zeros_like(g0), eng.adj)
+    gacc, sumk, s3 = sparse_union_pass(rows, ids, topvals, topm, elb0,
+                                       eng.adj)
     assert float(s3.abs().max()) == 0.0
     out = mean_indicator_update(gacc, sumk, eng.deg, eng.consts, False)
     lam1 = eng.consts.eta1 + out.s1 * out.s1 - out.s2
     torch.testing.assert_close(eng.lam[:, 1], lam1, rtol=1e-5, atol=1e-5)
-    assert bool(eng._sparse_mphi.any())
+    assert bool(eng._sparse_rows[..., 1].any())
     eng.annealing = True
     eng.step(1)
     assert eng.mphi is None and calls == [3]
