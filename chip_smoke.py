@@ -21,7 +21,15 @@ and so are the launches of a compacted sweep (pad columns at alpha with
 -1e30 logits, K_pad from 8 to 256), whose pad columns must come out exact;
 the -prune engine's state is looked at while it is still compacted.
 The held-out sums kernel is held to the plain tail it replaces and to its
-own arithmetic in plain PyTorch.
+own arithmetic in plain PyTorch. MMSBInfer's per-pair phi fixed point
+(kernel 8, with its ELBO form) is held pair by pair to its plain version
+in float64 on the kernel's rounds, and the edge assignments (kernel 9) to
+theirs; MMSBInfer runs through the CLI with no engine flag, -rnode,
+-stratified -rpair and -batch -logl, its rows held to the CPU port's
+(`python3 chip_smoke.py --record-cpu` prints them); the default
+link-sampling run, cut after a report and -resume'd, must write the
+uninterrupted run's files bit for bit; phase 3 times an MMSBInfer step
+and a report's community extraction at the stretch shape.
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -81,6 +89,11 @@ HELDOUT_RTOL = 1e-5
 # larger of its bytes over the one and its operations over the other.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+# Exponentials and logarithms go to the special-function units: 16 results
+# an SM a clock on Hopper (4 in each of its 4 partitions), 132 SMs at the
+# 1.98 GHz boost clock of the H100 SXM, the clock the f32 peak above
+# assumes (132 SMs * 128 lanes * 2 * 1.98 GHz = 66.9 TFLOP/s).
+PEAK_SFU_S = 132 * 16 * 1.98e9
 # Phase 2 is held to the CPU run of the same graph, seed and flags, where
 # the port and the JAX package both stop at iteration 52, with NMI
 # 0.957061 and 0.957102; the bounds are those of
@@ -120,6 +133,90 @@ STRETCH_MIN_EDGES_S_BF16 = 570e6
 SPARSE_W_STRETCH = 16
 STRETCH_MIN_EDGES_S_SPARSE = 520e6
 PLANTED = dict(n=20_000, k=20, avg_deg=20, seed=7)
+# MMSBInfer (kernel 8): the planted graph's runs of phase 2, held to the
+# port's CPU rows (`python3 chip_smoke.py --record-cpu` prints them);
+# kernel 8's shapes in phase 1 (n, K, pairs; -1 is one -rnode minibatch,
+# the n - 1 pairs of one node), its ELBO form on all pairs of a planted
+# n=2,000 graph, and the stretch step of phase 3 (s = 500,000 pairs).
+MMSB_RUNS = {"mmsb": [], "mmsb-rnode": ["-rnode"],
+             "mmsb-strat": ["-stratified", "-rpair"]}
+MMSB_FLAGS = ["-max-iterations", "60", "-rfreq", "20"]
+BATCH_PLANTED = dict(n=2_000, k=20, avg_deg=20, seed=7)
+BATCH_FLAGS = ["-batch", "-logl", "-max-iterations", "3"]
+FP_SHAPES = ((20_000, 20, 10_000), (20_000, 20, -1),
+             (1_000_000, 500, 500_000), (1_000_000, 500, -1))
+MMSB_STRETCH_S = 500_000
+# max |kernel - plain| over the largest |plain| (gamma_hat, lambda_hat), and
+# relative for the ELBO sum: both stop each pair on its own rule, and sum
+# in other orders
+FP_TOL = 1e-4
+# a pair's phi in the kernel and in the plain version (f64, the same
+# rounds) further apart than FP_SPLIT_PHI has gone to another attractor;
+# at most FP_SPLIT_SHARE of the pairs may
+FP_SPLIT_PHI = 1e-3
+FP_SPLIT_SHARE = 1e-4
+# the CPU rows of phase 2's MMSB runs, at 1e-4 relative: heldout.txt's
+# (iteration, avg, avg0, avg1, zeros_prob*avg0, ones_prob*avg1, nshol),
+# validation.txt's (none: no run passes the min(n, 5000) guard) and
+# logl.txt's, as `python3 chip_smoke.py --record-cpu` printed them
+MMSB_ROW_RTOL = 1e-4
+MMSB_CPU_ROWS = {
+    "mmsb": {
+        "heldout": [
+            [20, -1.857216614, -0.025314481, -3.689118882, -0.02528942,
+             -0.003652226, -0.028941646],
+            [40, -1.857174772, -0.025315893, -3.68903347, -0.02529083,
+             -0.003652141, -0.028942972],
+            [60, -1.857200692, -0.025316101, -3.689085063, -0.025291039,
+             -0.003652192, -0.028943231],
+        ],
+        "validation": [],
+        "logl": [],
+    },
+    "mmsb-rnode": {
+        "heldout": [
+            [20, -1.857109479, -0.025318356, -3.688900414, -0.025293291,
+             -0.00365201, -0.0289453],
+            [40, -1.857121328, -0.025316101, -3.688926334, -0.025291039,
+             -0.003652035, -0.028943074],
+            [60, -1.857091582, -0.025315816, -3.688867582, -0.025290753,
+             -0.003651977, -0.02894273],
+        ],
+        "validation": [],
+        "logl": [],
+    },
+    "mmsb-strat": {
+        "heldout": [
+            [20, -1.857066032, -0.025323596, -3.688808584, -0.025298526,
+             -0.003651919, -0.028950444],
+            [40, -1.857071093, -0.02532403, -3.688818211, -0.025298959,
+             -0.003651928, -0.028950887],
+            [60, -1.857078251, -0.025324336, -3.688832035, -0.025299265,
+             -0.003651942, -0.028951207],
+        ],
+        "validation": [],
+        "logl": [],
+    },
+    "mmsb-batch": {
+        "heldout": [
+            [1, -3.194748092, -0.001678792, -6.387817383, -0.001663499,
+             -0.058193368, -0.059856866],
+            [2, -3.124370198, -0.0019282, -6.246812758, -0.001910634,
+             -0.056908808, -0.058819442],
+            [3, -3.075157752, -0.002122423, -6.148192689, -0.002103088,
+             -0.056010374, -0.058113461],
+            [4, -3.03656643, -0.002286345, -6.07084639, -0.002265517,
+             -0.055305745, -0.057571261],
+        ],
+        "validation": [],
+        "logl": [
+            [1, -1267418.0],
+            [2, -1237761.0],
+            [3, -1210852.0],
+            [4, -1185474.0],
+        ],
+    },
+}
 STRETCH = dict(n=1_000_000, k=500, n_edges=20_000_000)
 # kernel shapes; the first of each is the one the JSON summary reports
 # (its error, times and bound; every shape is asserted and logged).
@@ -1331,13 +1428,17 @@ def _run_cli(workdir, net, gt, label, extra):
 
 
 def _wrappers():
-    """The seven kernel wrappers by name; each counts its launches."""
+    """The nine kernel wrappers by name; each counts its launches."""
     from svinet_torch.evals.likelihood import heldout_sums
     from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.phicomp import phi_fixed_point
+    from svinet_torch.svi.communities import edge_assignments
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
         sparse_union_pass)
     return {"dirichlet_expectation": dirichlet_expectation,
+            "phi_fixed_point": phi_fixed_point,
+            "edge_assignments": edge_assignments,
             "phi_pass": phi_pass,
             "mean_indicator_update": mean_indicator_update,
             "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
@@ -1411,10 +1512,12 @@ def phase2(workdir):
                                               ["-max-iterations", "400"])
     # default flags launch the f32 forms only
     assert all(name.endswith(":f32") for name in forms), forms
-    # the default sweep is kernels 1, 2, 3 and 4
+    # the default sweep is kernels 1, 2, 3 and 4; a report's communities
+    # kernel 9
     assert all(v > 0 for name, v in launches.items()
-               if name not in ("fused_phi_s3_pass", "sparse_union_pass")), \
-        launches
+               if name not in ("fused_phi_s3_pass", "sparse_union_pass",
+                               "phi_fixed_point")), launches
+    assert launches["phi_fixed_point"] == 0, launches
     assert launches["fused_phi_s3_pass"] == 0, launches
     assert launches["sparse_union_pass"] == 0, launches
     ho, mx, nmi = _check_outputs(out)
@@ -1449,6 +1552,7 @@ def phase2(workdir):
     log(f"phase 2: first 5 heldout nshol, GPU vs CPU: max rel diff "
         f"{rel.max():.3e}")
     os.environ["SVINET_TORCH_DEVICE"] = "cuda"
+    phase2_resume(workdir, net, gt, out)
 
     # -fuse-s3 -report-batch 4: kernels 1, 3 and 5 (a pass of this size
     # takes the one fused launch), four report intervals per host round
@@ -1781,7 +1885,8 @@ def phase3(dev, workdir):
     three_sweeps = {"dirichlet_expectation": 6, "phi_pass": 3,
                     "mean_indicator_update": 3, "s3_pass": 3,
                     "fused_phi_s3_pass": 0, "heldout_sums": 1,
-                    "sparse_union_pass": 0}
+                    "sparse_union_pass": 0, "phi_fixed_point": 0,
+                    "edge_assignments": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     _zero_counts()
@@ -2044,9 +2149,605 @@ def phase3(dev, workdir):
         f"fused_phi_s3_pass in one launch {f_ms:.4f} ms (bound "
         f"{f_bound:.4f} ms, {f_by}), kernel 2 then kernel 4 "
         f"{p_ms + s_ms:.4f} ms")
+    del gacc, sumk
+    torch.cuda.empty_cache()
+    return phase3_mmsb(dev, eng)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 8 (the per-pair phi fixed point of MMSBInfer) and kernel 9 (the
+# edge assignments of the community extraction)
+
+def fp_bound(n, k, m, active, rounds_sum, elbo=False):
+    """Kernel 8's bound from this run's rounds: the two gathered rows of
+    every pair that iterates, the pairs, labels and weights, Elogbeta, and
+    the outputs (gacc and lacc; the ELBO form one value), against the f32
+    operations (about 10 a column a softmax of a round, 6 a column a pair
+    for the outputs) and the exponentials (2K a round; the ELBO form adds
+    2K logarithms a pair) at the special-function rate."""
+    n_bytes = (8.0 * active * k + 16.0 * m + 8.0 * k + 4.0 * m
+               + (4.0 if elbo else 4.0 * n * k + 8.0 * k))
+    ops = 20.0 * k * rounds_sum + 6.0 * k * active
+    sfu = 2.0 * k * rounds_sum + (2.0 * k * active if elbo else 0.0)
+    t = {"bytes": n_bytes / PEAK_BYTES_S * 1e3,
+         "operations": max(ops / PEAK_F32_S, sfu / PEAK_SFU_S) * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def _fp_state(dev, gen, n, k):
+    """Elogpi and Elogbeta of a mid-fit-like state: gamma rows spread from
+    near-uniform to near one community."""
+    from svinet_torch.ops.digamma import dirichlet_expectation_plain
+    gamma = 0.05 + torch.rand((n, k), generator=gen, device=dev) ** 4 * 10.0
+    lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+    return (dirichlet_expectation_plain(gamma),
+            dirichlet_expectation_plain(lam))
+
+
+def _fp_pairs(dev, gen, n, m):
+    """m random pairs (10% links, 5% of weight 0 as -inf masks them), or
+    with m = -1 one -rnode minibatch: node n // 3 with every other."""
+    if m < 0:
+        r = n // 3
+        other = torch.cat([torch.arange(r, device=dev),
+                           torch.arange(r + 1, n, device=dev)])
+        pairs = torch.stack([other.clamp(max=r), other.clamp(min=r)], 1)
+        m = n - 1
+    else:
+        pairs = torch.randint(0, n, (m, 2), generator=gen, device=dev)
+    y = (torch.rand(m, generator=gen, device=dev) < 0.1).to(torch.int32)
+    w = torch.where(torch.rand(m, generator=gen, device=dev) < 0.05, 0.0,
+                    0.5 + torch.rand(m, generator=gen, device=dev))
+    return pairs.to(torch.int32).contiguous(), y, w
+
+
+def _split_pairs(elogpi, elogbeta, pairs, y, w, rounds, staged, log_eps):
+    """The pairs whose phi (from the kernel's staging rows) differs from
+    the plain version's in float64 on the same rounds by more than
+    FP_SPLIT_PHI, and the largest difference over the others."""
+    from svinet_torch.ops.phicomp import _plain_blocks, phi_fixed_point_plain
+    split = torch.zeros(pairs.shape[0], dtype=torch.bool,
+                        device=pairs.device)
+    worst = 0.0
+    for lo, hi in _plain_blocks(pairs.shape[0], elogpi.shape[1]):
+        p, q = pairs[lo:hi, 0].long(), pairs[lo:hi, 1].long()
+        ww = w[lo:hi].double()
+        p1, p2, _ = phi_fixed_point_plain(
+            elogpi[p].double(), elogpi[q].double(), elogbeta.double(),
+            y[lo:hi], log_eps, 50, 1e-5, active=ww != 0,
+            given=rounds[lo:hi])
+        d = torch.maximum(
+            (staged[2 * lo:2 * hi:2].double() - ww[:, None] * p1).abs()
+            .amax(1),
+            (staged[2 * lo + 1:2 * hi:2].double() - ww[:, None] * p2).abs()
+            .amax(1)) / ww.clamp_min(1e-30)
+        bad = (d > FP_SPLIT_PHI) & (ww != 0)
+        split[lo:hi] = bad
+        ok = d[(~bad) & (ww != 0)]
+        if ok.numel():
+            worst = max(worst, float(ok.max()))
+    return split, worst
+
+
+def _close_to_max(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase1_phi_fixed_point(dev):
+    """Kernel 8 at every shape of FP_SHAPES against its plain version run
+    in float64 for the rounds each pair took in the kernel, two launches
+    bitwise equal, pairs of weight 0 taking no round; then its ELBO form on
+    all pairs of a planted n=2,000, K=20 graph. Each pair's phi (the
+    kernel's staging rows) is held to the plain version's: a few pairs
+    whose iteration has two attractors end in different ones in f32 and
+    in f64 (in one -rnode minibatch at n=1M, a pair moved an entry of
+    gamma_hat and of lambda_hat by 1.1 out of 16,000); their share is
+    logged and held under FP_SPLIT_SHARE, and gamma_hat and lambda_hat
+    of a second launch with those pairs at weight 0 are held to FP_TOL of
+    their largest entry. The plain version left to its own exit rule is
+    logged beside. Returns the reports of the training form (at the
+    stretch random-pair shape) and of the ELBO form."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.phicomp import (
+        pair_block_stats_plain, pair_elbo_plain, phi_fixed_point)
+    log_eps = float(np.float32(np.log(1e-30)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    report = None
+    for n, k, m in FP_SHAPES:
+        elogpi, elogbeta = _fp_state(dev, gen, n, k)
+        pairs, y, w = _fp_pairs(dev, gen, n, m)
+        m = pairs.shape[0]
+        csr = owner_csr(pairs.reshape(-1), n)
+
+        def run():
+            return phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
+                                   50, 1e-5, csr=csr)
+
+        def plain(given=None, dt=torch.float32):
+            return pair_block_stats_plain(elogpi.to(dt), elogbeta.to(dt),
+                                          pairs, y, w.to(dt), log_eps, 50,
+                                          1e-5, given=given)
+
+        g_k, l_k, r_k, staged = phi_fixed_point(
+            elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, csr=csr,
+            keep_staged=True)
+        g_2, l_2, r_2 = run()
+        torch.cuda.synchronize()
+        assert (torch.equal(g_k, g_2) and torch.equal(l_k, l_2)
+                and torch.equal(r_k, r_2)), (n, k, m, "two launches differ")
+        del g_2
+        g_p, l_p, _ = plain(r_k, torch.float64)
+        err_all = max(_close_to_max(g_k, g_p), _close_to_max(l_k, l_p))
+        del g_p
+        split, phi_err = _split_pairs(elogpi, elogbeta, pairs, y, w, r_k,
+                                      staged, log_eps)
+        del staged
+        n_split = int(split.sum())
+        assert n_split <= FP_SPLIT_SHARE * m, (n, k, m, n_split)
+        unconv = r_k >= 50
+        w_c = torch.where(split, 0.0, w)
+        g_c, l_c, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w_c,
+                                      log_eps, 50, 1e-5, csr=csr)
+        g_p, l_p, _ = pair_block_stats_plain(
+            elogpi.double(), elogbeta.double(), pairs, y, w_c.double(),
+            log_eps, 50, 1e-5, given=r_k)
+        err = max(_close_to_max(g_c, g_p), _close_to_max(l_c, l_p))
+        assert err <= FP_TOL, (n, k, m, err)
+        assert torch.isfinite(g_k).all() and torch.isfinite(l_k).all()
+        del g_c
+        g_f, l_f, r_p = plain()
+        err_free = max(_close_to_max(g_k, g_f), _close_to_max(l_k, l_f))
+        del g_f
+        zero = w == 0
+        assert int(r_k[zero].abs().sum()) == 0
+        active = int((~zero).sum())
+        rs = r_k[~zero].double()
+        same = float((r_k == r_p).float().mean())
+        big = n * k >= 10**7
+        ms = cuda_ms(run, 3 if big else 20)
+        plain_ms = cuda_ms(plain, 1 if big else 3)
+        bnd = fp_bound(n, k, m, active, float(rs.sum()))
+        shape = (f"n={n} K={k} pairs={m}"
+                 + (" (one -rnode minibatch)" if m == n - 1 else ""))
+        log(f"phase 1: phi_fixed_point {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), rounds "
+            f"mean {float(rs.mean()):.2f} max {int(rs.max())} "
+            f"({int(unconv.sum())} pairs at 50); on the kernel's rounds phi "
+            f"within {phi_err:.3e} of the plain version's on all but "
+            f"{n_split} pairs (other attractor), err (of the largest "
+            f"entry) {err:.3e} without them ({err_all:.3e} with them); "
+            f"left to its own exit the plain "
+            f"version takes the kernel's count on {same:.4%} of the pairs, "
+            f"err {err_free:.3e}; two launches bitwise equal")
+        if (n, k, m) == (1_000_000, 500, 500_000):
+            report = _report(err, ms, plain_ms, bnd)
+        del g_k, g_p, elogpi, csr
+        torch.cuda.empty_cache()
+    # the ELBO form on every pair of a planted graph, links as in the graph
+    from svinet_torch.synth import planted_blocks
+    n, k = BATCH_PLANTED["n"], BATCH_PLANTED["k"]
+    raw, _ = planted_blocks(n, k, BATCH_PLANTED["avg_deg"],
+                            BATCH_PLANTED["seed"])
+    iu = torch.triu_indices(n, n, 1, device=dev).t().to(torch.int32)
+    lo = np.minimum(raw[:, 0], raw[:, 1])
+    hi = np.maximum(raw[:, 0], raw[:, 1])
+    keys = torch.as_tensor(lo * n + hi, device=dev)
+    y = torch.isin(iu[:, 0].long() * n + iu[:, 1].long(), keys).to(
+        torch.int32)
+    w = torch.ones(iu.shape[0], dtype=torch.float32, device=dev)
+    elogpi, elogbeta = _fp_state(dev, gen, n, k)
+
+    def run_elbo():
+        return phi_fixed_point(elogpi, elogbeta, iu, y, w, log_eps, 50, 1e-5,
+                               elbo=True)
+
+    e_k, r_k = run_elbo()
+    e_2, _ = run_elbo()
+    e_p, _ = pair_elbo_plain(elogpi.double(), elogbeta.double(), iu, y,
+                             w.double(), log_eps, 50, 1e-5, given=r_k)
+    torch.cuda.synchronize()
+    assert torch.equal(e_k, e_2)
+    err_e = abs(float(e_k) - float(e_p)) / abs(float(e_p))
+    assert err_e <= FP_TOL, err_e
+    ms = cuda_ms(run_elbo, 5)
+    plain_ms = cuda_ms(lambda: pair_elbo_plain(elogpi, elogbeta, iu, y, w,
+                                               log_eps, 50, 1e-5), 2)
+    rs = r_k.double()
+    bnd = fp_bound(n, k, iu.shape[0], iu.shape[0], float(rs.sum()), True)
+    log(f"phase 1: phi_fixed_point ELBO form, all {iu.shape[0]} pairs of a "
+        f"planted n={n} K={k} graph ({int(y.sum())} links): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), rounds mean {float(rs.mean()):.2f} max "
+        f"{int(rs.max())}, sum {float(e_k):.6e} against {float(e_p):.6e} "
+        f"(rel err {err_e:.3e}), two launches bitwise equal")
+    return report, _report(err_e, ms, plain_ms, bnd)
+
+
+def assign_bound(n, k, e, n_owners):
+    """Kernel 9: Elogpi read once, Elogbeta0, the links and their CSR read
+    once, argmax and max written; per link and column about 6 f32
+    operations and an exponential (at the special-function rate). Also the
+    floors of uncached 2 KB-row gathers: E + (nodes with links) rows as
+    the kernel reads them, and 2E."""
+    n_bytes = 4.0 * n * k + 4.0 * k + 8.0 * e + 4.0 * (n + 1 + e) + 8.0 * e
+    t = {"bytes": n_bytes / PEAK_BYTES_S * 1e3,
+         "operations": max(6.0 * e * k / PEAK_F32_S,
+                           1.0 * e * k / PEAK_SFU_S) * 1e3}
+    by = max(t, key=t.get)
+    floor = (e + n_owners) * k * 4.0 / PEAK_BYTES_S * 1e3
+    floor2 = 2.0 * e * k * 4.0 / PEAK_BYTES_S * 1e3
+    return (t[by], by), floor, floor2
+
+
+def check_edge_assign(dev, gamma, lam, edges, mask, csr, label):
+    """Kernel 9 against its plain version on one state: argmax equal on
+    every link whose two largest phi differ by more than 1e-6, max phi to
+    1e-6, two launches bitwise equal. Returns its report."""
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.svi.communities import (
+        edge_assignments, edge_assignments_plain)
+    a_k, m_k = edge_assignments(gamma, lam, edges, mask, csr=csr)
+    a_2, m_2 = edge_assignments(gamma, lam, edges, mask, csr=csr)
+    elogpi = dirichlet_expectation(gamma)
+    elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
+    a_p, m_p = edge_assignments_plain(elogpi, elb0, edges)
+    torch.cuda.synchronize()
+    assert torch.equal(a_k, a_2) and torch.equal(m_k, m_2), label
+    # the gap between the two largest phi of each link, blocked
+    e, k = edges.shape[0], gamma.shape[1]
+    block = max(1, (1 << 26) // k)
+    clear = torch.empty(e, dtype=torch.bool, device=dev)
+    for lo in range(0, e, block):
+        b = edges[lo:lo + block].long()
+        top = torch.softmax(elogpi[b[:, 0]] + elogpi[b[:, 1]] + elb0,
+                            -1).topk(2, dim=-1).values
+        clear[lo:lo + block] = top[:, 0] - top[:, 1] > 1e-6
+    agree = bool(torch.equal(a_k[clear], a_p[clear]))
+    err = float((m_k - m_p).abs().max())
+    share = float((a_k == a_p).float().mean())
+    assert agree and err <= 1e-6, (label, agree, err)
+    n = gamma.shape[0]
+    ms = cuda_ms(lambda: edge_assignments(gamma, lam, edges, mask, csr=csr),
+                 3 if e * k > 10**9 else 20)
+    plain_ms = cuda_ms(lambda: edge_assignments_plain(elogpi, elb0, edges),
+                       1 if e * k > 10**9 else 5)
+    owners = int((csr.rowptr[1:] > csr.rowptr[:-1]).sum())
+    bnd, floor, floor2 = assign_bound(n, k, e, owners)
+    log(f"phase {label}: edge_assignments n={n} K={k} links={e}: kernel "
+        f"{ms:.4f} ms (with kernel 1 on gamma and lambda), plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor of "
+        f"E + {owners} uncached rows {floor:.4f} ms (2E rows: "
+        f"{floor2:.4f} ms), argmax equal on {share:.6%} of the links and on "
+        f"every link whose top two phi differ by more than 1e-6 "
+        f"({int(clear.sum())}), max phi err {err:.3e}, two launches "
+        f"bitwise equal")
+    return _report(err, ms, plain_ms, bnd)
+
+
+def phase1_edge_assign(dev, workdir):
+    """Kernel 9 on planted-20k's training links and initial state, as the
+    CLI run of phase 2 holds them."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.svi.linksampling import from_edges
+    from svinet_torch.synth import planted_blocks
+    raw, _ = planted_blocks(PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
+                            PLANTED["seed"])
+    eng = from_edges(raw, PLANTED["n"], PLANTED["k"], dev,
+                     os.path.join(workdir, "assign"), seed=1)
+    csr = owner_csr(eng.edges[:, 0], eng.n)
+    report = check_edge_assign(dev, eng.gamma, eng.lam, eng.edges, eng.mask,
+                               csr, "1")
+    eng.close()
+    return report
+
+
+def _run_engine_cli(workdir, net, gt, n, k, label, extra):
+    """The port's CLI with no -link-sampling (MMSBInfer); returns its
+    output directory."""
+    from svinet_torch.cli import main
+    os.chdir(workdir)
+    assert main(["-file", net, "-n", str(n), "-k", str(k), "-nmi", gt,
+                 "-seed", "1", "-lt-min-deg", "1", "-label", label,
+                 *extra]) == 0
+    outs = [d for d in os.listdir(workdir)
+            if d.startswith(f"n{n}-k{k}-{label}-seed1")]
+    assert len(outs) == 1, outs
+    return os.path.join(workdir, outs[0])
+
+
+def _mmsb_rows(out):
+    """The rows phase 2 holds to the CPU: heldout.txt's likelihood columns
+    at each report, validation.txt's (at new maxima; none before the
+    min(n, 5000) guard), logl.txt's."""
+    def rows(name, cols):
+        path = os.path.join(out, name)
+        if not os.path.exists(path) or not os.path.getsize(path):
+            return []
+        a = np.loadtxt(path, ndmin=2)
+        return [[int(r[0])] + [float(r[c]) for c in cols] for r in a]
+    return {"heldout": rows("heldout.txt", (2, 4, 6, 8, 9, 10)),
+            "validation": rows("validation.txt", (2, 4, 6)),
+            "logl": rows("logl.txt", (2,))}
+
+
+def _mmsb_runs(workdir, record):
+    """MMSBInfer's CLI runs of phase 2 (no engine flag, -rnode, -stratified
+    -rpair on planted-20k; -batch -logl on a planted n=2,000 graph).
+    Returns ({label: rows}, {label: (out, seconds, launches, forms)})."""
+    from svinet_torch.synth import write_planted
+    net, gt = write_planted(workdir, PLANTED["n"], PLANTED["k"],
+                            PLANTED["avg_deg"], PLANTED["seed"])
+    bnet, bgt = write_planted(workdir, BATCH_PLANTED["n"],
+                              BATCH_PLANTED["k"], BATCH_PLANTED["avg_deg"],
+                              BATCH_PLANTED["seed"])
+    runs = [(label, net, gt, PLANTED, [*flags, *MMSB_FLAGS])
+            for label, flags in MMSB_RUNS.items()]
+    runs.append(("mmsb-batch", bnet, bgt, BATCH_PLANTED, BATCH_FLAGS))
+    rows, info = {}, {}
+    for label, nt, g, shape, flags in runs:
+        label = label + ("-cpu" if record else "")
+        if not record:
+            _zero_counts()
+        t0 = time.perf_counter()
+        out = _run_engine_cli(workdir, nt, g, shape["n"], shape["k"], label,
+                              flags)
+        secs = time.perf_counter() - t0
+        rows[label.replace("-cpu", "")] = _mmsb_rows(out)
+        if not record:
+            info[label] = (out, secs, *_read_counts())
+    return rows, info
+
+
+def record_cpu() -> int:
+    """--record-cpu: run phase 2's MMSBInfer runs on the CPU (the plain
+    versions) and print the rows MMSB_CPU_ROWS holds."""
+    os.environ["SVINET_TORCH_DEVICE"] = "cpu"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as workdir:
+        try:
+            rows, _ = _mmsb_runs(workdir, record=True)
+        finally:
+            os.chdir(cwd)
+    print("MMSB_CPU_ROWS = " + json.dumps(rows))
+    return 0
+
+
+def _rows_close(got, want, label):
+    for name in want:
+        g, w = got[name], want[name]
+        assert len(g) == len(w), (label, name, len(g), len(w))
+        for a, b in zip(g, w):
+            assert a[0] == b[0], (label, name, a, b)
+            np.testing.assert_allclose(a[1:], b[1:], rtol=MMSB_ROW_RTOL,
+                                       err_msg=f"{label} {name}")
+
+
+def phase2_mmsb(workdir):
+    """MMSBInfer through the CLI on the card: every run's rows held to the
+    CPU port's, kernel 8 launched once a step and its ELBO form once a
+    -logl report, kernel 9 once a report. Returns (launches by name and
+    form, launches per step)."""
+    rows, info = _mmsb_runs(workdir, record=False)
+    launches = {}
+    for label, (out, secs, counted, forms) in info.items():
+        _rows_close(rows[label], MMSB_CPU_ROWS[label], label)
+        mx = open(os.path.join(out, "max.txt")).read().split()
+        assert len(mx) == 7, mx
+        nmi = float(open(os.path.join(out, "mutual.txt")).read().split()[-1])
+        steps = int(mx[0]) + (0 if label == "mmsb-batch" else 1)
+        reports = len(rows[label]["heldout"])
+        assert counted["phi_fixed_point"] == forms[
+            "phi_fixed_point:f32"] + forms.get("phi_fixed_point:elbo", 0)
+        assert forms["phi_fixed_point:f32"] == steps, (label, forms, steps)
+        # a report's communities, and do_on_stop's
+        assert counted["edge_assignments"] == reports + 1, (label, counted)
+        if label == "mmsb-batch":
+            assert forms["phi_fixed_point:elbo"] == reports, forms
+        for name, v in counted.items():
+            launches[name] = launches.get(name, 0) + v
+        for name, v in forms.items():
+            launches[name] = launches.get(name, 0) + v
+        flags = " ".join(MMSB_RUNS.get(label, BATCH_FLAGS[:2]))
+        log(f"phase 2: MMSBInfer {label} ({flags or 'no engine flag'}): "
+            f"{secs:.1f} s, {steps} steps, {reports} reports, rows equal the "
+            f"CPU port's to {MMSB_ROW_RTOL:g}, last heldout nshol "
+            f"{rows[label]['heldout'][-1][-1]:.6f}, max.txt {mx}, NMI "
+            f"{nmi:.6f}, launches {forms}")
+    return launches
+
+
+def _crash_after(iteration):
+    """Patch EngineBase._end_of_report to raise after the report of
+    `iteration` is done and checkpointed; returns the undo."""
+    from svinet_torch.svi.base import EngineBase
+    orig = EngineBase._end_of_report
+
+    class Cut(Exception):
+        pass
+
+    def cut(self):
+        orig(self)
+        if self.iteration >= iteration and not self._light_report:
+            raise Cut
+
+    EngineBase._end_of_report = cut
+    return Cut, lambda: setattr(EngineBase, "_end_of_report", orig)
+
+
+# files of a run whose values are wall time: not compared
+_TIMED = {"infer.log", "time.txt", "mrstats.txt", "ckpt"}
+_DURATION_COL = {"heldout.txt", "validation.txt", "training.txt",
+                 "stats.txt", "max.txt", "convergence.txt",
+                 "modularity.txt", "logl.txt"}
+
+
+def _strip(path, name):
+    lines = open(os.path.join(path, name)).read().splitlines()
+    if name in _DURATION_COL:
+        return [l.split("\t", 2)[0] + "\t" + l.split("\t", 2)[2]
+                for l in lines]
+    if name == "convergence_hosts.txt":
+        return [l.rsplit("\t", 1)[0] for l in lines]
+    return lines
+
+
+def phase2_resume(workdir, net, gt, out_whole):
+    """The default CLI run cut after the report of iteration 30, with a
+    checkpoint at every report, then -resume'd: it stops where the
+    uninterrupted run (`out_whole`) stopped, and every model and report
+    file equals that run's bit for bit (wall-time columns aside). Then an
+    MMSBInfer -stratified -rpair run cut and resumed across a report, its
+    lambda clock and family phase restored."""
+    from svinet_torch.io.checkpoint import load_checkpoint
+    Cut, undo = _crash_after(30)
+    try:
+        _run_cli(workdir, net, gt, "gpu-cut",
+                 ["-max-iterations", "400", "-checkpoint-freq", "1e-9"])
+        raise AssertionError("the cut run was not cut")
+    except Cut:
+        pass
+    finally:
+        undo()
+    cut = _run_cli(workdir, net, gt, "gpu-cut", ["-max-iterations", "400",
+                                                 "-resume"])
+    names = sorted(set(os.listdir(out_whole)) - _TIMED)
+    assert names == sorted(set(os.listdir(cut)) - _TIMED), names
+    differ = [nm for nm in names
+              if _strip(out_whole, nm) != _strip(cut, nm)]
+    assert not differ, differ
+    mx = open(os.path.join(cut, "max.txt")).read().split()
+    nmi = float(open(os.path.join(cut, "mutual.txt")).read().split()[-1])
+    assert abs(int(mx[0]) - STOP_ITER_CPU) <= 1 and abs(
+        nmi - NMI_CPU) <= NMI_TOL, (mx, nmi)
+    log(f"phase 2: -resume: the default run cut after the report of "
+        f"iteration 30 and resumed stops at {mx[0]} with NMI {nmi:.6f}; "
+        f"{len(names)} model and report files equal the uninterrupted "
+        f"run's bit for bit (duration columns aside)")
+    # MMSBInfer: the lambda clock (-nodelay: learning from step 0) and the
+    # stratified family phase (odd after 15 steps) cross the cut
+    flags = ["-stratified", "-rpair", "-nodelay", "-max-iterations", "45",
+             "-rfreq", "15"]
+    Cut, undo = _crash_after(15)
+    try:
+        _run_engine_cli(workdir, net, gt, PLANTED["n"], PLANTED["k"],
+                        "mmsb-cut", [*flags, "-checkpoint-freq", "1e-9"])
+        raise AssertionError("the cut run was not cut")
+    except Cut:
+        pass
+    finally:
+        undo()
+    outs = [d for d in os.listdir(workdir) if d.startswith(
+        f"n{PLANTED['n']}-k{PLANTED['k']}-mmsb-cut-")]
+    saved = load_checkpoint(os.path.join(workdir, outs[0]))
+    assert saved["iteration"] == 15 and saved["lambda_clock"] == [0, 1, 1], \
+        saved["lambda_clock"]
+    from svinet_torch.cli import parse_args
+    from svinet_torch.graph import Network
+    from svinet_torch.svi.mmsb import MMSBInfer
+    os.chdir(workdir)
+    cfg = parse_args(["-file", net, "-n", str(PLANTED["n"]), "-k",
+                      str(PLANTED["k"]), "-nmi", gt, "-seed", "1",
+                      "-lt-min-deg", "1", "-label", "mmsb-cut", *flags,
+                      "-resume"])
+    nw = Network(cfg)
+    nw.read(cfg.datfname)
+    nw.drop_singles()
+    from svinet_torch import resolve_device
+    eng = MMSBInfer(cfg, nw, resolve_device())
+    clock = [eng._lambda_start_iter, int(eng._delaylearn_reported),
+             eng._family]
+    assert eng.iteration == 15 and clock == [0, 1, 1], clock
+    eng.infer()
+    eng.close()
+    ho = np.loadtxt(os.path.join(cfg.outdir, "heldout.txt"), ndmin=2)
+    assert ho[:, 0].tolist() == [15, 30, 45] and np.isfinite(ho).all()
+    log(f"phase 2: MMSBInfer -stratified -rpair -nodelay cut after the "
+        f"report of iteration 15 and resumed: lambda clock (start, learning, "
+        f"family) {clock} restored, heldout rows at {ho[:, 0].tolist()}, "
+        f"last nshol {ho[-1, 10]:.6f}")
+
+
+def phase3_mmsb(dev, eng):
+    """On the stretch engine's graph and state: one MMSBInfer step of
+    s = 500,000 random pairs (kernel 1 twice, kernel 8, the update) and
+    kernel 8's share of it; kernel 9 against its plain version over the
+    19.9M training links; log_communities timed, kernel 9 and the host
+    side. Returns kernel 9's report."""
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.phicomp import phi_fixed_point
+    from svinet_torch.svi.mmsb import svi_step
+    n, k = eng.n, eng.k
+    net = eng.network
+    rng = np.random.default_rng(3)
+    s = MMSB_STRETCH_S
+    a = rng.integers(0, n, size=2 * s)
+    b = rng.integers(0, n, size=2 * s)
+    ok = (a != b) & net.edge_ok_mask(np.minimum(a, b), np.maximum(a, b))
+    lo = np.minimum(a, b)[ok][:s]
+    hi = np.maximum(a, b)[ok][:s]
+    y = torch.as_tensor(net.y(lo, hi).astype(np.int32), device=dev)
+    pairs = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
+                            device=dev)
+    w = torch.ones(s, dtype=torch.float32, device=dev)
+    eta = torch.tensor([[1.0, 1.0]], device=dev).repeat(k, 1)
+    scale = float(net.total_pairs) / s
+    log_eps = float(np.float32(np.log(1e-30)))
+    gamma, lam = eng.gamma.clone(), eng.lam.clone()
+
+    def step():
+        return svi_step(gamma, lam, pairs, y, w, 1.0 / k, eta, scale, scale,
+                        0.7, 0.01, 1.0, log_eps, 50, 1e-5)
+
+    step()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    g2, l2 = step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counted = _read_counts()[0]
+    assert counted["phi_fixed_point"] == 1 and counted[
+        "dirichlet_expectation"] == 2, counted
+    assert torch.isfinite(g2).all() and torch.isfinite(l2).all()
+    elogpi = dirichlet_expectation(gamma)
+    elogbeta = dirichlet_expectation(lam)
+    csr = owner_csr(pairs.reshape(-1), n)
+    _, _, rounds = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps, 50,
+                                   1e-5, csr=csr)
+    k8_ms = cuda_ms(lambda: phi_fixed_point(elogpi, elogbeta, pairs, y, w,
+                                            log_eps, 50, 1e-5, csr=csr), 3)
+    rs = rounds.double()
+    bnd = fp_bound(n, k, s, s, float(rs.sum()))
+    log(f"phase 3: one MMSBInfer step on the stretch graph and state (n={n} "
+        f"K={k}, s={s} random pairs, {int(y.sum())} links): {step_ms:.2f} "
+        f"ms wall, kernel 8 alone {k8_ms:.4f} ms with its CSR given "
+        f"({k8_ms / step_ms:.1%} of the step), bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), rounds mean {float(rs.mean()):.2f} max "
+        f"{int(rs.max())}")
+    del elogpi, csr, g2, gamma
+    torch.cuda.empty_cache()
+    # kernel 9 at 19.9M links, and the report's community extraction
+    edges, mask, acsr = eng._community_edges()
+    report = check_edge_assign(dev, eng.gamma, eng.lam, edges, mask, acsr,
+                               "3")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.log_communities()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"phase 3: log_communities on the stretch state: {secs:.2f} s "
+        f"(kernel 9 {report['ms']:.1f} ms of it), {len(eng._communities)} "
+        f"communities")
+    return report
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--record-cpu"]:
+        return record_cpu()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2061,12 +2762,21 @@ def main() -> int:
     h_report = phase1_heldout(dev)
     sparse_reports = phase1_sparse(dev)
     phase1_compact(dev)
+    fp_report, elbo_report = phase1_phi_fixed_point(dev)
     with tempfile.TemporaryDirectory() as workdir:
         try:
+            phase1_edge_assign(dev, workdir)
             launches, per_sweep = phase2(workdir)
-            phase3(dev, workdir)
+            mmsb = phase2_mmsb(workdir)
+            assign_report = phase3(dev, workdir)
         finally:
             os.chdir(cwd)
+    # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
+    # ELBO form one a -logl report
+    launches["phi_fixed_point"] = mmsb["phi_fixed_point"]
+    launches["phi_fixed_point:elbo"] = mmsb["phi_fixed_point:elbo"]
+    per_sweep["phi_fixed_point"] = 1.0
+    per_sweep["phi_fixed_point:elbo"] = 1.0     # -batch -logl: a report a step
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
     # kernel 5 from its -fuse-s3 run, kernel 7 and the top-W form from its
@@ -2101,6 +2811,14 @@ def main() -> int:
         # the -sparse-w union pass was a part of the XLA sweep program
         ("sparse_union_pass", "svinet_torch/csrc/sparse_union.cu",
          f"{sm}:252", sparse_reports["sparse_union_pass"]),
+        # MMSBInfer's local step and -logl's pair terms, parts of XLA
+        # programs; the report's edge assignments, blocked XLA on the TPU
+        ("phi_fixed_point", "svinet_torch/csrc/phi_fixed_point.cu",
+         "svinet_tpu/ops/phicomp.py:33", fp_report),
+        ("phi_fixed_point:elbo", "svinet_torch/csrc/phi_fixed_point.cu",
+         "svinet_tpu/evals/elbo.py:30", elbo_report),
+        ("edge_assignments", "svinet_torch/csrc/edge_assign.cu",
+         "svinet_tpu/svi/communities.py:24", assign_report),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

@@ -1,5 +1,6 @@
-"""svinet-torch: the a-MMSB link-sampling SVI engine in PyTorch, with
-hand-written CUDA kernels for an NVIDIA Hopper GPU (sm_90a).
+"""svinet-torch: the a-MMSB link-sampling SVI engine and the MMSBInfer
+engine in PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU
+(sm_90a).
 
 The package mirrors svinet_tpu's layout (ops/, svi/, evals/, io/, cli.py)
 and is tested against it, but imports nothing of it and never imports

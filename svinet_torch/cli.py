@@ -280,37 +280,40 @@ def parse_args(argv: List[str]) -> Config:
     return cfg
 
 
-# Config field -> the flag that sets it, for flags the port refuses
+# Config field -> the flag that sets it, for the engines the port refuses:
+# those that svinet_tpu/cli.py dispatches before -link-sampling, and those
+# it dispatches after it
 _ENGINE_FLAGS = (
     ("gen", "-gen"), ("ppc", "-ppc"), ("lcstats", "-lcstats"),
     ("gml", "-gml"), ("findk", "-findk"), ("orig", "-orig"),
-    ("single", "-single"), ("batch", "-batch"),
-    ("informative_sampling", "-infset"),
-    ("stratified", "-stratified"), ("randomnode", "-rnode"),
-    ("randompair", "-rpair"),
 )
+_LATER_ENGINE_FLAGS = (("single", "-single"),)
 _UNPORTED_FLAGS = (
     ("mesh_devices", "-mesh"),
     ("mesh_rowshard", "-mesh-rowshard"), ("mesh_locality", "-mesh-locality"),
     ("dist_coordinator", "-dist-coordinator"),
     ("dist_nprocs", "-dist-nprocs"), ("dist_procid", "-dist-procid"),
-    ("checkpoint_freq", "-checkpoint-freq"), ("resume", "-resume"),
 )
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise SystemExit naming the first flag the port does not run."""
+    """Raise SystemExit naming the first flag the port does not run. The
+    ported engines, in svinet_tpu/cli.py's dispatch order: -link-sampling,
+    -batch (MMSBInfer.batch_infer), -preprocess, and MMSBInfer.infer (no
+    engine flag, -rpair, -rnode, -stratified -rpair)."""
     for field, flag in _ENGINE_FLAGS:
-        # -preprocess sets informative_sampling too (the -infset engine
-        # reads what it writes); main stops after writing it
-        if field == "informative_sampling" and cfg.preprocess:
-            continue
         if getattr(cfg, field):
-            raise SystemExit(f"svinet_torch: {flag} is not ported; "
-                             f"only -link-sampling runs")
-    if not (cfg.link_sampling or cfg.preprocess):
-        raise SystemExit("svinet_torch: only -link-sampling (and "
-                         "-preprocess) is ported; pass -link-sampling")
+            raise SystemExit(f"svinet_torch: {flag} is not ported")
+    if not cfg.link_sampling:
+        for field, flag in _LATER_ENGINE_FLAGS:
+            if getattr(cfg, field):
+                raise SystemExit(f"svinet_torch: {flag} is not ported")
+        if not (cfg.batch or cfg.preprocess):
+            if cfg.informative_sampling:
+                raise SystemExit("svinet_torch: -infset is not ported")
+            if cfg.stratified and cfg.randomnode:
+                raise SystemExit("svinet_torch: -stratified -rnode "
+                                 "(FastAMM2) is not ported")
     for field, flag in _UNPORTED_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
@@ -332,14 +335,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     network.drop_singles()
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
-    if cfg.preprocess and not cfg.link_sampling:
-        # host only: neighbors.bin (svinet_tpu/cli.py:400-402, reached
-        # after the engines that run first there)
+    # the dispatch order of svinet_tpu/cli.py:375-418 over the ported
+    # engines
+    device = resolve_device()
+    if cfg.link_sampling:
+        from svinet_torch.svi.linksampling import LinkSampling
+        engine = LinkSampling(cfg, network, device)
+        run = engine.infer
+    elif cfg.batch:
+        from svinet_torch.svi.mmsb import MMSBInfer
+        engine = MMSBInfer(cfg, network, device)
+        run = engine.batch_infer
+    elif cfg.preprocess:
+        # host only: neighbors.bin
         network.set_neighborhood_sets(cfg)
         return 0
-
-    from svinet_torch.svi.linksampling import LinkSampling
-    engine = LinkSampling(cfg, network, resolve_device())
+    else:
+        from svinet_torch.svi.mmsb import MMSBInfer
+        engine = MMSBInfer(cfg, network, device)
+        run = engine.infer
 
     # SIGTERM only sets a flag; the engine saves the model files at the
     # next report boundary and keeps running (reference: src/main.cc:29-46)
@@ -348,7 +362,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     previous = signal.signal(signal.SIGTERM, _term)
     try:
-        engine.infer()
+        run()
     finally:
         signal.signal(signal.SIGTERM, previous)
         engine.close()

@@ -135,6 +135,17 @@ def heldout_sums_blocked(gamma, lam, pairs, y, w, epsilon: float,
     return heldout_sums_from_pi(pi, beta, pairs, y, w, epsilon, num_blocks)
 
 
+def multi_heldout_sums(gamma, lam, pairs, ys, ws, epsilon: float,
+                       blocks) -> torch.Tensor:
+    """The six sums of several padded pair sets on one state, stacked
+    (S, 6) (svinet_tpu/evals/likelihood.py:131): one launch of kernel 6 a
+    set on the card. pairs, ys, ws and blocks are tuples, one entry a
+    set."""
+    return torch.stack([
+        heldout_sums_blocked(gamma, lam, p, y, w, epsilon, nb)
+        for p, y, w, nb in zip(pairs, ys, ws, blocks)])
+
+
 def result_from_sums(sums) -> HeldoutResult:
     s, k, s0, k0, s1, k1 = (float(v) for v in sums.tolist())
     return HeldoutResult(

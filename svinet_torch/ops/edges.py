@@ -101,12 +101,33 @@ def build_adjacency(links, n: int, device="cpu",
                          f"2E entries with int32")
     if e.numel() and (int(e.min()) < 0 or int(e.max()) >= n):
         raise ValueError(f"link endpoints must lie in [0, {n})")
-    i32 = dict(dtype=torch.int32, device=device)
     # owner-major, neighbour-minor order through one sort of owner*n + nbr
     key = torch.cat([e[:, 0] * n + e[:, 1], e[:, 1] * n + e[:, 0]])
     key = torch.sort(key).values
     owner = key // n
-    nbr = (key - owner * n).to(torch.int32)
+    return segmented_csr(owner, (key - owner * n).to(torch.int32), n,
+                         seg_len)
+
+
+def owner_csr(owner, n: int, seg_len: int = SEG_LEN) -> Adjacency:
+    """The Adjacency of entries 0..m-1, entry j owned by node owner[j]:
+    node p lists its entries in ascending order (one stable sort on
+    owner's device). Kernel 8 walks the pairs' endpoints this way (owner
+    pairs.reshape(-1): slot 2i is pair i's phi1, 2i + 1 its phi2), kernel 9
+    the links by their first end (owner edges[:, 0])."""
+    owner = owner.long()
+    order = torch.sort(owner, stable=True).indices
+    return segmented_csr(owner[order], order.to(torch.int32), n, seg_len)
+
+
+def segmented_csr(owner, nbr, n: int, seg_len: int = SEG_LEN) -> Adjacency:
+    """The Adjacency of entries already sorted by owner: entry j, owned by
+    owner[j] (int64, ascending), lists nbr[j] (int32). Owners with more
+    than seg_len entries are cut into segments."""
+    if seg_len < 1:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    device = owner.device
+    i32 = dict(dtype=torch.int32, device=device)
     deg = torch.bincount(owner, minlength=n)
     rowptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
     torch.cumsum(deg, 0, out=rowptr[1:])

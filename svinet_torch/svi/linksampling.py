@@ -32,7 +32,7 @@ from svinet_torch.evals.likelihood import (
     heldout_stats, heldout_sums_blocked, link_probs, result_from_sums)
 from svinet_torch.evals.precision import auc as auc_fn
 from svinet_torch.ops.edges import (
-    Adjacency, build_adjacency, choose_edge_block, pad_edges)
+    Adjacency, build_adjacency, choose_edge_block, owner_csr, pad_edges)
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
@@ -336,6 +336,17 @@ class LinkSampling(EngineBase):
     state; file output, stopping, and community logging live in
     EngineBase."""
 
+    writes_own_timefile = True   # per-step rows in _infer_loop
+    # guard iter > 10, plateau why 100 (src/linksampling.cc:1008-1013)
+    stop_min_iter = 10
+    stop_plateau_why = 100
+    # the annealing decision runs after EngineBase.report(); report() calls
+    # _end_of_report last, so a checkpoint never sees a half-made report
+    defer_report_hooks = True
+    # at a report boundary self.iteration is the sweep just done, so a
+    # boundary checkpoint stores the next one
+    ckpt_boundary_offset = 1
+
     def __init__(self, cfg: Config, network: Network, device: torch.device):
         super().__init__(cfg, network, device)
         n, k = self.n, self.k
@@ -442,7 +453,8 @@ class LinkSampling(EngineBase):
                 self._test_sets.append(
                     (name, self._device_pairs(pairs),
                      self._device_pairs(ys.astype(np.int32)),
-                     ReportFile(cfg.file_str(f"{name}-hol.txt"))))
+                     ReportFile(cfg.file_str(f"{name}-hol.txt"),
+                                append=bool(cfg.resume))))
 
         # the validation pairs, padded once to whole blocks, ride the tail
         # of every step; _ho_res holds the sums of the last step
@@ -456,6 +468,67 @@ class LinkSampling(EngineBase):
             yy[:m] = network.validation_y
             self._ho = (self._device_pairs(pp), self._device_pairs(yy),
                         self._device_pairs(ww), len(pp) // blk)
+        self._resume_if_requested()
+
+    def _resume_if_requested(self) -> None:
+        """-resume: restore the newest checkpoint; under -prune compact at
+        once, as the uninterrupted run did after the report whose
+        checkpoint this is (the checkpoint holds the full layout)."""
+        super()._resume_if_requested()
+        if self.iteration > 0:
+            self._maybe_compact()
+
+    def _state_dict(self) -> dict:
+        """EngineBase's state, the annealing phase and its exit history,
+        the carried mean indicators of -fuse-s3 and -sparse-w (an (n,K)
+        mphi, as the JAX engine stores) and -freeze's flags
+        (svinet_tpu/svi/linksampling.py:736-752)."""
+        d = super()._state_dict()
+        d["annealing"] = bool(self.annealing)
+        d["anneal_hist"] = [float(x) for x in
+                            getattr(self, "_anneal_hist", [])]
+        d["anneal_decl"] = [float(getattr(self, "_anneal_decl", 0)),
+                            float(getattr(self, "_anneal_prev_h", 0.0))]
+        if self.cfg.fuse_s3 or self.cfg.sparse_w:
+            if self.mphi is not None:
+                d["mphi"] = self.mphi
+            elif self._sparse_rows is not None:
+                d["mphi"] = self._sparse_rows[..., 1]
+            else:
+                d["mphi"] = torch.zeros((self.n, self.k),
+                                        dtype=torch.float32)
+        if self._conv is not None:
+            d["conv"] = self._conv
+        return d
+
+    def _restore_state(self, state) -> None:
+        super()._restore_state(state)
+        self.annealing = bool(state.get("annealing", False))
+        self._anneal_hist = [float(x) for x in state.get("anneal_hist", [])]
+        ad = state.get("anneal_decl")
+        if ad is not None:
+            self._anneal_decl = int(float(ad[0]))
+            self._anneal_prev_h = float(ad[1])
+        m = state.get("mphi")
+        if m is not None and self.cfg.fuse_s3:
+            self.mphi = m.to(self.device, torch.float32).contiguous()
+            self._mphi_bf16 = None
+        elif m is not None and self.cfg.sparse_w and not self.annealing:
+            # the (n, K, 2) rows carry mphi in their odd half
+            self._sparse_rows = torch.zeros((self.n, self.k, 2),
+                                            dtype=torch.float32,
+                                            device=self.device)
+            self._sparse_rows[..., 1] = m.to(self.device)
+        cv = state.get("conv")
+        if cv is not None and self.cfg.freeze_converged:
+            self._conv = cv.to(self.device, torch.int32)
+
+    def _community_edges(self):
+        """The engine's padded training links, with kernel 9's CSR."""
+        if not hasattr(self, "_ce_cache"):
+            self._ce_cache = (self.edges, self.mask,
+                              owner_csr(self.edges[:, 0], self.n))
+        return self._ce_cache
 
     # ------------------------------------------------------------------
     def step(self, n_sweeps: int = 1) -> None:
@@ -698,8 +771,17 @@ class LinkSampling(EngineBase):
         MMSBInfer::hosts_conv, src/mmsbinfer.cc:754-790). Only the (n,)
         counts leave the device."""
         if not hasattr(self, "_convf"):
-            self._convf = open(self.cfg.file_str("convergence.txt"), "w")
+            app = bool(self.cfg.resume)
+            self._convf = open(self.cfg.file_str("convergence.txt"),
+                               "a" if app else "w")
             self._first_conv = np.zeros(self.n, np.int64)
+            hosts = self.cfg.file_str("convergence_hosts.txt")
+            if app and os.path.exists(hosts):
+                # a resumed run keeps the first-converged times
+                for line in open(hosts):
+                    parts = line.split()
+                    if len(parts) == 3:
+                        self._first_conv[int(parts[0])] = int(parts[2])
         active = ((self.gamma - self.cfg.alpha >= 1.0).sum(dim=1)
                   .cpu().numpy())
         is_conv = active == 1
@@ -731,9 +813,9 @@ class LinkSampling(EngineBase):
         with open(self.cfg.file_str("auc-all.txt"), "a") as f:
             f.write(f"{auc_fn(scores, np.asarray(ys)):.5f}\n")
 
-    def do_on_stop(self) -> None:
+    def do_on_stop(self, next_iteration: "int | None" = None) -> None:
         self._expand_if_compacted()
-        super().do_on_stop()
+        super().do_on_stop(next_iteration=next_iteration)
         self.write_auc()
 
     # ------------------------------------------------------------------
@@ -767,7 +849,7 @@ class LinkSampling(EngineBase):
             stop = self.report()
             self._light_report = False
             if stop:
-                self.do_on_stop()
+                self.do_on_stop(next_iteration=self.iteration + 1)
                 return True
         self.iteration = j + (b_eff - 1) * r + 1
         return False
@@ -801,10 +883,13 @@ class LinkSampling(EngineBase):
 
     def _infer_loop(self, max_seconds: Optional[float]) -> None:
         cfg = self.cfg
-        timef = open(cfg.file_str("time.txt"), "w")
+        timef = open(cfg.file_str("time.txt"), "a" if cfg.resume else "w")
         try:
             last_t = time.time()
             r = max(cfg.reportfreq, 1)
+            # a resumed run makes no iteration-0 report: the stopper and
+            # the annealing history would see a report the uninterrupted
+            # run never made
             if self.iteration == 0:
                 self.report()
                 self.iteration = 1
@@ -839,7 +924,9 @@ class LinkSampling(EngineBase):
                 last_t = now
                 self.iteration = j
                 if j % r == 0 and self.report():
-                    self.do_on_stop()
+                    # sweep j and its report are done: a final checkpoint
+                    # stores j + 1
+                    self.do_on_stop(next_iteration=j + 1)
                     return
                 self.iteration = j + 1
         finally:

@@ -2,4 +2,6 @@
 
     python -m svinet_torch.tools.bench_kernels     kernel designs side by side
     python -m svinet_torch.tools.profile_stretch   where a stretch step goes
+    python -m svinet_torch.tools.time_report       one report's community
+                                                   extraction, timed
 """

@@ -1,0 +1,319 @@
+"""svinet_torch's MMSBInfer (the CLI's default engine) against the JAX
+package's, on the CPU: the phi fixed point and its statistics (kernel 8's
+plain version), the SVI and batch steps, the ELBO, the minibatch draws,
+and whole CLI runs under no engine flag, -rnode, -stratified -rpair,
+-batch -logl and -nonuniform -inf.
+
+The JAX package stops a block of 2048 pairs when every pair of it has
+converged; the port stops each pair on its own (the reference's rule).
+A converged pair moves by less than the threshold (1e-5 mean absolute
+change) in a further round, so the two agree to 2e-4 on a phi value and
+to 1e-4 of the largest entry on gamma_hat and lambda_hat (measured: 6e-5
+at K=64). Both engines draw the splits, the training sample, the
+initial gamma and the minibatches from one numpy Generator in the same
+order, so the drawn pairs are bitwise equal and the report rows agree to
+1e-4."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svinet_tpu.cli import main as jax_main
+from svinet_tpu.evals.elbo import approx_elbo as jax_elbo
+from svinet_tpu.ops.phicomp import phi_fixed_point as jax_fp
+from svinet_tpu.svi import mmsb as jmmsb
+from svinet_torch.cli import main as torch_main
+from svinet_torch.evals.elbo import approx_elbo
+from svinet_torch.ops.edges import owner_csr
+from svinet_torch.ops.phicomp import (
+    pair_block_stats_plain, phi_fixed_point_plain)
+from svinet_torch.svi import mmsb
+from svinet_torch.synth import write_planted
+
+LOG_EPS = float(np.float32(np.log(1e-30)))
+N, K, DEG, GRAPH_SEED = 150, 4, 16, 3
+
+
+def _state(seed, n, k, m, links=0.3):
+    """Elogpi (n,K), Elogbeta (K,2), pairs, y and weights from a seed."""
+    from scipy.special import digamma
+    rng = np.random.default_rng(seed)
+    gamma = (rng.gamma(1.0, 1.0, size=(n, k)) * 5 + 0.05).astype(np.float32)
+    lam = rng.uniform(1, 20, size=(k, 2)).astype(np.float32)
+    elogpi = (digamma(gamma) - digamma(gamma.sum(1, keepdims=True))
+              ).astype(np.float32)
+    elogbeta = (digamma(lam) - digamma(lam.sum(1, keepdims=True))
+                ).astype(np.float32)
+    pairs = rng.integers(0, n, size=(m, 2)).astype(np.int32)
+    y = (rng.random(m) < links).astype(np.int32)
+    w = rng.uniform(0.5, 3.0, size=m).astype(np.float32)
+    return gamma, lam, elogpi, elogbeta, pairs, y, w
+
+
+def _close_to_max(got, want, tol):
+    """|got - want| within tol of the largest |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max(), \
+        np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("k", [4, 20, 64])
+@pytest.mark.parametrize("label", [0, 1])
+def test_phi_fixed_point_matches_jax(label, k):
+    _, _, elogpi, elogbeta, pairs, _, _ = _state(k + label, 200, k, 512)
+    y = np.full(len(pairs), label, np.int32)
+    ep, eq = elogpi[pairs[:, 0]], elogpi[pairs[:, 1]]
+    j1, j2 = jax_fp(jnp.asarray(ep), jnp.asarray(eq), jnp.asarray(elogbeta),
+                    jnp.asarray(y), LOG_EPS)
+    t1, t2, rounds = phi_fixed_point_plain(
+        torch.tensor(ep), torch.tensor(eq), torch.tensor(elogbeta),
+        torch.tensor(y), LOG_EPS)
+    np.testing.assert_allclose(t1.numpy(), np.asarray(j1), atol=2e-4)
+    np.testing.assert_allclose(t2.numpy(), np.asarray(j2), atol=2e-4)
+    np.testing.assert_allclose(t1.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert 1 <= int(rounds.min()) and int(rounds.max()) <= 50
+
+
+@pytest.mark.parametrize("k", [4, 20, 64])
+def test_pair_block_stats_matches_jax(k):
+    """Random pairs, links and nonlinks: pairs that converge in a few
+    rounds and pairs that take all 50 share the JAX package's blocks."""
+    _, _, elogpi, elogbeta, pairs, y, w = _state(7 * k, 200, k, 1024)
+    w[-30:] = 0.0      # padding: no rounds, nothing added
+    jg, jl = jmmsb.pair_block_stats(
+        jnp.asarray(elogpi), jnp.asarray(elogbeta), jnp.asarray(pairs),
+        jnp.asarray(y), jnp.asarray(w), 2, LOG_EPS, 50, 1e-5)
+    tg, tl, rounds = pair_block_stats_plain(
+        torch.tensor(elogpi), torch.tensor(elogbeta), torch.tensor(pairs),
+        torch.tensor(y), torch.tensor(w), LOG_EPS, 50, 1e-5)
+    _close_to_max(tg.numpy(), jg, 1e-4)
+    _close_to_max(tl.numpy(), jl, 1e-4)
+    r = rounds.numpy()
+    assert (r[-30:] == 0).all()
+    assert r[:-30].min() <= 10 and r[:-30].max() >= 30
+
+
+def test_endpoint_csr_lists_every_slot_in_order():
+    """Kernel 8's CSR of the pairs' ends: slot 2i is pair i's first end,
+    2i + 1 its second; each node's slots ascending, a hub in segments."""
+    pairs = torch.tensor([[0, 3], [3, 1], [2, 3], [3, 0]], dtype=torch.int32)
+    csr = owner_csr(pairs.reshape(-1), 5, seg_len=2)
+    rowptr, nbr = csr.rowptr.tolist(), csr.nbr.tolist()
+    assert rowptr == [0, 2, 3, 4, 8, 8]
+    assert nbr == [0, 7, 3, 4, 1, 2, 5, 6]
+    assert csr.hub_node.tolist() == [3]
+    assert csr.seg_begin.tolist() == [4, 6] and csr.seg_end.tolist() == [6, 8]
+
+
+def test_nonuniform_weights_match_jax():
+    gamma, _, _, _, pairs, y, _ = _state(11, 100, 6, 3000, links=0.1)
+    mask = np.ones(len(pairs), np.float32)
+    mask[-50:] = 0.0
+    jw, jn = jmmsb.nonuniform_weights(
+        jnp.asarray(gamma), jnp.asarray(pairs), jnp.asarray(y),
+        jnp.asarray(mask), 0.2)
+    tw, tn = mmsb.nonuniform_weights(
+        torch.tensor(gamma), torch.tensor(pairs), torch.tensor(y),
+        torch.tensor(mask), 0.2)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    assert int(tn) == int(jn)
+
+
+@pytest.mark.parametrize("infthresh,nonuniform", [(0.0, False), (0.2, False),
+                                                  (0.2, True)],
+                         ids=["plain", "inf", "nonuniform"])
+def test_svi_step_matches_jax(infthresh, nonuniform):
+    gamma, lam, _, _, pairs, y, w = _state(5, 120, 8, 600)
+    w[:] = 1.0
+    alpha, eta = 1.0 / 8, np.tile([1.0, 1.0], (8, 1)).astype(np.float32)
+    sc = (1.0 if nonuniform else 37.5)
+    args = (np.float32(sc), np.float32(sc), np.float32(0.7),
+            np.float32(0.4), np.float32(1.0))
+    jg, jl = jmmsb.svi_step(
+        jnp.asarray(gamma), jnp.asarray(lam), jnp.asarray(pairs),
+        jnp.asarray(y), jnp.asarray(w), jnp.float32(alpha), jnp.asarray(eta),
+        *(jnp.asarray(a) for a in args), jnp.float32(LOG_EPS), num_blocks=1,
+        max_iters=50, infthresh=infthresh, nonuniform=nonuniform)
+    tg, tl = mmsb.svi_step(
+        torch.tensor(gamma), torch.tensor(lam), torch.tensor(pairs),
+        torch.tensor(y), torch.tensor(w), alpha, torch.tensor(eta),
+        *(torch.tensor(a) for a in args), LOG_EPS, 50, infthresh=infthresh,
+        nonuniform=nonuniform)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
+
+
+def test_batch_step_and_elbo_match_jax():
+    gamma, lam, _, _, _, _, _ = _state(9, 60, 5, 1)
+    iu = np.triu_indices(60, 1)
+    pairs = np.stack(iu, 1).astype(np.int32)
+    y = (np.random.default_rng(2).random(len(pairs)) < 0.1).astype(np.int32)
+    w = np.ones(len(pairs), np.float32)
+    alpha, eta = 0.2, np.tile([1.0, 3.0], (5, 1)).astype(np.float32)
+    jg, jl = jmmsb.batch_step(
+        jnp.asarray(gamma), jnp.asarray(lam), jnp.asarray(pairs),
+        jnp.asarray(y), jnp.asarray(w), jnp.float32(alpha), jnp.asarray(eta),
+        jnp.float32(1.0), jnp.float32(LOG_EPS), num_blocks=1, max_iters=50)
+    tg, tl = mmsb.batch_step(
+        torch.tensor(gamma), torch.tensor(lam), torch.tensor(pairs),
+        torch.tensor(y), torch.tensor(w), alpha, torch.tensor(eta), 1.0,
+        LOG_EPS, 50)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
+    je = jax_elbo(jnp.asarray(gamma), jnp.asarray(lam), jnp.asarray(pairs),
+                  jnp.asarray(y), jnp.asarray(w), jnp.float32(alpha),
+                  jnp.asarray(eta), jnp.float32(LOG_EPS), num_blocks=1)
+    te = approx_elbo(torch.tensor(gamma), torch.tensor(lam),
+                     torch.tensor(pairs), torch.tensor(y), torch.tensor(w),
+                     alpha, torch.tensor(eta), LOG_EPS)
+    assert float(te) == pytest.approx(float(je), rel=1e-4)
+
+
+# --- the engine, end to end -----------------------------------------------
+
+MODES = {
+    "default": ["-max-iterations", "200", "-rfreq", "10"],
+    "rnode": ["-rnode", "-max-iterations", "160", "-rfreq", "10"],
+    "stratified": ["-stratified", "-rpair", "-max-iterations", "200",
+                   "-rfreq", "10"],
+    "batch_logl": ["-batch", "-logl", "-max-iterations", "5"],
+    "nonuniform": ["-rnode", "-nonuniform", "-inf", "0.3",
+                   "-max-iterations", "60", "-rfreq", "10"],
+}
+
+
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mmsb")
+    net, gt = write_planted(str(d), N, K, DEG, GRAPH_SEED)
+    return d, net, gt
+
+
+def _args(net, gt, label, flags):
+    return ["-file", net, "-n", str(N), "-k", str(K), "-nmi", gt, "-seed",
+            "1", "-label", label, *flags]
+
+
+def _outdir(root, label):
+    d = [p for p in os.listdir(root) if p.startswith(f"n{N}-k{K}-{label}-")]
+    assert len(d) == 1, d
+    return root / d[0]
+
+
+@pytest.fixture(scope="module")
+def runs(planted):
+    """Both CLIs under every mode, each in its own directory."""
+    d, net, gt = planted
+    out = {}
+    cwd = os.getcwd()
+    os.environ["SVINET_TORCH_DEVICE"] = "cpu"
+    try:
+        for mode, flags in MODES.items():
+            for name, main in (("jax", jax_main), ("torch", torch_main)):
+                run_dir = d / f"{mode}-{name}"
+                run_dir.mkdir()
+                os.chdir(run_dir)
+                assert main(_args(net, gt, name, flags)) == 0
+                out[mode, name] = _outdir(run_dir, name)
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("SVINET_TORCH_DEVICE", None)
+    return out
+
+
+def _rows(path, name):
+    return np.loadtxt(path / name, ndmin=2)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_report_rows_match_jax(runs, mode):
+    """heldout.txt and validation.txt: iterations and counts equal, the
+    likelihood columns to 1e-4 relative; the duration column is wall
+    time and is not compared."""
+    t, j = runs[mode, "torch"], runs[mode, "jax"]
+    for name in ("heldout.txt", "validation.txt", "training.txt"):
+        a, b = _rows(t, name), _rows(j, name)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        if not len(a):
+            continue
+        counts = [0, 3, 5, 7]
+        np.testing.assert_array_equal(a[:, counts], b[:, counts])
+        vals = [c for c in range(2, a.shape[1]) if c not in counts]
+        np.testing.assert_allclose(a[:, vals], b[:, vals], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_max_modularity_and_nmi_match_jax(runs, mode):
+    t, j = runs[mode, "torch"], runs[mode, "jax"]
+    tm = open(t / "max.txt").read().split()
+    jm = open(j / "max.txt").read().split()
+    assert len(tm) == len(jm) == 7, (tm, jm)
+    assert tm[0] == jm[0]
+    np.testing.assert_allclose([float(x) for x in tm[2:6]],
+                               [float(x) for x in jm[2:6]], rtol=1e-4,
+                               atol=1e-5)
+    a, b = _rows(t, "modularity.txt"), _rows(j, "modularity.txt")
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    np.testing.assert_allclose(a[:, 2:], b[:, 2:], atol=1.5e-5)
+    nt = float(open(t / "mutual.txt").read().split()[-1])
+    nj = float(open(j / "mutual.txt").read().split()[-1])
+    assert abs(nt - nj) <= 0.02, (nt, nj)
+    assert sorted(os.listdir(t)) == sorted(os.listdir(j))
+
+
+def test_logl_and_batch_stop_match_jax(runs):
+    t, j = runs["batch_logl", "torch"], runs["batch_logl", "jax"]
+    a, b = _rows(t, "logl.txt"), _rows(j, "logl.txt")
+    # -batch reports every iteration, 1 to max-iterations + 1
+    assert len(a) == len(b) == 6
+    np.testing.assert_array_equal(a[:, 0], b[:, 0])
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=1e-4)
+
+
+def test_some_run_stops_and_records_validation(runs):
+    """The stop guard is min(n, 5000) = 150 iterations: the sampled runs
+    pass it, and a new maximum writes an 8-column validation.txt row."""
+    v = _rows(runs["default", "torch"], "validation.txt")
+    assert v.shape[1] == 8 and len(v) >= 1
+    assert int(v[0, 0]) > N
+
+
+@pytest.mark.parametrize("flags", [[], ["-stratified", "-rpair"],
+                                   ["-rnode"], ["-rnode", "-scale", "3"]],
+                         ids=["rpair", "stratified", "rnode", "rnode_scale"])
+def test_drawn_minibatches_bitwise_equal_jax(planted, tmp_path, monkeypatch,
+                                             flags):
+    from svinet_tpu.cli import parse_args as jax_parse
+    from svinet_tpu.graph import Network as JaxNetwork
+    from svinet_torch.cli import parse_args
+    from svinet_torch.graph import Network
+    _, net, gt = planted
+    monkeypatch.chdir(tmp_path)
+    engines = []
+    for name, parse, network, make in (
+            ("jax", jax_parse, JaxNetwork,
+             lambda c, nw: jmmsb.MMSBInfer(c, nw)),
+            ("torch", parse_args, Network,
+             lambda c, nw: mmsb.MMSBInfer(c, nw, torch.device("cpu")))):
+        cfg = parse(_args(net, gt, name, flags))
+        nw = network(cfg)
+        nw.read(cfg.datfname)
+        nw.drop_singles()
+        engines.append(make(cfg, nw))
+    je, te = engines
+    np.testing.assert_array_equal(te.gamma.numpy(), np.asarray(je.gamma))
+    for it in range(1, 12):
+        jb = je._prepare_minibatch(it)
+        tb = te._prepare_minibatch(it)
+        m = len(tb[0])
+        np.testing.assert_array_equal(tb[0], jb[0][:m])
+        np.testing.assert_array_equal(tb[1], jb[1][:m])
+        np.testing.assert_array_equal(tb[2], jb[2][:m])
+        assert not jb[2][m:].any()
+        for a, b in zip(tb[3:8], jb[3:8]):
+            assert np.float32(a) == np.float32(b)
+    te.close()

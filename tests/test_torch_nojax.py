@@ -40,6 +40,11 @@ _BLOCKED_RUN = textwrap.dedent("""
                "-nmi", gt, "-seed", "3", "-max-iterations", "8",
                "-label", "nojax"])
     assert rc == 0
+    for flags in ([], ["-batch", "-logl"]):
+        rc = main(["-file", net, "-n", "200", "-k", "4", "-nmi", gt,
+                   "-seed", "3", "-max-iterations", "4", "-label", "nojax",
+                   "-checkpoint-freq", "1e-9", *flags])
+        assert rc == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "svinet_tpu"))
     assert not loaded, loaded
@@ -56,6 +61,14 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert proc.stdout.strip().endswith("OK")
     out = tmp_path / "n200-k4-nojax-seed3-linksampling"
     assert (out / "gamma.txt").exists() and (out / "mutual.txt").exists()
+    mmsb = [p for p in tmp_path.iterdir()
+            if p.name.startswith("n200-k4-nojax-")
+            and not p.name.endswith("linksampling")]
+    assert len(mmsb) == 2
+    for out in mmsb:
+        assert (out / "gamma.txt").exists()
+        assert (out / "modularity.txt").exists()
+        assert (out / "ckpt" / "latest").exists()
 
 
 def test_no_jax_import_in_package():
@@ -90,29 +103,48 @@ def test_cuda_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("flags,named", [
     (["-link-sampling", "-mesh-rowshard"], "-mesh-rowshard"),
     (["-link-sampling", "-dist-coordinator", "host:1"], "-dist-coordinator"),
-    (["-link-sampling", "-sparse-w", "8", "-resume"], "-resume"),
+    (["-link-sampling", "-sparse-w", "8", "-resume", "-mesh", "2"],
+     "-mesh"),
     (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8",
-      "-checkpoint-freq", "5"], "-checkpoint-freq"),
+      "-checkpoint-freq", "5", "-dist-nprocs", "2"], "-dist-nprocs"),
     (["-link-sampling", "-mesh-locality"], "-mesh-locality"),
     (["-link-sampling", "-dist-procid", "1"], "-dist-procid"),
     (["-link-sampling", "-mesh", "2"], "-mesh"),
     (["-link-sampling", "-dist-nprocs", "2"], "-dist-nprocs"),
-    (["-link-sampling", "-checkpoint-freq", "5"], "-checkpoint-freq"),
-    (["-link-sampling", "-resume"], "-resume"),
+    (["-checkpoint-freq", "5", "-mesh-rowshard"], "-mesh-rowshard"),
+    (["-rnode", "-resume", "-dist-coordinator", "h:1"], "-dist-coordinator"),
     (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2"],
      "-mesh"),
     (["-link-sampling", "-load-test-sets", "-dist-nprocs", "2"],
      "-dist-nprocs"),
     (["-link-sampling", "-profile", "p", "-mesh-rowshard"],
      "-mesh-rowshard"),
-    (["-batch"], "-batch"),
+    (["-single"], "-single"),
     (["-link-sampling", "-findk"], "-findk"),
-    ([], "-link-sampling"),
+    (["-stratified", "-rnode"], "-stratified -rnode"),
 ])
 def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
     with pytest.raises(SystemExit, match=re.escape(named)):
         main(["-file", "absent.txt", "-n", "10", "-k", "2", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["-rpair"], ["-rnode"], ["-stratified", "-rpair"], ["-batch"],
+    ["-logl"], ["-batch", "-logl"], ["-rnode", "-nonuniform", "-inf", "0.1"],
+    ["-link-sampling", "-checkpoint-freq", "5"],
+    ["-link-sampling", "-resume"], ["-rnode", "-resume"],
+    ["-link-sampling", "-batch"],
+])
+def test_cli_takes_mmsb_and_checkpoint_flags(flags, monkeypatch):
+    """MMSBInfer's modes, -checkpoint-freq and -resume pass the slice
+    check; the run then fails on the missing input file."""
+    from svinet_torch.cli import check_slice, parse_args
+    argv = ["-file", "absent.txt", "-n", "10", "-k", "2", *flags]
+    check_slice(parse_args(argv))
+    monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
+    with pytest.raises(OSError):
+        main(argv)
 
 
 @pytest.mark.parametrize("flags", [
