@@ -23,13 +23,15 @@ the -prune engine's state is looked at while it is still compacted.
 The held-out sums kernel is held to the plain tail it replaces and to its
 own arithmetic in plain PyTorch. MMSBInfer's per-pair phi fixed point
 (kernel 8, with its ELBO form) is held pair by pair to its plain version
-in float64 on the kernel's rounds, and the edge assignments (kernel 9) to
-theirs; MMSBInfer runs through the CLI with no engine flag, -rnode,
--stratified -rpair and -batch -logl, its rows held to the CPU port's
-(`python3 chip_smoke.py --record-cpu` prints them); the default
-link-sampling run, cut after a report and -resume'd, must write the
-uninterrupted run's files bit for bit; phase 3 times an MMSBInfer step
-and a report's community extraction at the stretch shape.
+in float64 on the kernel's rounds, at K = 20, 500, 1024 and 2000, and the
+edge assignments (kernel 9) to theirs; MMSBInfer runs through the CLI
+with no engine flag, -rnode, -stratified -rpair, -batch -logl and at
+K=640, its rows held to the CPU port's (`python3 chip_smoke.py
+--record-cpu` prints them); the default link-sampling run, cut after a
+report and -resume'd, must write the uninterrupted run's files bit for
+bit; phase 3 holds an MMSBInfer step (kernel 8 writing the next gamma) to
+the plain step and times it and a report's community extraction at the
+stretch shape.
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -143,8 +145,18 @@ MMSB_RUNS = {"mmsb": [], "mmsb-rnode": ["-rnode"],
 MMSB_FLAGS = ["-max-iterations", "60", "-rfreq", "20"]
 BATCH_PLANTED = dict(n=2_000, k=20, avg_deg=20, seed=7)
 BATCH_FLAGS = ["-batch", "-logl", "-max-iterations", "3"]
+# MMSBInfer above K = 512 (the rows of kernel 8 in shared memory): no
+# engine flag on the planted n=2,000 graph at K=640
+MMSB_WIDE_K = 640
+MMSB_WIDE_FLAGS = ["-max-iterations", "10", "-rfreq", "5"]
 FP_SHAPES = ((20_000, 20, 10_000), (20_000, 20, -1),
-             (1_000_000, 500, 500_000), (1_000_000, 500, -1))
+             (1_000_000, 500, 500_000), (1_000_000, 500, -1),
+             (20_000, 2_000, 10_000), (20_000, 1_024, -1),
+             (20_000, 8_000, 10_000))
+# widest K of FP_SHAPES whose rows kernel 8 keeps in shared memory; at
+# K = 8,000 fewer than four pairs' rows fit an SM and they go to device
+# memory (csrc/phi_fixed_point.cu: kDeviceRows)
+FP_SHARED_MAX_K = 2_000
 MMSB_STRETCH_S = 500_000
 # max |kernel - plain| over the largest |plain| (gamma_hat, lambda_hat), and
 # relative for the ELBO sum: both stop each pair on its own rule, and sum
@@ -215,6 +227,16 @@ MMSB_CPU_ROWS = {
             [3, -1210852.0],
             [4, -1185474.0],
         ],
+    },
+    "mmsb-wide": {
+        "heldout": [
+            [5, -3.577688364, -0.00078157, -7.154594673, -0.00077445,
+             -0.065178751, -0.065953201],
+            [10, -3.577682998, -0.000781577, -7.154583941, -0.000774457,
+             -0.065178653, -0.065953111],
+        ],
+        "validation": [],
+        "logl": [],
     },
 }
 STRETCH = dict(n=1_000_000, k=500, n_edges=20_000_000)
@@ -2158,21 +2180,36 @@ def phase3(dev, workdir):
 # Kernel 8 (the per-pair phi fixed point of MMSBInfer) and kernel 9 (the
 # edge assignments of the community extraction)
 
-def fp_bound(n, k, m, active, rounds_sum, elbo=False):
+def fp_bound(n, k, m, active, rounds_sum, elbo=False, update=False):
     """Kernel 8's bound from this run's rounds: the two gathered rows of
     every pair that iterates, the pairs, labels and weights, Elogbeta, and
-    the outputs (gacc and lacc; the ELBO form one value), against the f32
-    operations (about 10 a column a softmax of a round, 6 a column a pair
-    for the outputs) and the exponentials (2K a round; the ELBO form adds
-    2K logarithms a pair) at the special-function rate."""
+    the outputs (gamma_hat, or with the step's update folded into the node
+    pass gamma read and the next gamma written, and lacc; the ELBO form one
+    value), against the f32 operations (about 10 a column a softmax of a
+    round, 6 a column a pair for the outputs) and the exponentials (2K a
+    round; the ELBO form adds 2K logarithms a pair) at the special-function
+    rate."""
     n_bytes = (8.0 * active * k + 16.0 * m + 8.0 * k + 4.0 * m
-               + (4.0 if elbo else 4.0 * n * k + 8.0 * k))
+               + (4.0 if elbo else (8.0 if update else 4.0) * n * k
+                  + 8.0 * k))
     ops = 20.0 * k * rounds_sum + 6.0 * k * active
     sfu = 2.0 * k * rounds_sum + (2.0 * k * active if elbo else 0.0)
     t = {"bytes": n_bytes / PEAK_BYTES_S * 1e3,
          "operations": max(ops / PEAK_F32_S, sfu / PEAK_SFU_S) * 1e3}
     by = max(t, key=t.get)
     return t[by], by
+
+
+def fp_floor_ms(n, k, active, elbo=False, update=False):
+    """Kernel 8's floor: the 2 rows of each pair that iterates gathered
+    from device memory in whole 32-byte sectors (random pairs of a 2 GB
+    array find nothing in the L2), and for the training form gamma_hat
+    written once, or with the step's update gamma read and the next gamma
+    written once, as an SVI step does whichever design runs it, at
+    3.35 TB/s."""
+    row = -(-4 * k // 32) * 32
+    out = 0.0 if elbo else (8.0 if update else 4.0) * n * k
+    return (2.0 * active * row + out) / PEAK_BYTES_S * 1e3
 
 
 def _fp_state(dev, gen, n, k):
@@ -2251,7 +2288,8 @@ def phase1_phi_fixed_point(dev):
     stretch random-pair shape) and of the ELBO form."""
     from svinet_torch.ops.edges import owner_csr
     from svinet_torch.ops.phicomp import (
-        pair_block_stats_plain, pair_elbo_plain, phi_fixed_point)
+        fixed_point_plan, pair_block_stats_plain, pair_elbo_plain,
+        phi_fixed_point)
     log_eps = float(np.float32(np.log(1e-30)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -2310,10 +2348,19 @@ def phase1_phi_fixed_point(dev):
         ms = cuda_ms(run, 3 if big else 20)
         plain_ms = cuda_ms(plain, 1 if big else 3)
         bnd = fp_bound(n, k, m, active, float(rs.sum()))
+        floor = fp_floor_ms(n, k, active)
+        plan = fixed_point_plan(k, False, m, dev)
+        assert plan["layout"] == ("shared rows" if k <= FP_SHARED_MAX_K
+                                  else "device rows"), (k, plan)
         shape = (f"n={n} K={k} pairs={m}"
                  + (" (one -rnode minibatch)" if m == n - 1 else ""))
         log(f"phase 1: phi_fixed_point {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), rounds "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor "
+            f"{floor:.4f} ms (gathers, gamma_hat written); launch "
+            f"{plan['blocks']} blocks of {plan['groups_per_block']} pairs, "
+            f"{plan['blocks_per_sm']} blocks an SM, {plan['lanes']} lanes a "
+            f"pair, {plan['layout']} ({plan['smem_bytes']} bytes a block), "
+            f"{plan['registers']} registers; rounds "
             f"mean {float(rs.mean()):.2f} max {int(rs.max())} "
             f"({int(unconv.sum())} pairs at 50); on the kernel's rounds phi "
             f"within {phi_err:.3e} of the plain version's on all but "
@@ -2323,7 +2370,7 @@ def phase1_phi_fixed_point(dev):
             f"version takes the kernel's count on {same:.4%} of the pairs, "
             f"err {err_free:.3e}; two launches bitwise equal")
         if (n, k, m) == (1_000_000, 500, 500_000):
-            report = _report(err, ms, plain_ms, bnd)
+            report = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
         del g_k, g_p, elogpi, csr
         torch.cuda.empty_cache()
     # the ELBO form on every pair of a planted graph, links as in the graph
@@ -2357,13 +2404,15 @@ def phase1_phi_fixed_point(dev):
                                                log_eps, 50, 1e-5), 2)
     rs = r_k.double()
     bnd = fp_bound(n, k, iu.shape[0], iu.shape[0], float(rs.sum()), True)
+    floor = fp_floor_ms(n, k, iu.shape[0], elbo=True)
     log(f"phase 1: phi_fixed_point ELBO form, all {iu.shape[0]} pairs of a "
         f"planted n={n} K={k} graph ({int(y.sum())} links): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}), rounds mean {float(rs.mean()):.2f} max "
-        f"{int(rs.max())}, sum {float(e_k):.6e} against {float(e_p):.6e} "
-        f"(rel err {err_e:.3e}), two launches bitwise equal")
-    return report, _report(err_e, ms, plain_ms, bnd)
+        f"({bnd[1]}), floor {floor:.4f} ms, rounds mean "
+        f"{float(rs.mean()):.2f} max {int(rs.max())}, sum {float(e_k):.6e} "
+        f"against {float(e_p):.6e} (rel err {err_e:.3e}), two launches "
+        f"bitwise equal")
+    return report, dict(_report(err_e, ms, plain_ms, bnd), floor_ms=floor)
 
 
 def assign_bound(n, k, e, n_owners):
@@ -2475,7 +2524,8 @@ def _mmsb_rows(out):
 
 def _mmsb_runs(workdir, record):
     """MMSBInfer's CLI runs of phase 2 (no engine flag, -rnode, -stratified
-    -rpair on planted-20k; -batch -logl on a planted n=2,000 graph).
+    -rpair on planted-20k; -batch -logl, and no engine flag at K=640, on a
+    planted n=2,000 graph).
     Returns ({label: rows}, {label: (out, seconds, launches, forms)})."""
     from svinet_torch.synth import write_planted
     net, gt = write_planted(workdir, PLANTED["n"], PLANTED["k"],
@@ -2486,6 +2536,8 @@ def _mmsb_runs(workdir, record):
     runs = [(label, net, gt, PLANTED, [*flags, *MMSB_FLAGS])
             for label, flags in MMSB_RUNS.items()]
     runs.append(("mmsb-batch", bnet, bgt, BATCH_PLANTED, BATCH_FLAGS))
+    runs.append(("mmsb-wide", bnet, bgt, dict(BATCH_PLANTED, k=MMSB_WIDE_K),
+                 MMSB_WIDE_FLAGS))
     rows, info = {}, {}
     for label, nt, g, shape, flags in runs:
         label = label + ("-cpu" if record else "")
@@ -2550,7 +2602,9 @@ def phase2_mmsb(workdir):
             launches[name] = launches.get(name, 0) + v
         for name, v in forms.items():
             launches[name] = launches.get(name, 0) + v
-        flags = " ".join(MMSB_RUNS.get(label, BATCH_FLAGS[:2]))
+        flags = {"mmsb-batch": " ".join(BATCH_FLAGS[:2]),
+                 "mmsb-wide": f"no engine flag, n=2,000, K={MMSB_WIDE_K}"
+                 }.get(label, " ".join(MMSB_RUNS.get(label, [])))
         log(f"phase 2: MMSBInfer {label} ({flags or 'no engine flag'}): "
             f"{secs:.1f} s, {steps} steps, {reports} reports, rows equal the "
             f"CPU port's to {MMSB_ROW_RTOL:g}, last heldout nshol "
@@ -2672,13 +2726,16 @@ def phase2_resume(workdir, net, gt, out_whole):
 
 def phase3_mmsb(dev, eng):
     """On the stretch engine's graph and state: one MMSBInfer step of
-    s = 500,000 random pairs (kernel 1 twice, kernel 8, the update) and
-    kernel 8's share of it; kernel 9 against its plain version over the
+    s = 500,000 random pairs (kernel 1 twice, kernel 8 with the update of
+    gamma in its node pass, lambda's update) held to the plain step,
+    its time, peak memory and kernel 8's share of it; kernel 9 against its plain version over the
     19.9M training links; log_communities timed, kernel 9 and the host
     side. Returns kernel 9's report."""
     from svinet_torch.ops.expectations import dirichlet_expectation
     from svinet_torch.ops.edges import owner_csr
-    from svinet_torch.ops.phicomp import phi_fixed_point
+    from svinet_torch.ops.phicomp import (
+        NodeUpdate, node_update_plain, pair_block_stats_plain,
+        phi_fixed_point)
     from svinet_torch.svi.mmsb import svi_step
     n, k = eng.n, eng.k
     net = eng.network
@@ -2697,37 +2754,75 @@ def phase3_mmsb(dev, eng):
     scale = float(net.total_pairs) / s
     log_eps = float(np.float32(np.log(1e-30)))
     gamma, lam = eng.gamma.clone(), eng.lam.clone()
+    alpha = float(np.float32(1.0 / k))
+    gs, nr, rt = (torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (scale, 0.7, 0.01))
 
     def step():
-        return svi_step(gamma, lam, pairs, y, w, 1.0 / k, eta, scale, scale,
-                        0.7, 0.01, 1.0, log_eps, 50, 1e-5)
+        return svi_step(gamma, lam, pairs, y, w, alpha, eta, gs, gs, nr, rt,
+                        1.0, log_eps, 50, 1e-5)
 
     step()
     torch.cuda.synchronize()
     _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     g2, l2 = step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     counted = _read_counts()[0]
     assert counted["phi_fixed_point"] == 1 and counted[
         "dirichlet_expectation"] == 2, counted
     assert torch.isfinite(g2).all() and torch.isfinite(l2).all()
+    step_dev_ms = cuda_ms(step, 3)
+    # the plain step on the same inputs, in float64 for the kernel's rounds
+    # (both stop each pair on its own rule; a pair at the threshold may
+    # exit a round apart in f32)
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
     csr = owner_csr(pairs.reshape(-1), n)
+    upd = NodeUpdate(gamma, alpha, gs, nr)
     _, _, rounds = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps, 50,
-                                   1e-5, csr=csr)
-    k8_ms = cuda_ms(lambda: phi_fixed_point(elogpi, elogbeta, pairs, y, w,
-                                            log_eps, 50, 1e-5, csr=csr), 3)
+                                   1e-5, csr=csr, update=upd)
+    g_p, l_p, _ = pair_block_stats_plain(
+        elogpi.double(), elogbeta.double(), pairs, y, w.double(), log_eps, 50,
+        1e-5, given=rounds)
+    g_p = node_update_plain(g_p, NodeUpdate(
+        gamma.double(), alpha, gs.double(), nr.double()))
+    l_p = (1.0 - rt.double()) * lam.double() + rt.double() * (
+        eta.double() + gs.double() * l_p)
+    err = max(_close_to_max(g2, g_p), _close_to_max(l2, l_p))
+    assert err <= FP_TOL, ("svi_step against the plain step", err)
+    # the rows of nodes in no pair take (1 - rho) gamma + rho alpha: the
+    # plain update's bits in f32 (their rows are a few tens, where the
+    # largest entry above is of s gamma_hat, s near 1e6); each row with a slot
+    # logged against its own largest entry
+    free = torch.bincount(pairs.reshape(-1).long(), minlength=n) == 0
+    g_free = node_update_plain(torch.zeros_like(gamma[free]), NodeUpdate(
+        gamma[free], alpha, gs, nr))
+    assert torch.equal(g2[free], g_free), "rows with no slot"
+    row_err = float(((g2[~free].double() - g_p[~free]).abs().amax(1)
+                     / g_p[~free].abs().amax(1)).max())
+    n_free = int(free.sum())
+    del g_p, g_free, free
+    k8_ms = cuda_ms(lambda: phi_fixed_point(
+        elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, csr=csr,
+        update=upd), 3)
     rs = rounds.double()
-    bnd = fp_bound(n, k, s, s, float(rs.sum()))
+    bnd = fp_bound(n, k, s, s, float(rs.sum()), update=True)
+    floor = fp_floor_ms(n, k, s, update=True)
     log(f"phase 3: one MMSBInfer step on the stretch graph and state (n={n} "
         f"K={k}, s={s} random pairs, {int(y.sum())} links): {step_ms:.2f} "
-        f"ms wall, kernel 8 alone {k8_ms:.4f} ms with its CSR given "
-        f"({k8_ms / step_ms:.1%} of the step), bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}), rounds mean {float(rs.mean()):.2f} max "
-        f"{int(rs.max())}")
+        f"ms wall, {step_dev_ms:.4f} ms on the card, peak {peak:.3f} GiB "
+        f"above the state; gamma and lambda within {err:.3e} of the plain "
+        f"step's (float64, the kernel's rounds; each row with a slot within "
+        f"{row_err:.3e} of its largest entry), the {n_free} rows of nodes "
+        f"in no pair bitwise the plain f32 update's; kernel 8 with the update "
+        f"{k8_ms:.4f} ms with its CSR given ({k8_ms / step_dev_ms:.1%} of "
+        f"the step), bound {bnd[0]:.4f} ms ({bnd[1]}), floor {floor:.4f} ms, "
+        f"rounds mean {float(rs.mean()):.2f} max {int(rs.max())}")
     del elogpi, csr, g2, gamma
     torch.cuda.empty_cache()
     # kernel 9 at 19.9M links, and the report's community extraction

@@ -22,7 +22,8 @@ moves a converged pair by less than `thresh` a round more
 
 Training form: gacc[p] += w phi1, gacc[q] += w phi2, and
 lacc[:, 0] += w phi1 phi2 over links, lacc[:, 1] over nonlinks
-(svinet_tpu/svi/mmsb.py:65-72). ELBO form: the sum over pairs of
+(svinet_tpu/svi/mmsb.py:65-72); with a NodeUpdate the rows written are
+the step's next gamma from gacc (svinet_tpu/svi/mmsb.py:159-160, 240). ELBO form: the sum over pairs of
 w (sum_k phi1 phi2 Elogf + [y=1](1 - sum_k phi1 phi2) log eps
 + sum_k phi1 Elogpi_p + phi2 Elogpi_q - sum_k phi log phi)
 (svinet_tpu/evals/elbo.py:56-66).
@@ -33,7 +34,8 @@ csrc/phi_fixed_point.cu or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,8 +44,10 @@ from svinet_torch.ops.edges import SEG_LEN, Adjacency, owner_csr
 
 # pairs a plain block solves at once: (B, K) f32 temporaries of ~64 MB
 _PLAIN_BLOCK_FLOATS = 1 << 24
-# widest row kernel 8 holds in registers (csrc/common.cuh kRegMaxK)
-REG_MAX_K = 512
+# where the pair pass keeps a group's rows (csrc/phi_fixed_point.cu), by
+# the index its plan reports: shared memory where an SM holds four groups,
+# else device memory
+LAYOUTS = {1: "shared rows", 2: "device rows"}
 
 
 def phi_fixed_point_plain(elogpi_p, elogpi_q, elogbeta, y, log_eps: float,
@@ -154,6 +158,26 @@ def pair_elbo_plain(elogpi, elogbeta, pairs, y, w, log_eps: float,
     return total, rounds
 
 
+class NodeUpdate(NamedTuple):
+    """How the node pass writes a node's row from its gamma_hat row g:
+    with `gamma` set, the SVI step's (1 - rho) gamma + rho (alpha + gscale
+    g) (svinet_tpu/svi/mmsb.py:159-160); without, -batch's alpha + g
+    (svinet_tpu/svi/mmsb.py:240). gscale and rho are () f32 tensors."""
+    gamma: Optional[torch.Tensor]
+    alpha: float
+    gscale: Optional[torch.Tensor] = None
+    rho: Optional[torch.Tensor] = None
+
+
+def node_update_plain(gacc, upd: NodeUpdate) -> torch.Tensor:
+    """The node pass's update in plain PyTorch, the JAX step's expressions
+    in its order."""
+    if upd.gamma is None:
+        return upd.alpha + gacc
+    gammat = upd.alpha + upd.gscale * gacc
+    return (1.0 - upd.rho) * upd.gamma + upd.rho * gammat
+
+
 def _pair_checks(elogpi, elogbeta, pairs, y, w):
     dev = elogpi.device
     n, k = elogpi.shape
@@ -163,30 +187,48 @@ def _pair_checks(elogpi, elogbeta, pairs, y, w):
     build.check_cuda(pairs, "pairs", torch.int32, (m, 2), dev)
     build.check_cuda(y, "y", torch.int32, (m,), dev)
     build.check_cuda(w, "w", torch.float32, (m,), dev)
-    if k > REG_MAX_K:
-        raise ValueError(f"phi_fixed_point holds rows in registers up to "
-                         f"K={REG_MAX_K}; got K={k}")
     return dev, n, k, m
+
+
+def fixed_point_plan(k: int, elbo: bool, m: int, device) -> dict:
+    """The pair pass's launch on `device` for K = k and m pairs: blocks,
+    groups (one pair each) a block, where the rows live (LAYOUTS), blocks
+    an SM holds, shared memory bytes a block, registers a thread, lanes a
+    group."""
+    info = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        build.library().call("svt_phi_fixed_point_plan", int(k), int(elbo),
+                             int(m), info)
+    return dict(blocks=info[0], groups_per_block=info[1],
+                layout=LAYOUTS[info[2]], blocks_per_sm=info[3],
+                smem_bytes=info[4], registers=info[5], lanes=info[6])
+
+
+def _scalar(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(dev).reshape(())
 
 
 def phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps: float,
                     max_iters: int, thresh: float, *, elbo: bool = False,
                     csr: Optional[Adjacency] = None,
+                    update: Optional[NodeUpdate] = None,
                     keep_staged: bool = False):
     """Kernel 8 (csrc/phi_fixed_point.cu) on a CUDA tensor, the plain
     version on a CPU tensor. elogpi (n,K) and elogbeta (K,2) f32; pairs
-    (B,2) and y (B,) int32; w (B,) f32.
+    (B,2) and y (B,) int32; w (B,) f32; any K.
 
-    Training form: returns (gacc (n,K), lacc (K,2), rounds (B,) int32).
-    On the card one launch solves every pair with its two K-rows in the
-    registers of a group of lanes and writes w phi1 and w phi2 into a
-    staging buffer (2B, K); a second walks `csr` (owner_csr of
+    Training form: returns (rows (n,K), lacc (K,2), rounds (B,) int32),
+    rows gamma_hat, or with `update` each node's row as NodeUpdate says
+    (the next gamma of an SVI or -batch step; gamma is read, not written).
+    On the card one launch solves every pair, a group of 8 to 32 lanes to
+    a pair with its rows in shared memory, and writes w phi1 and w phi2
+    into a staging buffer (2B, K); a second walks `csr` (owner_csr of
     pairs.reshape(-1): each node's slots, 2i for the first end of pair i
     and 2i + 1 for its second; made here when not given, an engine with a
-    fixed pair set makes it once) and writes each node's row of gacc once,
-    summing its slots in slot order, hub segments combined in segment
-    order. lacc comes from per-block partial rows added in block
-    order. No atomics: two launches give the same bits.
+    fixed pair set makes it once) and writes each node's row once, summing
+    its slots in slot order, hub segments combined in segment order. lacc
+    comes from per-group running rows added in group order. No atomics:
+    two launches give the same bits.
 
     ELBO form (elbo=True): returns (the weighted sum of the per-pair ELBO
     terms, a () f32 tensor, rounds), added per group, per block in group
@@ -199,53 +241,76 @@ def phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps: float,
         if elbo:
             return pair_elbo_plain(elogpi, elogbeta, pairs, y, w, log_eps,
                                    max_iters, thresh)
-        return pair_block_stats_plain(elogpi, elogbeta, pairs, y, w, log_eps,
-                                      max_iters, thresh)
+        gacc, lacc, rounds = pair_block_stats_plain(
+            elogpi, elogbeta, pairs, y, w, log_eps, max_iters, thresh)
+        if update is not None:
+            gacc = node_update_plain(gacc, update)
+        return gacc, lacc, rounds
     build.require_cuda(elogpi, "phi_fixed_point")
     pairs = pairs.to(torch.int32).contiguous()
     y = y.to(torch.int32).contiguous()
     dev, n, k, m = _pair_checks(elogpi, elogbeta, pairs, y, w)
-    # row 0 the links' Elogf, row 1 the nonlinks'
-    elogf = elogbeta.t().contiguous()
+    kp = (k + 3) // 4 * 4
+    # row 0 the links' Elogf, row 1 the nonlinks', padded to kp
+    fr = torch.zeros((2, kp), dtype=torch.float32, device=dev)
+    fr[:, :k] = elogbeta.t()
+    plan = fixed_point_plan(k, elbo, m, dev)
+    groups = plan["blocks"] * plan["groups_per_block"]
     rounds = torch.empty(m, dtype=torch.int32, device=dev)
-    width = 1 if elbo else 2 * k
-    partial = torch.empty((build.REDUCE_SCRATCH_ROWS // 2, width),
-                          dtype=torch.float32, device=dev)
-    sums = torch.empty(width, dtype=torch.float32, device=dev)
+    rows = (None if plan["layout"] != "device rows" else
+            torch.empty((groups, 4, kp), dtype=torch.float32, device=dev))
     if elbo:
-        staged = gacc = seg_partial = None
+        sums = torch.empty(1, dtype=torch.float32, device=dev)
+        partial = torch.empty(plan["blocks"], dtype=torch.float32,
+                              device=dev)
+        staged = lam = seg_partial = out = gamma = gs = rho = None
         ptrs = (None,) * 7
-        n_hubs = n_segs = 0
-        seg_len = SEG_LEN
+        n_hubs = n_segs = mode = 0
+        seg_len, alpha = SEG_LEN, 0.0
     else:
         if csr is None:
             csr = owner_csr(pairs.reshape(-1), n)
         if csr.nbr.shape[0] != 2 * m or csr.n != n:
             raise ValueError("csr is not the endpoint CSR of these pairs")
         n_hubs, n_segs = csr.hub_node.shape[0], csr.seg_node.shape[0]
+        sums = torch.empty(2 * kp, dtype=torch.float32, device=dev)
+        partial = None
         staged = torch.empty((2 * m, k), dtype=torch.float32, device=dev)
-        gacc = torch.empty((n, k), dtype=torch.float32, device=dev)
+        lam = torch.empty((groups, 2, kp), dtype=torch.float32, device=dev)
         seg_partial = torch.empty((n_segs, k), dtype=torch.float32,
                                   device=dev)
+        out = torch.empty((n, k), dtype=torch.float32, device=dev)
         ptrs = tuple(t.data_ptr() for t in csr.tensors())
         seg_len = csr.seg_len
+        gamma = gs = rho = None
+        mode, alpha = 0, 0.0
+        if update is not None:
+            alpha = float(update.alpha)
+            mode = 2
+            if update.gamma is not None:
+                gamma = update.gamma
+                build.check_cuda(gamma, "gamma", torch.float32, (n, k), dev)
+                gs = _scalar(update.gscale, dev)
+                rho = _scalar(update.rho, dev)
+                mode = 1
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     build.launch("svt_phi_fixed_point", dev, elogpi.data_ptr(),
-                 elogf.data_ptr(), pairs.data_ptr(), y.data_ptr(),
-                 w.data_ptr(), ptr(staged), rounds.data_ptr(),
-                 partial.data_ptr(), sums.data_ptr(), *ptrs,
-                 ptr(seg_partial), ptr(gacc), n, m, n_hubs, n_segs, k,
-                 seg_len, int(max_iters), float(log_eps), float(thresh),
-                 int(elbo))
+                 fr.data_ptr(), pairs.data_ptr(), y.data_ptr(),
+                 w.data_ptr(), ptr(staged), rounds.data_ptr(), ptr(lam),
+                 ptr(rows), ptr(partial), sums.data_ptr(), *ptrs,
+                 ptr(seg_partial), ptr(gamma), ptr(gs), ptr(rho), ptr(out),
+                 n, m, n_hubs, n_segs, k, seg_len, int(max_iters),
+                 float(log_eps), float(thresh), alpha, mode, int(elbo),
+                 plan["blocks"])
     build.count_launch(phi_fixed_point, "elbo" if elbo else "f32")
     if elbo:
         return sums[0], rounds
-    lacc = torch.stack([sums[:k], sums[k:]], dim=1)
-    return (gacc, lacc, rounds, staged) if keep_staged else (gacc, lacc,
-                                                             rounds)
+    lacc = torch.stack([sums[:k], sums[kp:kp + k]], dim=1)
+    return (out, lacc, rounds, staged) if keep_staged else (out, lacc,
+                                                            rounds)
 
 
 phi_fixed_point.launches = 0

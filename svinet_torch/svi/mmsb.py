@@ -6,17 +6,21 @@ Per iteration: a minibatch of node pairs (random pairs, a random node's
 n-1 pairs, or stratified link/nonlink families) is drawn on the host with
 the engine's numpy Generator, in the same calls and order as the JAX
 engine, so both draw the same pairs; kernel 8 (ops/phicomp.py) solves
-each pair's phi fixed point and sums the statistics gamma_hat (n,K) and
-lambda_hat (K,2); then natural-gradient Robbins-Monro steps
+each pair's phi fixed point, sums the statistics gamma_hat (n,K) and
+lambda_hat (K,2) and takes the natural-gradient Robbins-Monro step of
+gamma in its node pass (on the CPU, the plain expressions):
 
   rho_node = (nodetau0 + iter/100)^(-nodekappa)
   gamma <- (1-rho_node) gamma + rho_node (alpha + scale/|batch| gamma_hat)
-  lambda, once delaylearn lets it (iter * s > total pairs), with
+
+and lambda's, once delaylearn lets it (iter * s > total pairs), in plain
+PyTorch on (K,2):
+
   rho_t = (tau0 + iter - lambda_start_iter + 1)^(-kappa)
   lambda <- (1-rho_t) lambda + rho_t (eta + scale/|batch| lambda_hat)
 
-in plain PyTorch. batch_infer sweeps all non-heldout pairs each iteration
-with gamma = alpha + gamma_hat (reference: src/mmsbinfer.cc:833-930).
+batch_infer sweeps all non-heldout pairs each iteration with gamma =
+alpha + gamma_hat (reference: src/mmsbinfer.cc:833-930).
 The -mesh branches of the JAX engine are not ported.
 """
 
@@ -32,7 +36,7 @@ from svinet_torch.graph import Network
 from svinet_torch.io.writers import load_model
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.edges import owner_csr
-from svinet_torch.ops.phicomp import phi_fixed_point
+from svinet_torch.ops.phicomp import NodeUpdate, phi_fixed_point
 from svinet_torch.svi.base import EngineBase
 
 
@@ -103,12 +107,12 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
         piq = gq / gq.sum(-1, keepdim=True)
         inf = (pip * piq).max(-1).values >= infthresh
         w = torch.where((y == 1) | inf, w, 0.0)
-    gacc, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                    max_iters, thresh, csr=csr)
     nr = torch.as_tensor(noderhot, dtype=torch.float32).to(dev)
     rt = torch.as_tensor(rhot, dtype=torch.float32).to(dev)
-    gammat = alpha + gs * gacc
-    gamma = (1.0 - nr) * gamma + nr * gammat
+    # kernel 8's node pass writes the next gamma (ops/phicomp.py:NodeUpdate)
+    gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
+                                     max_iters, thresh, csr=csr,
+                                     update=NodeUpdate(gamma, alpha, gs, nr))
     if float(do_lambda) > 0:
         lambdat = eta + ls * lacc
         lam = (1.0 - rt) * lam + rt * lambdat
@@ -124,9 +128,9 @@ def batch_step(gamma, lam, pairs, y, w, alpha: float, eta, do_lambda,
     eta + lambda_hat unless -nolambda."""
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
-    gacc, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                    max_iters, thresh, csr=csr)
-    gamma = alpha + gacc
+    gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
+                                     max_iters, thresh, csr=csr,
+                                     update=NodeUpdate(None, alpha))
     if float(do_lambda) > 0:
         lam = eta + lacc
     return gamma, lam

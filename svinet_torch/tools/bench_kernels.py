@@ -44,8 +44,14 @@ kernel 2 then kernel 4 (the dense passes they replace) and as whole
 sweeps, at W = 8, 16, 32, 64 on the stretch graph (n=1M, K=500, 20M links;
 the engine's state after three annealing sweeps and a late-fit state) and
 on the planted n=20k graph at K = 500, 2000 and 8000, with kernel 7's
-registers, shared memory and warps an SM. --only names the parts to run
-(sectors, sparse, ...). --quick
+registers, shared memory and warps an SM; kernel 8 (MMSBInfer's per-pair
+phi fixed point) against its first design (csrc/alt/phi_fixed_point_v1.cu)
+and its pair pass against the form that fetches the next pair's rows
+ahead (csrc/alt/phi_fixed_point_prefetch.cu), split by kernel, and an
+MMSBInfer step
+with each, at n=1M, K=500 (random pairs, -rnode, the stretch engine's
+state), n=20k at K = 20, 1024, 2000, and its ELBO form. --only names the
+parts to run (sectors, sparse, fixedpoint, ...). --quick
 builds, launches every kernel once at these widths, compares and stops.
 
 Prints the card and its power limit first; writes the compiler's report
@@ -88,7 +94,7 @@ from svinet_torch.svi.sweep_math import (
 from svinet_torch.synth import planted_blocks, random_edges
 from svinet_torch.tools import s3_slab
 
-_P, _I64, _I32 = build._P, build._I64, build._I32
+_P, _I64, _I32, _F32 = build._P, build._I64, build._I32, build._F32
 ALT_SIGNATURES = {
     "svt_dirichlet_expectation_v1": (_P, _P, _I64, _I32, _P),
     # the first designs of the top-W form and kernel 7 (csrc/alt/topw_v1.cu,
@@ -109,6 +115,18 @@ ALT_SIGNATURES = {
     "svt_row_probe": (_P, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
                       _P),
     "svt_write_probe": (_P, _I64, _I32, _P),
+    # kernel 8 as first designed (csrc/alt/phi_fixed_point_v1.cu): the
+    # arguments svt_phi_fixed_point took then; its info (6 ints out)
+    "svt_phi_fixed_point_v1": (_P,) * 18 + (_I64, _I64, _I64, _I64, _I32,
+                                            _I32, _I32, _F32, _F32, _I32, _P),
+    "svt_phi_fixed_point_v1_info": (_P,),
+    # kernel 8's pair pass with the next pair's rows fetched ahead
+    # (csrc/alt/phi_fixed_point_prefetch.cu): k, pairs, info (6 ints out);
+    # elogpi, fr, pairs, y, w, staged, rounds, lam, pairs, k, max_iters,
+    # log_eps, thresh, blocks
+    "svt_phi_fixed_point_prefetch_plan": (_I32, _I64, _P),
+    "svt_phi_fixed_point_prefetch": (_P,) * 8 + (_I64, _I32, _I32, _F32,
+                                                 _F32, _I32, _P),
     "svt_phi_pass_edge_atomic": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     "svt_phi_half_push": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     **s3_slab.SIGNATURES,
@@ -955,6 +973,376 @@ def bench_sectors(alt, quick: bool) -> list:
     return rows
 
 
+# kernel 8's shapes: (n, K, pairs), -1 for one -rnode minibatch (node n // 3
+# with every other); the stretch engine's state is added unless --quick
+FP_BENCH_SHAPES = ((1_000_000, 500, 500_000), (1_000_000, 500, -1),
+                   (20_000, 20, 10_000), (20_000, 2_000, 10_000),
+                   (20_000, 1_024, -1))
+FP_LOG_EPS = float(np.float32(np.log(1e-30)))
+
+
+def _fp_random_state(gen, n: int, k: int):
+    """gamma and lambda of a mid-fit-like state (chip_smoke.py:_fp_state)."""
+    gamma = 0.05 + torch.rand((n, k), generator=gen, device="cuda") ** 4 * 10
+    lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device="cuda")
+    return gamma, lam
+
+
+def _fp_random_pairs(gen, n: int, m: int):
+    """m random pairs (10% links, all of weight 1), or one -rnode
+    minibatch for m = -1."""
+    if m < 0:
+        r = n // 3
+        other = torch.cat([torch.arange(r, device="cuda"),
+                           torch.arange(r + 1, n, device="cuda")])
+        pairs = torch.stack([other.clamp(max=r), other.clamp(min=r)], 1)
+        m = n - 1
+    else:
+        pairs = torch.randint(0, n, (m, 2), generator=gen, device="cuda")
+    y = (torch.rand(m, generator=gen, device="cuda") < 0.1).to(torch.int32)
+    return pairs.to(torch.int32).contiguous(), y, torch.ones(m, device="cuda")
+
+
+def _stretch_mmsb_inputs(gen, s: int):
+    """The stretch graph (n=1M, K=500, 20M random links), the engine's
+    state after three annealing sweeps (_engine_gamma), and s random pairs
+    labelled by the graph, as chip_smoke.py phase 3 draws them."""
+    n, k = 1_000_000, 500
+    links = np.unique(random_edges(n, 20_000_000, 0), axis=0)
+    adj = build_adjacency(links, n, "cuda")
+    deg = torch.as_tensor(np.bincount(links.ravel(), minlength=n)
+                          .astype(np.float32), device="cuda")
+    gamma = _engine_gamma(links, adj, deg, n, k, gen)
+    del adj
+    keys = torch.as_tensor(links[:, 0].astype(np.int64) * n + links[:, 1],
+                           device="cuda")
+    rng = np.random.default_rng(3)
+    a, b = rng.integers(0, n, 2 * s), rng.integers(0, n, 2 * s)
+    ok = a != b
+    lo, hi = np.minimum(a, b)[ok][:s], np.maximum(a, b)[ok][:s]
+    pairs = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
+                            device="cuda")
+    y = torch.isin(pairs[:, 0].long() * n + pairs[:, 1].long(), keys).to(
+        torch.int32)
+    lam = torch.ones((k, 2), device="cuda")
+    return gamma, lam, pairs, y, torch.ones(s, device="cuda")
+
+
+def _fp_v1_call(alt, elogpi, elogbeta, pairs, y, w, csr):
+    """Kernel 8's first design (csrc/alt/phi_fixed_point_v1.cu) into fixed
+    buffers, as its wrapper called it: returns call() -> (gacc, sums,
+    rounds)."""
+    n, k = elogpi.shape
+    m = pairs.shape[0]
+    elogf = elogbeta.t().contiguous()
+    staged = torch.empty((2 * m, k), device="cuda")
+    gacc = torch.empty((n, k), device="cuda")
+    rounds = torch.empty(m, dtype=torch.int32, device="cuda")
+    partial = torch.empty((build.REDUCE_SCRATCH_ROWS // 2, 2 * k),
+                          device="cuda")
+    sums = torch.empty(2 * k, device="cuda")
+    seg_partial = torch.empty((csr.seg_node.shape[0], k), device="cuda")
+
+    def call():
+        alt.call("svt_phi_fixed_point_v1", elogpi.data_ptr(),
+                 elogf.data_ptr(), pairs.data_ptr(), y.data_ptr(),
+                 w.data_ptr(), staged.data_ptr(), rounds.data_ptr(),
+                 partial.data_ptr(), sums.data_ptr(),
+                 *(t.data_ptr() for t in csr.tensors()),
+                 seg_partial.data_ptr(), gacc.data_ptr(), n, m,
+                 csr.hub_node.shape[0], csr.seg_node.shape[0], k,
+                 csr.seg_len, 50, FP_LOG_EPS, 1e-5, 0, stream())
+        return gacc, sums, rounds
+
+    return call
+
+
+def _fp_prefetch_call(alt, elogpi, elogbeta, pairs, y, w):
+    """Kernel 8's pair pass with the next pair's rows fetched ahead
+    (csrc/alt/phi_fixed_point_prefetch.cu) into fixed buffers: returns
+    (its plan, call() -> (staged, rounds)), or (plan, None) where no block
+    of it fits an SM."""
+    n, k = elogpi.shape
+    m = pairs.shape[0]
+    kp = (k + 3) // 4 * 4
+    info = (ctypes.c_int * 6)()
+    alt.call("svt_phi_fixed_point_prefetch_plan", k, m, info)
+    plan = dict(blocks=info[0], groups_per_block=info[1],
+                blocks_per_sm=info[2], smem_bytes=info[3],
+                registers=info[4], lanes=info[5])
+    if plan["blocks_per_sm"] < 1:
+        return plan, None
+    fr = torch.zeros((2, kp), device="cuda")
+    fr[:, :k] = elogbeta.t()
+    staged = torch.empty((2 * m, k), device="cuda")
+    rounds = torch.empty(m, dtype=torch.int32, device="cuda")
+    lam = torch.empty((info[0] * info[1], 2, kp), device="cuda")
+
+    def call():
+        alt.call("svt_phi_fixed_point_prefetch", elogpi.data_ptr(),
+                 fr.data_ptr(), pairs.data_ptr(), y.data_ptr(),
+                 w.data_ptr(), staged.data_ptr(), rounds.data_ptr(),
+                 lam.data_ptr(), m, k, 50, FP_LOG_EPS, 1e-5, info[0],
+                 stream())
+        return staged, rounds
+
+    return plan, call
+
+
+def _device_split(fn) -> list:
+    """fn() once under torch.profiler after an unrecorded warm-up call:
+    [(kernel name, device us)] in launch order."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [(ev.name, ev.device_time_total) for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith("ProfilerStep")]
+
+
+def _split_by(events, table) -> dict:
+    """Device ms by the first label of `table` ((label, name parts)) whose
+    part is in the kernel's name; "other" for the rest."""
+    out = {}
+    for name, us in events:
+        label = next((lb for lb, parts in table
+                      if any(p in name for p in parts)), "other")
+        out[label] = out.get(label, 0.0) + us / 1e3
+    return out
+
+
+FP_SPLIT_TABLE = (("per-pair pass", ("fixed_point_kernel", "pair_pass")),
+                  ("node pass", ("staged_pull", "node_pass")),
+                  ("hub combine (f64)", ("combine_segments",)),
+                  ("lacc colsum", ("colsum_partials",)),
+                  ("kernel 1", ("dirichlet",)),
+                  ("owner_csr sort", ("sort", "Sort", "radix", "Radix")))
+
+
+def _v1_step(alt, gamma, lam, pairs, y, w, k: int):
+    """svi_step as it ran on the card with kernel 8's first design: kernel 1
+    twice, owner_csr, the first design (staging buffer and pull into
+    gamma_hat), the plain Robbins-Monro update."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    n = gamma.shape[0]
+    nr = torch.tensor(0.7, device="cuda")
+    gs = torch.tensor(float(n) * (n - 1) / 2 / pairs.shape[0],
+                      device="cuda")
+
+    def step():
+        elogpi = dirichlet_expectation(gamma)
+        elogbeta = dirichlet_expectation(lam)
+        csr = owner_csr(pairs.reshape(-1), n)
+        gacc, sums, _ = _fp_v1_call(alt, elogpi, elogbeta, pairs, y, w,
+                                    csr)()
+        lacc = torch.stack([sums[:k], sums[k:]], dim=1)
+        gammat = 1.0 / k + gs * gacc
+        g = (1.0 - nr) * gamma + nr * gammat
+        return g, (1.0 - 0.01) * lam + 0.01 * (1.0 + gs * lacc)
+
+    return step, nr, gs
+
+
+def bench_fixed_point(alt, quick: bool) -> list:
+    """Kernel 8, its first design (csrc/alt/phi_fixed_point_v1.cu) beside the
+    present one (ops/phicomp.py:phi_fixed_point), and its pair pass beside
+    the form that fetches the next pair's rows ahead
+    (csrc/alt/phi_fixed_point_prefetch.cu), compared first (error of the
+    largest entry, gamma_hat bitwise equal, pairs whose rounds differ,
+    the fetch-ahead form's staging rows and rounds bitwise equal; above
+    K=512 the present one against the plain version in float64 on its
+    rounds); each
+    kernel's device time split by the kernels it launches (torch.profiler),
+    the endpoint CSR timed apart; then a whole svi_step with the first
+    design (plain update) beside the present one, split the same way, with
+    its peak memory; and the ELBO form at planted n=2,000, K=20. The first
+    design takes K <= 512 only."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.ops.phicomp import (
+        fixed_point_plan, pair_block_stats_plain, phi_fixed_point)
+    from svinet_torch.svi.mmsb import svi_step
+    info = (ctypes.c_int * 6)()
+    rc = alt._dll.svt_phi_fixed_point_v1_info(info)
+    assert rc == 0, rc
+    log(f"kernel 8, first design: training form <4,32,4> at K=500 "
+        f"{info[0]} registers, {info[1]} bytes of local memory a thread, "
+        f"{info[2]} warps an SM; ELBO form <4,8,1> at K=20 {info[3]} "
+        f"registers, {info[4]} bytes local, {info[5]} warps an SM")
+    for name, lib in (("csrc/alt", alt), ("present", build.library())):
+        lines = lib.log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(
+                    kern in line for kern in ("fixed_point_kernel",
+                                              "pair_pass",
+                                              "node_pass_kernel")):
+                log(f"ptxas ({name}): {line.split(chr(39))[1]}: "
+                    + "; ".join(nxt.split(":")[-1].strip()
+                                for nxt in lines[i + 2:i + 4]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    rows = [_bench_fp_elbo(alt, gen, quick)]
+    shapes = [(n, k, m, None) for n, k, m in FP_BENCH_SHAPES]
+    if not quick:
+        shapes.insert(3, (1_000_000, 500, 500_000, "stretch"))
+    for n, k, m, state in shapes:
+        if state == "stretch":
+            gamma, lam, pairs, y, w = _stretch_mmsb_inputs(gen, m)
+        else:
+            gamma, lam = _fp_random_state(gen, n, k)
+            pairs, y, w = _fp_random_pairs(gen, n, m)
+        m = pairs.shape[0]
+        elogpi = dirichlet_expectation(gamma)
+        elogbeta = dirichlet_expectation(lam)
+        csr = owner_csr(pairs.reshape(-1), n)
+        label = (f"n={n} K={k} pairs={m}" + (" (-rnode)" if m == n - 1
+                                             else "")
+                 + (" stretch engine state" if state else ""))
+
+        def present():
+            return phi_fixed_point(elogpi, elogbeta, pairs, y, w, FP_LOG_EPS,
+                                   50, 1e-5, csr=csr)
+
+        g_n, l_n, r_n = present()
+        row = {"part": "fixedpoint", "shape": label,
+               "rounds_mean": float(r_n.double().mean()),
+               "plan": fixed_point_plan(k, False, m, gamma.device)}
+        fns = {"present": present}
+        if k > 512:
+            # no first design here: the plain version in float64 on the
+            # kernel's rounds
+            g_p, l_p, _ = pair_block_stats_plain(
+                elogpi.double(), elogbeta.double(), pairs, y, w.double(),
+                FP_LOG_EPS, 50, 1e-5, given=r_n)
+            row["err_vs_plain_f64"] = max(
+                float((g_n - g_p).abs().max() / g_p.abs().max()),
+                float((l_n - l_p).abs().max() / l_p.abs().max()))
+            del g_p
+        # the pair pass with the next pair's rows fetched ahead: the same
+        # staging rows and rounds, its device time beside the present
+        # pass's in the split below
+        row["plan_prefetch"], pf = _fp_prefetch_call(alt, elogpi, elogbeta,
+                                                     pairs, y, w)
+        if pf is not None:
+            _, _, r_s, st_n = phi_fixed_point(elogpi, elogbeta, pairs, y, w,
+                                              FP_LOG_EPS, 50, 1e-5, csr=csr,
+                                              keep_staged=True)
+            st_p, r_p = pf()
+            row["prefetch_bitwise_equal"] = bool(
+                torch.equal(st_p, st_n) and torch.equal(r_p, r_s))
+            del st_n
+            fns["prefetch_pair_pass"] = pf
+        if k <= 512:
+            v1 = _fp_v1_call(alt, elogpi, elogbeta, pairs, y, w, csr)
+            g_1, s_1, r_1 = v1()
+            l_1 = torch.stack([s_1[:k], s_1[k:]], dim=1)
+            torch.cuda.synchronize()
+            err = max(float((g_n - g_1).abs().max() / g_1.abs().max()),
+                      float((l_n - l_1).abs().max() / l_1.abs().max()))
+            row["err_vs_v1"] = err
+            row["gamma_hat_bitwise_equal_v1"] = bool(torch.equal(g_n, g_1))
+            row["rounds_differ"] = int((r_n != r_1).sum())
+            fns["v1"] = v1
+            del g_1
+        del g_n
+        big = n * k >= 10**7
+        row.update({f"{name}_ms": v for name, v in
+                    timed(fns, 2 if quick else (3 if big else 20)).items()})
+        for name, fn in fns.items():
+            row[f"{name}_split_ms"] = _split_by(_device_split(fn),
+                                                FP_SPLIT_TABLE)
+        row["owner_csr_ms"] = timed(
+            {"csr": lambda: owner_csr(pairs.reshape(-1), n)}, 3)["csr"]
+        if k == 500 and m == 500_000:
+            step, nr, gs = _v1_step(alt, gamma, lam, pairs, y, w, k)
+            eta = torch.ones((k, 2), device="cuda")
+
+            def present_step():
+                return svi_step(gamma, lam, pairs, y, w, 1.0 / k, eta, gs,
+                                gs, nr, torch.tensor(0.01, device="cuda"),
+                                1.0, FP_LOG_EPS, 50, 1e-5)
+
+            steps = {"v1": step, "present": present_step}
+            a, b = step(), present_step()
+            torch.cuda.synchronize()
+            row["step_err"] = float((a[0] - b[0]).abs().max()
+                                    / a[0].abs().max())
+            del a, b
+            for name, fn in steps.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                row[f"{name}_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+                row[f"{name}_step_peak_gib"] = (
+                    torch.cuda.max_memory_allocated() - base) / 2**30
+                del out
+                row[f"{name}_step_split_ms"] = _split_by(
+                    _device_split(fn), FP_SPLIT_TABLE)
+            row.update({f"{name}_step_ms": v
+                        for name, v in timed(steps, 3).items()})
+        log(f"kernel 8 {label}: " + json.dumps(row))
+        rows.append(row)
+        del gamma, elogpi, csr, pairs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _bench_fp_elbo(alt, gen, quick: bool) -> dict:
+    """The ELBO form on all 1,999,000 pairs of the planted n=2,000, K=20
+    graph of chip_smoke.py, the first design beside the present one."""
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.ops.phicomp import phi_fixed_point
+    n, k = 2_000, 20
+    raw, _ = planted_blocks(n, k, 20, 7)
+    iu = torch.triu_indices(n, n, 1, device="cuda").t().to(
+        torch.int32).contiguous()
+    keys = torch.as_tensor(np.minimum(raw[:, 0], raw[:, 1]).astype(np.int64)
+                           * n + np.maximum(raw[:, 0], raw[:, 1]),
+                           device="cuda")
+    y = torch.isin(iu[:, 0].long() * n + iu[:, 1].long(), keys).to(
+        torch.int32).contiguous()
+    w = torch.ones(iu.shape[0], device="cuda")
+    gamma, lam = _fp_random_state(gen, n, k)
+    elogpi = dirichlet_expectation(gamma)
+    elogbeta = dirichlet_expectation(lam)
+    elogf = elogbeta.t().contiguous()
+    m = iu.shape[0]
+    rounds = torch.empty(m, dtype=torch.int32, device="cuda")
+    partial = torch.empty((build.REDUCE_SCRATCH_ROWS // 2, 1), device="cuda")
+    sums = torch.empty(1, device="cuda")
+
+    def v1():
+        alt.call("svt_phi_fixed_point_v1", elogpi.data_ptr(),
+                 elogf.data_ptr(), iu.data_ptr(), y.data_ptr(), w.data_ptr(),
+                 None, rounds.data_ptr(), partial.data_ptr(),
+                 sums.data_ptr(), *(None,) * 7, None, None, n, m, 0, 0, k,
+                 256, 50, FP_LOG_EPS, 1e-5, 1, stream())
+        return sums
+
+    def present():
+        return phi_fixed_point(elogpi, elogbeta, iu, y, w, FP_LOG_EPS, 50,
+                               1e-5, elbo=True)[0]
+
+    a, b = float(v1()[0]), float(present())
+    row = {"part": "fixedpoint", "shape": f"ELBO form, all {m} pairs of "
+           f"planted n={n} K={k}", "rel_err_vs_v1": abs(a - b) / abs(a)}
+    row.update({f"{name}_ms": v for name, v in
+                timed({"v1": v1, "present": present},
+                      2 if quick else 10).items()})
+    log(f"kernel 8 ELBO form: " + json.dumps(row))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -962,7 +1350,7 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated parts to run: designs, compact, "
                          "graph, s3forms, crossover, heldout, sectors, "
-                         "sparse (default all)")
+                         "sparse, fixedpoint (default all)")
     ap.add_argument("--out", default=str(build.BUILD_DIR),
                     help="directory for the result files")
     args = ap.parse_args()
@@ -1050,6 +1438,9 @@ def main() -> int:
                                             500, widths, False,
                                             ("engine", "late-fit"))
             torch.cuda.empty_cache()
+    if part("fixedpoint"):
+        results["rows"] += bench_fixed_point(alt, args.quick)
+        torch.cuda.empty_cache()
     if part("heldout"):
         for n, k, m in ((20_000, 20, 4_000), (100_000, 640, 50_000),
                         (1_000_000, 500, 400_000)):

@@ -9,7 +9,10 @@ converged; the port stops each pair on its own (the reference's rule).
 A converged pair moves by less than the threshold (1e-5 mean absolute
 change) in a further round, so the two agree to 2e-4 on a phi value and
 to 1e-4 of the largest entry on gamma_hat and lambda_hat (measured: 6e-5
-at K=64). Both engines draw the splits, the training sample, the
+at K=64). At K=640 the two rules part far beyond that (an open fault,
+ROADMAP): test_per_pair_exit_gap_to_jax_k640 holds the port's own path
+at the gap measured there, and the other K=640 cases hold it to 1e-4 on
+the JAX block's rounds. Both engines draw the splits, the training sample, the
 initial gamma and the minibatches from one numpy Generator in the same
 order, so the drawn pairs are bitwise equal and the report rows agree to
 1e-4."""
@@ -29,7 +32,8 @@ from svinet_torch.cli import main as torch_main
 from svinet_torch.evals.elbo import approx_elbo
 from svinet_torch.ops.edges import owner_csr
 from svinet_torch.ops.phicomp import (
-    pair_block_stats_plain, phi_fixed_point_plain)
+    NodeUpdate, node_update_plain, pair_block_stats_plain, phi_fixed_point,
+    phi_fixed_point_plain)
 from svinet_torch.svi import mmsb
 from svinet_torch.synth import write_planted
 
@@ -60,7 +64,62 @@ def _close_to_max(got, want, tol):
         np.abs(got - want).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("k", [4, 20, 64])
+def _block_rounds(ep, eq, elogbeta, y, max_iters=50, thresh=1e-5):
+    """The rounds the JAX package gives every pair of one block: the first
+    round whose largest change over the block is below thresh
+    (svinet_tpu/ops/phicomp.py:63-67), in the port's plain arithmetic."""
+    yf = (y == 1)[:, None]
+    elogf = torch.where(yf, elogbeta[:, 0], elogbeta[:, 1])
+    phi1 = torch.full(ep.shape, 1.0 / ep.shape[1])
+    phi2 = phi1.clone()
+    for i in range(max_iters):
+        n1 = torch.softmax(ep + elogf * phi2
+                           + torch.where(yf, (1.0 - phi2) * LOG_EPS, 0.0), -1)
+        n2 = torch.softmax(eq + elogf * phi1
+                           + torch.where(yf, (1.0 - phi1) * LOG_EPS, 0.0), -1)
+        change = torch.maximum((n1 - phi1).abs().mean(-1),
+                               (n2 - phi2).abs().mean(-1)).max()
+        phi1, phi2 = n1, n2
+        if not change >= thresh:
+            return i + 1
+    return max_iters
+
+
+def _on_block_rounds(blocks=1):
+    """ops/phicomp.py:phi_fixed_point's CPU path with each pair run for
+    its JAX block's rounds (`given`), not for its own exit: at K=640 the
+    two rules end link pairs in different places (see
+    test_phi_fixed_point_matches_jax), so a step is held to the JAX
+    package's on the JAX package's rounds."""
+    from svinet_torch.ops.phicomp import pair_elbo_plain
+
+    def fp(elogpi, elogbeta, pairs, y, w, log_eps, max_iters, thresh, *,
+           elbo=False, csr=None, update=None):
+        p, q = pairs[:, 0].long(), pairs[:, 1].long()
+        size = pairs.shape[0] // blocks
+        given = torch.cat([torch.full((size,), _block_rounds(
+            elogpi[p[i:i + size]], elogpi[q[i:i + size]], elogbeta,
+            y[i:i + size], max_iters, thresh))
+            for i in range(0, pairs.shape[0], size)])
+        if elbo:
+            return pair_elbo_plain(elogpi, elogbeta, pairs, y, w, log_eps,
+                                   max_iters, thresh, given=given)
+        g, lacc, r = pair_block_stats_plain(elogpi, elogbeta, pairs, y, w,
+                                            log_eps, max_iters, thresh,
+                                            given=given)
+        return (g if update is None else node_update_plain(g, update),
+                lacc, r)
+    return fp
+
+
+# K = 640: above the 512 columns that kernel 8's first design held in
+# registers.
+# There each pair runs for its JAX block's rounds: link pairs whose change
+# dips below the threshold while the block runs on end, with the
+# reference's per-pair exit, up to 0.99 away on a phi value from where
+# the block's further rounds take them (the threshold is a mean over
+# the K columns, so at K=640 it lets a round move phi by 6e-3 in all).
+@pytest.mark.parametrize("k", [4, 20, 64, 640])
 @pytest.mark.parametrize("label", [0, 1])
 def test_phi_fixed_point_matches_jax(label, k):
     _, _, elogpi, elogbeta, pairs, _, _ = _state(k + label, 200, k, 512)
@@ -68,16 +127,34 @@ def test_phi_fixed_point_matches_jax(label, k):
     ep, eq = elogpi[pairs[:, 0]], elogpi[pairs[:, 1]]
     j1, j2 = jax_fp(jnp.asarray(ep), jnp.asarray(eq), jnp.asarray(elogbeta),
                     jnp.asarray(y), LOG_EPS)
-    t1, t2, rounds = phi_fixed_point_plain(
-        torch.tensor(ep), torch.tensor(eq), torch.tensor(elogbeta),
-        torch.tensor(y), LOG_EPS)
-    np.testing.assert_allclose(t1.numpy(), np.asarray(j1), atol=2e-4)
-    np.testing.assert_allclose(t2.numpy(), np.asarray(j2), atol=2e-4)
+    tp, tq, tb, ty = (torch.tensor(a) for a in (ep, eq, elogbeta, y))
+    given = (torch.full((len(y),), _block_rounds(tp, tq, tb, ty))
+             if k > 512 else None)
+    t1, t2, rounds = phi_fixed_point_plain(tp, tq, tb, ty, LOG_EPS,
+                                           given=given)
+    j1, j2 = np.asarray(j1), np.asarray(j2)
+    if k > 512:
+        # links at K=640 run the block's 50 rounds without converging, and
+        # a few pairs are so ill-conditioned there that f32 itself (the
+        # JAX package's or the port's) ends 2e-4 to 1e-3 away from the
+        # same rounds in float64: such pairs are counted, at most 1%, and
+        # the others held to 2e-4
+        d1, d2, _ = phi_fixed_point_plain(tp.double(), tq.double(),
+                                          tb.double(), ty, LOG_EPS,
+                                          given=given)
+        f32_err = torch.stack([(a.double() - b).abs().amax(1) for a, b in (
+            (t1, d1), (t2, d2), (torch.tensor(j1), d1),
+            (torch.tensor(j2), d2))]).amax(0).numpy()
+        ok = f32_err <= 2e-4
+        assert (~ok).sum() <= 0.01 * len(ok), (~ok).sum()
+        t1, t2, j1, j2 = t1[ok], t2[ok], j1[ok], j2[ok]
+    np.testing.assert_allclose(t1.numpy(), j1, atol=2e-4)
+    np.testing.assert_allclose(t2.numpy(), j2, atol=2e-4)
     np.testing.assert_allclose(t1.sum(-1).numpy(), 1.0, atol=1e-5)
     assert 1 <= int(rounds.min()) and int(rounds.max()) <= 50
 
 
-@pytest.mark.parametrize("k", [4, 20, 64])
+@pytest.mark.parametrize("k", [4, 20, 64, 640])
 def test_pair_block_stats_matches_jax(k):
     """Random pairs, links and nonlinks: pairs that converge in a few
     rounds and pairs that take all 50 share the JAX package's blocks."""
@@ -86,14 +163,17 @@ def test_pair_block_stats_matches_jax(k):
     jg, jl = jmmsb.pair_block_stats(
         jnp.asarray(elogpi), jnp.asarray(elogbeta), jnp.asarray(pairs),
         jnp.asarray(y), jnp.asarray(w), 2, LOG_EPS, 50, 1e-5)
-    tg, tl, rounds = pair_block_stats_plain(
-        torch.tensor(elogpi), torch.tensor(elogbeta), torch.tensor(pairs),
-        torch.tensor(y), torch.tensor(w), LOG_EPS, 50, 1e-5)
+    args = [torch.tensor(a) for a in (elogpi, elogbeta, pairs, y, w)]
+    if k > 512:
+        tg, tl, rounds = _on_block_rounds(blocks=2)(*args, LOG_EPS, 50, 1e-5)
+    else:
+        tg, tl, rounds = pair_block_stats_plain(*args, LOG_EPS, 50, 1e-5)
     _close_to_max(tg.numpy(), jg, 1e-4)
     _close_to_max(tl.numpy(), jl, 1e-4)
     r = rounds.numpy()
     assert (r[-30:] == 0).all()
-    assert r[:-30].min() <= 10 and r[:-30].max() >= 30
+    if k <= 512:
+        assert r[:-30].min() <= 10 and r[:-30].max() >= 30
 
 
 def test_endpoint_csr_lists_every_slot_in_order():
@@ -122,13 +202,18 @@ def test_nonuniform_weights_match_jax():
     assert int(tn) == int(jn)
 
 
-@pytest.mark.parametrize("infthresh,nonuniform", [(0.0, False), (0.2, False),
-                                                  (0.2, True)],
-                         ids=["plain", "inf", "nonuniform"])
-def test_svi_step_matches_jax(infthresh, nonuniform):
-    gamma, lam, _, _, pairs, y, w = _state(5, 120, 8, 600)
+@pytest.mark.parametrize("infthresh,nonuniform,k",
+                         [(0.0, False, 8), (0.2, False, 8), (0.2, True, 8),
+                          (0.0, False, 640), (0.002, False, 640),
+                          (0.002, True, 640)],
+                         ids=["plain", "inf", "nonuniform", "plain-k640",
+                              "inf-k640", "nonuniform-k640"])
+def test_svi_step_matches_jax(infthresh, nonuniform, k, monkeypatch):
+    if k > 512:
+        monkeypatch.setattr(mmsb, "phi_fixed_point", _on_block_rounds())
+    gamma, lam, _, _, pairs, y, w = _state(5, 120, k, 600)
     w[:] = 1.0
-    alpha, eta = 1.0 / 8, np.tile([1.0, 1.0], (8, 1)).astype(np.float32)
+    alpha, eta = 1.0 / k, np.tile([1.0, 1.0], (k, 1)).astype(np.float32)
     sc = (1.0 if nonuniform else 37.5)
     args = (np.float32(sc), np.float32(sc), np.float32(0.7),
             np.float32(0.4), np.float32(1.0))
@@ -147,12 +232,23 @@ def test_svi_step_matches_jax(infthresh, nonuniform):
 
 
 def test_batch_step_and_elbo_match_jax():
-    gamma, lam, _, _, _, _, _ = _state(9, 60, 5, 1)
+    _batch_step_and_elbo(5)
+
+
+def test_batch_step_and_elbo_match_jax_k640(monkeypatch):
+    import svinet_torch.evals.elbo as elbo
+    monkeypatch.setattr(mmsb, "phi_fixed_point", _on_block_rounds())
+    monkeypatch.setattr(elbo, "phi_fixed_point", _on_block_rounds())
+    _batch_step_and_elbo(640)
+
+
+def _batch_step_and_elbo(k):
+    gamma, lam, _, _, _, _, _ = _state(9, 60, k, 1)
     iu = np.triu_indices(60, 1)
     pairs = np.stack(iu, 1).astype(np.int32)
     y = (np.random.default_rng(2).random(len(pairs)) < 0.1).astype(np.int32)
     w = np.ones(len(pairs), np.float32)
-    alpha, eta = 0.2, np.tile([1.0, 3.0], (5, 1)).astype(np.float32)
+    alpha, eta = 0.2, np.tile([1.0, 3.0], (k, 1)).astype(np.float32)
     jg, jl = jmmsb.batch_step(
         jnp.asarray(gamma), jnp.asarray(lam), jnp.asarray(pairs),
         jnp.asarray(y), jnp.asarray(w), jnp.float32(alpha), jnp.asarray(eta),
@@ -170,6 +266,123 @@ def test_batch_step_and_elbo_match_jax():
                      torch.tensor(pairs), torch.tensor(y), torch.tensor(w),
                      alpha, torch.tensor(eta), LOG_EPS)
     assert float(te) == pytest.approx(float(je), rel=1e-4)
+
+
+# How far the port's own path (each pair stopped on its own, no `given`)
+# lies from the JAX package's (a block stopped when all its pairs have) at
+# K=640, as the largest difference over the largest entry: an open fault
+# (ROADMAP, "Open faults"). Measured on these inputs 0.51-0.65 on gamma,
+# gamma_hat, lambda and lambda_hat, 0.049 relative on the ELBO, where K <= 64
+# stays within 1e-4. The limits hold the gap where it was found, so that
+# any further drift shows; they tighten to 1e-4 when the rules are
+# reconciled.
+WIDE_EXIT_GAP = 0.7
+WIDE_EXIT_ELBO_GAP = 0.06
+
+
+@pytest.mark.parametrize("part", ["pair_block_stats", "svi_step",
+                                  "batch_step"])
+def test_per_pair_exit_gap_to_jax_k640(part):
+    """The port's real path at K=640, no stand-in, against the JAX
+    package's: the gap the two exit rules leave, at the limits above; and
+    no pair runs more rounds than its JAX block."""
+    k = 640
+
+    def gap(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return np.abs(got - want).max() / np.abs(want).max()
+
+    if part == "pair_block_stats":
+        _, _, elogpi, elogbeta, pairs, y, w = _state(7 * k, 200, k, 1024)
+        w[-30:] = 0.0
+        jg, jl = jmmsb.pair_block_stats(
+            jnp.asarray(elogpi), jnp.asarray(elogbeta), jnp.asarray(pairs),
+            jnp.asarray(y), jnp.asarray(w), 2, LOG_EPS, 50, 1e-5)
+        args = [torch.tensor(a) for a in (elogpi, elogbeta, pairs, y, w)]
+        tg, tl, rounds = pair_block_stats_plain(*args, LOG_EPS, 50, 1e-5)
+        p, q = args[2][:, 0].long(), args[2][:, 1].long()
+        for lo in (0, 512):
+            block = _block_rounds(args[0][p[lo:lo + 512]],
+                                  args[0][q[lo:lo + 512]], args[1],
+                                  args[3][lo:lo + 512])
+            assert int(rounds[lo:lo + 512].max()) <= block
+    elif part == "svi_step":
+        gamma, lam, _, _, pairs, y, w = _state(5, 120, k, 600)
+        w[:] = 1.0
+        alpha, eta = 1.0 / k, np.tile([1.0, 1.0], (k, 1)).astype(np.float32)
+        args = (np.float32(37.5), np.float32(37.5), np.float32(0.7),
+                np.float32(0.4), np.float32(1.0))
+        jg, jl = jmmsb.svi_step(
+            jnp.asarray(gamma), jnp.asarray(lam), jnp.asarray(pairs),
+            jnp.asarray(y), jnp.asarray(w), jnp.float32(alpha),
+            jnp.asarray(eta), *(jnp.asarray(a) for a in args),
+            jnp.float32(LOG_EPS), num_blocks=1, max_iters=50)
+        tg, tl = mmsb.svi_step(
+            torch.tensor(gamma), torch.tensor(lam), torch.tensor(pairs),
+            torch.tensor(y), torch.tensor(w), alpha, torch.tensor(eta),
+            *(torch.tensor(a) for a in args), LOG_EPS, 50)
+    else:
+        gamma, lam, _, _, _, _, _ = _state(9, 60, k, 1)
+        pairs = np.stack(np.triu_indices(60, 1), 1).astype(np.int32)
+        y = (np.random.default_rng(2).random(len(pairs)) < 0.1).astype(
+            np.int32)
+        w = np.ones(len(pairs), np.float32)
+        alpha, eta = 0.2, np.tile([1.0, 3.0], (k, 1)).astype(np.float32)
+        def j():    # fresh arrays: batch_step donates its inputs
+            return [jnp.asarray(a) for a in (gamma, lam, pairs, y, w)]
+
+        t = [torch.tensor(a) for a in (gamma, lam, pairs, y, w)]
+        jg, jl = jmmsb.batch_step(*j(), jnp.float32(alpha), jnp.asarray(eta),
+                                  jnp.float32(1.0), jnp.float32(LOG_EPS),
+                                  num_blocks=1, max_iters=50)
+        tg, tl = mmsb.batch_step(*t, alpha, torch.tensor(eta), 1.0,
+                                 LOG_EPS, 50)
+        je = jax_elbo(*j(), jnp.float32(alpha), jnp.asarray(eta),
+                      jnp.float32(LOG_EPS), num_blocks=1)
+        te = approx_elbo(*t, alpha, torch.tensor(eta), LOG_EPS)
+        assert abs(float(te) - float(je)) <= WIDE_EXIT_ELBO_GAP * abs(
+            float(je))
+    assert gap(tg, jg) <= WIDE_EXIT_GAP, gap(tg, jg)
+    assert gap(tl, jl) <= WIDE_EXIT_GAP, gap(tl, jl)
+
+
+@pytest.mark.parametrize("k", [8, 640])
+@pytest.mark.parametrize("batch", [False, True], ids=["svi", "batch"])
+def test_node_update_plain_matches_jax_steps(batch, k):
+    """The node pass's update in plain PyTorch (ops/phicomp.py:
+    node_update_plain) over the plain statistics: the JAX package's
+    svi_step and batch_step on the same seeded inputs."""
+    gamma, lam, elogpi, elogbeta, pairs, y, w = _state(13, 100, k, 500)
+    w[:] = 1.0
+    alpha = np.float32(1.0 / k)
+    eta = np.tile([1.0, 2.0], (k, 1)).astype(np.float32)
+    from scipy.special import digamma
+    elogpi = (digamma(gamma) - digamma(gamma.sum(1, keepdims=True))
+              ).astype(np.float32)
+    args = [torch.tensor(a) for a in (elogpi, elogbeta, pairs, y, w)]
+    gacc, _, _ = (_on_block_rounds() if k > 512 else pair_block_stats_plain)(
+        *args, LOG_EPS, 50, 1e-5)
+    j = [jnp.asarray(a) for a in (gamma, lam, pairs, y, w)]
+    if batch:
+        jg, _ = jmmsb.batch_step(*j, jnp.float32(alpha), jnp.asarray(eta),
+                                 jnp.float32(0.0), jnp.float32(LOG_EPS),
+                                 num_blocks=1, max_iters=50)
+        upd = NodeUpdate(None, float(alpha))
+    else:
+        gs, nr = np.float32(41.5), np.float32(0.6)
+        jg, _ = jmmsb.svi_step(*j, jnp.float32(alpha), jnp.asarray(eta),
+                               jnp.float32(gs), jnp.float32(gs),
+                               jnp.float32(nr), jnp.float32(0.1),
+                               jnp.float32(0.0), jnp.float32(LOG_EPS),
+                               num_blocks=1, max_iters=50)
+        upd = NodeUpdate(torch.tensor(gamma), float(alpha), torch.tensor(gs),
+                         torch.tensor(nr))
+    tg = node_update_plain(gacc, upd)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-4)
+    if k <= 512:
+        # the wrapper on the CPU takes the same path
+        ug, _, _ = phi_fixed_point(*args, LOG_EPS, 50, 1e-5, update=upd)
+        assert torch.equal(ug, tg)
 
 
 # --- the engine, end to end -----------------------------------------------
