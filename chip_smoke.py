@@ -22,9 +22,10 @@ and so are the launches of a compacted sweep (pad columns at alpha with
 the -prune engine's state is looked at while it is still compacted.
 The held-out sums kernel is held to the plain tail it replaces and to its
 own arithmetic in plain PyTorch. MMSBInfer's per-pair phi fixed point
-(kernel 8, with its ELBO form) is held pair by pair to its plain version
-in float64 on the kernel's rounds, at K = 20, 500, 1024 and 2000, and the
-edge assignments (kernel 9) to theirs; MMSBInfer runs through the CLI
+(kernel 8, with its ELBO form, under the JAX package's block rule) is held
+pair by pair to its plain version in float64 on the kernel's rounds, at
+K = 20, 500, 1024, 2000 and 8000, and the edge assignments (kernel 9) to
+theirs and to PR 8's design bit for bit; MMSBInfer runs through the CLI
 with no engine flag, -rnode, -stratified -rpair, -batch -logl and at
 K=640, its rows held to the CPU port's (`python3 chip_smoke.py
 --record-cpu` prints them); the default link-sampling run, cut after a
@@ -159,8 +160,8 @@ FP_SHAPES = ((20_000, 20, 10_000), (20_000, 20, -1),
 FP_SHARED_MAX_K = 2_000
 MMSB_STRETCH_S = 500_000
 # max |kernel - plain| over the largest |plain| (gamma_hat, lambda_hat), and
-# relative for the ELBO sum: both stop each pair on its own rule, and sum
-# in other orders
+# relative for the ELBO sum: the plain version runs each pair for the
+# rounds the kernel gave its block, in float64, and sums in other orders
 FP_TOL = 1e-4
 # a pair's phi in the kernel and in the plain version (f64, the same
 # rounds) further apart than FP_SPLIT_PHI has gone to another attractor;
@@ -175,11 +176,11 @@ MMSB_ROW_RTOL = 1e-4
 MMSB_CPU_ROWS = {
     "mmsb": {
         "heldout": [
-            [20, -1.857216614, -0.025314481, -3.689118882, -0.02528942,
+            [20, -1.857216614, -0.025314481, -3.689118635, -0.02528942,
              -0.003652226, -0.028941646],
             [40, -1.857174772, -0.025315893, -3.68903347, -0.02529083,
              -0.003652141, -0.028942972],
-            [60, -1.857200692, -0.025316101, -3.689085063, -0.025291039,
+            [60, -1.857200815, -0.025316101, -3.689085063, -0.025291039,
              -0.003652192, -0.028943231],
         ],
         "validation": [],
@@ -199,11 +200,11 @@ MMSB_CPU_ROWS = {
     },
     "mmsb-strat": {
         "heldout": [
-            [20, -1.857066032, -0.025323596, -3.688808584, -0.025298526,
-             -0.003651919, -0.028950444],
-            [40, -1.857071093, -0.02532403, -3.688818211, -0.025298959,
-             -0.003651928, -0.028950887],
-            [60, -1.857078251, -0.025324336, -3.688832035, -0.025299265,
+            [20, -1.857066032, -0.025323598, -3.688808584, -0.025298527,
+             -0.003651919, -0.028950446],
+            [40, -1.857071093, -0.025324032, -3.688818211, -0.025298961,
+             -0.003651928, -0.028950889],
+            [60, -1.857078128, -0.025324336, -3.688832035, -0.025299265,
              -0.003651942, -0.028951207],
         ],
         "validation": [],
@@ -211,21 +212,21 @@ MMSB_CPU_ROWS = {
     },
     "mmsb-batch": {
         "heldout": [
-            [1, -3.194748092, -0.001678792, -6.387817383, -0.001663499,
-             -0.058193368, -0.059856866],
-            [2, -3.124370198, -0.0019282, -6.246812758, -0.001910634,
-             -0.056908808, -0.058819442],
-            [3, -3.075157752, -0.002122423, -6.148192689, -0.002103088,
-             -0.056010374, -0.058113461],
-            [4, -3.03656643, -0.002286345, -6.07084639, -0.002265517,
-             -0.055305745, -0.057571261],
+            [1, -3.194748092, -0.001678791, -6.387817383, -0.001663497,
+             -0.058193368, -0.059856865],
+            [2, -3.124369862, -0.001928199, -6.246811416, -0.001910633,
+             -0.056908796, -0.058819429],
+            [3, -3.075157082, -0.002122422, -6.148192018, -0.002103087,
+             -0.056010368, -0.058113455],
+            [4, -3.03656576, -0.002286343, -6.070845049, -0.002265515,
+             -0.055305732, -0.057571247],
         ],
         "validation": [],
         "logl": [
             [1, -1267418.0],
-            [2, -1237761.0],
-            [3, -1210852.0],
-            [4, -1185474.0],
+            [2, -1237762.0],
+            [3, -1210853.0],
+            [4, -1185473.0],
         ],
     },
     "mmsb-wide": {
@@ -2242,29 +2243,38 @@ def _fp_pairs(dev, gen, n, m):
 def _split_pairs(elogpi, elogbeta, pairs, y, w, rounds, staged, log_eps):
     """The pairs whose phi (from the kernel's staging rows) differs from
     the plain version's in float64 on the same rounds by more than
-    FP_SPLIT_PHI, and the largest difference over the others."""
+    FP_SPLIT_PHI, and the largest difference over the others (pairs of
+    weight 0 have no staging rows and are left out)."""
     from svinet_torch.ops.phicomp import _plain_blocks, phi_fixed_point_plain
     split = torch.zeros(pairs.shape[0], dtype=torch.bool,
                         device=pairs.device)
     worst = 0.0
     for lo, hi in _plain_blocks(pairs.shape[0], elogpi.shape[1]):
         p, q = pairs[lo:hi, 0].long(), pairs[lo:hi, 1].long()
-        ww = w[lo:hi].double()
+        live = w[lo:hi] != 0
         p1, p2, _ = phi_fixed_point_plain(
             elogpi[p].double(), elogpi[q].double(), elogbeta.double(),
-            y[lo:hi], log_eps, 50, 1e-5, active=ww != 0,
-            given=rounds[lo:hi])
+            y[lo:hi], log_eps, 50, 1e-5, given=rounds[lo:hi])
         d = torch.maximum(
-            (staged[2 * lo:2 * hi:2].double() - ww[:, None] * p1).abs()
-            .amax(1),
-            (staged[2 * lo + 1:2 * hi:2].double() - ww[:, None] * p2).abs()
-            .amax(1)) / ww.clamp_min(1e-30)
-        bad = (d > FP_SPLIT_PHI) & (ww != 0)
+            (staged[2 * lo:2 * hi:2].double() - p1).abs().amax(1),
+            (staged[2 * lo + 1:2 * hi:2].double() - p2).abs().amax(1))
+        bad = (d > FP_SPLIT_PHI) & live
         split[lo:hi] = bad
-        ok = d[(~bad) & (ww != 0)]
+        ok = d[(~bad) & live]
         if ok.numel():
             worst = max(worst, float(ok.max()))
     return split, worst
+
+
+def _block_rounds_differ(r_k, r_p):
+    """Blocks of the rule whose rounds on the card (r_k, each pair's R_b)
+    and in the plain version (r_p) differ: a block whose largest change
+    sits within an f32 unit of the threshold can end a round apart.
+    Returns (blocks, blocks that differ, the largest difference)."""
+    from svinet_torch.ops.phicomp import BLOCK
+    bk, bp = r_k[::BLOCK].long(), r_p[::BLOCK].long()
+    return (bk.numel(), int((bk != bp).sum()),
+            int((bk - bp).abs().max()) if bk.numel() else 0)
 
 
 def _close_to_max(got, want):
@@ -2274,22 +2284,24 @@ def _close_to_max(got, want):
 
 def phase1_phi_fixed_point(dev):
     """Kernel 8 at every shape of FP_SHAPES against its plain version run
-    in float64 for the rounds each pair took in the kernel, two launches
-    bitwise equal, pairs of weight 0 taking no round; then its ELBO form on
-    all pairs of a planted n=2,000, K=20 graph. Each pair's phi (the
-    kernel's staging rows) is held to the plain version's: a few pairs
-    whose iteration has two attractors end in different ones in f32 and
-    in f64 (in one -rnode minibatch at n=1M, a pair moved an entry of
+    in float64 for the rounds the kernel gave each pair's block, two
+    launches bitwise equal, every pair of a block (weight 0 too) on the
+    block's rounds; then its ELBO form on all pairs of a planted n=2,000,
+    K=20 graph, each pair's term held to the plain one. Each pair's phi
+    (the kernel's staging rows) is held to the plain version's: a few
+    pairs whose iteration has two attractors end in different ones in f32
+    and in f64 (in one -rnode minibatch at n=1M, a pair moved an entry of
     gamma_hat and of lambda_hat by 1.1 out of 16,000); their share is
     logged and held under FP_SPLIT_SHARE, and gamma_hat and lambda_hat
     of a second launch with those pairs at weight 0 are held to FP_TOL of
-    their largest entry. The plain version left to its own exit rule is
-    logged beside. Returns the reports of the training form (at the
-    stretch random-pair shape) and of the ELBO form."""
+    their largest entry. The plain version left to the rule itself is
+    logged beside, with the blocks whose rounds differ from the kernel's.
+    Returns the reports of the training form (at the stretch random-pair
+    shape) and of the ELBO form."""
     from svinet_torch.ops.edges import owner_csr
     from svinet_torch.ops.phicomp import (
-        fixed_point_plan, pair_block_stats_plain, pair_elbo_plain,
-        phi_fixed_point)
+        BLOCK, fixed_point_plan, pair_block_stats_plain, pair_elbo_plain,
+        pair_elbo_terms, phi_fixed_point, phi_fixed_point_plain)
     log_eps = float(np.float32(np.log(1e-30)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -2309,7 +2321,7 @@ def phase1_phi_fixed_point(dev):
                                           pairs, y, w.to(dt), log_eps, 50,
                                           1e-5, given=given)
 
-        g_k, l_k, r_k, staged = phi_fixed_point(
+        g_k, l_k, r_k, staged, stop = phi_fixed_point(
             elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, csr=csr,
             keep_staged=True)
         g_2, l_2, r_2 = run()
@@ -2317,6 +2329,10 @@ def phase1_phi_fixed_point(dev):
         assert (torch.equal(g_k, g_2) and torch.equal(l_k, l_2)
                 and torch.equal(r_k, r_2)), (n, k, m, "two launches differ")
         del g_2
+        # every pair of a block on the block's rounds
+        blk = torch.arange(m, device=dev) // BLOCK
+        assert torch.equal(r_k, r_k[::BLOCK][blk]), (n, k, m)
+        assert int(r_k.min()) >= 1 and int(r_k.max()) <= 50
         g_p, l_p, _ = plain(r_k, torch.float64)
         err_all = max(_close_to_max(g_k, g_p), _close_to_max(l_k, l_p))
         del g_p
@@ -2327,8 +2343,10 @@ def phase1_phi_fixed_point(dev):
         assert n_split <= FP_SPLIT_SHARE * m, (n, k, m, n_split)
         unconv = r_k >= 50
         w_c = torch.where(split, 0.0, w)
-        g_c, l_c, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w_c,
-                                      log_eps, 50, 1e-5, csr=csr)
+        g_c, l_c, r_c = phi_fixed_point(elogpi, elogbeta, pairs, y, w_c,
+                                        log_eps, 50, 1e-5, csr=csr)
+        # weights enter only the sums: the same rounds
+        assert torch.equal(r_c, r_k), (n, k, m)
         g_p, l_p, _ = pair_block_stats_plain(
             elogpi.double(), elogbeta.double(), pairs, y, w_c.double(),
             log_eps, 50, 1e-5, given=r_k)
@@ -2339,16 +2357,16 @@ def phase1_phi_fixed_point(dev):
         g_f, l_f, r_p = plain()
         err_free = max(_close_to_max(g_k, g_f), _close_to_max(l_k, l_f))
         del g_f
-        zero = w == 0
-        assert int(r_k[zero].abs().sum()) == 0
-        active = int((~zero).sum())
-        rs = r_k[~zero].double()
-        same = float((r_k == r_p).float().mean())
+        n_blocks, n_differ, r_gap = _block_rounds_differ(r_k, r_p)
+        # pass 1's rounds to each pair's final phis; those past R_b ran
+        # again for R_b in pass 2
+        reruns = int(((stop > r_k) & (w != 0)).sum())
+        needed = float(torch.minimum(stop, r_k).double().sum())
         big = n * k >= 10**7
         ms = cuda_ms(run, 3 if big else 20)
         plain_ms = cuda_ms(plain, 1 if big else 3)
-        bnd = fp_bound(n, k, m, active, float(rs.sum()))
-        floor = fp_floor_ms(n, k, active)
+        bnd = fp_bound(n, k, m, m, needed)
+        floor = fp_floor_ms(n, k, m)
         plan = fixed_point_plan(k, False, m, dev)
         assert plan["layout"] == ("shared rows" if k <= FP_SHARED_MAX_K
                                   else "device rows"), (k, plan)
@@ -2360,15 +2378,17 @@ def phase1_phi_fixed_point(dev):
             f"{plan['blocks']} blocks of {plan['groups_per_block']} pairs, "
             f"{plan['blocks_per_sm']} blocks an SM, {plan['lanes']} lanes a "
             f"pair, {plan['layout']} ({plan['smem_bytes']} bytes a block), "
-            f"{plan['registers']} registers; rounds "
-            f"mean {float(rs.mean()):.2f} max {int(rs.max())} "
-            f"({int(unconv.sum())} pairs at 50); on the kernel's rounds phi "
-            f"within {phi_err:.3e} of the plain version's on all but "
-            f"{n_split} pairs (other attractor), err (of the largest "
-            f"entry) {err:.3e} without them ({err_all:.3e} with them); "
-            f"left to its own exit the plain "
-            f"version takes the kernel's count on {same:.4%} of the pairs, "
-            f"err {err_free:.3e}; two launches bitwise equal")
+            f"{plan['registers']} registers; {n_blocks} blocks of "
+            f"{BLOCK}, R_b mean {float(r_k[::BLOCK].double().mean()):.2f}"
+            f" ({int(unconv.sum())} pairs at 50); pass 1 rounds to the final "
+            f"phis mean {float(stop.double().mean()):.2f}, needed within R_b "
+            f"{needed / m:.2f} a pair, {reruns} pairs run again in pass 2; "
+            f"on the kernel's rounds phi within {phi_err:.3e} of the plain "
+            f"version's on all but {n_split} pairs (other attractor), err "
+            f"(of the largest entry) {err:.3e} without them ({err_all:.3e} "
+            f"with them); the plain version under the rule itself: R_b "
+            f"differs on {n_differ} of {n_blocks} blocks (by at most "
+            f"{r_gap}), err {err_free:.3e}; two launches bitwise equal")
         if (n, k, m) == (1_000_000, 500, 500_000):
             report = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
         del g_k, g_p, elogpi, csr
@@ -2391,28 +2411,61 @@ def phase1_phi_fixed_point(dev):
         return phi_fixed_point(elogpi, elogbeta, iu, y, w, log_eps, 50, 1e-5,
                                elbo=True)
 
-    e_k, r_k = run_elbo()
-    e_2, _ = run_elbo()
+    e_k, r_k, terms, stop = phi_fixed_point(elogpi, elogbeta, iu, y, w,
+                                            log_eps, 50, 1e-5, elbo=True,
+                                            keep_staged=True)
+    e_2, r_2 = run_elbo()
     e_p, _ = pair_elbo_plain(elogpi.double(), elogbeta.double(), iu, y,
                              w.double(), log_eps, 50, 1e-5, given=r_k)
     torch.cuda.synchronize()
-    assert torch.equal(e_k, e_2)
+    assert torch.equal(e_k, e_2) and torch.equal(r_k, r_2)
     err_e = abs(float(e_k) - float(e_p)) / abs(float(e_p))
     assert err_e <= FP_TOL, err_e
+    # each pair's term on the kernel's rounds, in float64 (relative, or
+    # absolute under 1): a pair whose phi went to another attractor in f32
+    # (further than FP_SPLIT_PHI) is counted as in the training form, the
+    # others held to FP_TOL
+    term_err, n_split = 0.0, 0
+    for lo_, hi_ in _spans(iu.shape[0], 1 << 20):
+        p, q = iu[lo_:hi_, 0].long(), iu[lo_:hi_, 1].long()
+        ep, eq = elogpi[p].double(), elogpi[q].double()
+        p1, p2, _ = phi_fixed_point_plain(ep, eq, elogbeta.double(),
+                                          y[lo_:hi_], log_eps,
+                                          given=r_k[lo_:hi_])
+        t = pair_elbo_terms(p1, p2, ep, eq, elogbeta.double(), y[lo_:hi_],
+                            log_eps)
+        d = (terms[lo_:hi_].double() - t).abs() / t.abs().clamp_min(1.0)
+        bad = d > FP_SPLIT_PHI
+        n_split += int(bad.sum())
+        if (~bad).any():
+            term_err = max(term_err, float(d[~bad].max()))
+    assert n_split <= FP_SPLIT_SHARE * iu.shape[0], n_split
+    assert term_err <= FP_TOL, term_err
+    _, r_p = pair_elbo_plain(elogpi, elogbeta, iu, y, w, log_eps, 50, 1e-5)
+    n_blocks, n_differ, r_gap = _block_rounds_differ(r_k, r_p)
     ms = cuda_ms(run_elbo, 5)
     plain_ms = cuda_ms(lambda: pair_elbo_plain(elogpi, elogbeta, iu, y, w,
                                                log_eps, 50, 1e-5), 2)
-    rs = r_k.double()
-    bnd = fp_bound(n, k, iu.shape[0], iu.shape[0], float(rs.sum()), True)
+    needed = float(torch.minimum(stop, r_k).double().sum())
+    bnd = fp_bound(n, k, iu.shape[0], iu.shape[0], needed, True)
     floor = fp_floor_ms(n, k, iu.shape[0], elbo=True)
     log(f"phase 1: phi_fixed_point ELBO form, all {iu.shape[0]} pairs of a "
         f"planted n={n} K={k} graph ({int(y.sum())} links): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}), floor {floor:.4f} ms, rounds mean "
-        f"{float(rs.mean()):.2f} max {int(rs.max())}, sum {float(e_k):.6e} "
-        f"against {float(e_p):.6e} (rel err {err_e:.3e}), two launches "
-        f"bitwise equal")
+        f"({bnd[1]}), floor {floor:.4f} ms, R_b mean "
+        f"{float(r_k[::BLOCK].double().mean()):.2f} max {int(r_k.max())}, "
+        f"needed within R_b {needed / iu.shape[0]:.2f} a pair; sum "
+        f"{float(e_k):.6e} against {float(e_p):.6e} (rel err {err_e:.3e}), "
+        f"each pair's term within {term_err:.3e} (relative, or absolute "
+        f"under 1) but {n_split} (other attractor); the plain version "
+        f"under the rule itself: R_b differs on {n_differ} of {n_blocks} "
+        f"blocks (by at most {r_gap}); two launches bitwise equal")
     return report, dict(_report(err_e, ms, plain_ms, bnd), floor_ms=floor)
+
+
+def _spans(m, size):
+    for lo in range(0, m, size):
+        yield lo, min(lo + size, m)
 
 
 def assign_bound(n, k, e, n_owners):
@@ -2431,10 +2484,41 @@ def assign_bound(n, k, e, n_owners):
     return (t[by], by), floor, floor2
 
 
+def _assign_v1(elogpi, elb0, edges, csr):
+    """PR 8's kernel 9 (csrc/alt/edge_assign_v1.cu, built on first use
+    beside the library, off the path) on the wrapper's inputs: (argmax,
+    max phi)."""
+    from svinet_torch.kernels import build
+    global _ASSIGN_V1
+    if _ASSIGN_V1 is None:
+        _ASSIGN_V1 = build.build_library(
+            "svinet_torch_assign_v1",
+            [build.CSRC / "alt" / "edge_assign_v1.cu",
+             build.CSRC / "runtime.cu"],
+            {"svt_edge_assign_v1": build.SIGNATURES["svt_edge_assign"]})
+    e = edges.shape[0]
+    argmax = torch.empty(e, dtype=torch.int32, device=edges.device)
+    maxval = torch.empty(e, dtype=torch.float32, device=edges.device)
+    _ASSIGN_V1.call("svt_edge_assign_v1", elogpi.data_ptr(), elb0.data_ptr(),
+                    edges.data_ptr(), csr.rowptr.data_ptr(),
+                    csr.nbr.data_ptr(), csr.seg_node.data_ptr(),
+                    csr.seg_begin.data_ptr(), csr.seg_end.data_ptr(),
+                    argmax.data_ptr(), maxval.data_ptr(), elogpi.shape[0],
+                    csr.seg_node.shape[0], elogpi.shape[1], csr.seg_len,
+                    torch.cuda.current_stream().cuda_stream)
+    return argmax, maxval
+
+
+_ASSIGN_V1 = None
+
+
 def check_edge_assign(dev, gamma, lam, edges, mask, csr, label):
     """Kernel 9 against its plain version on one state: argmax equal on
     every link whose two largest phi differ by more than 1e-6, max phi to
-    1e-6, two launches bitwise equal. Returns its report."""
+    1e-6, two launches bitwise equal; and against PR 8's design
+    (csrc/alt/edge_assign_v1.cu) bit for bit, both timed with Elogpi and
+    Elogbeta given and with kernel 1 on gamma and lambda (the wrapper).
+    Returns its report."""
     from svinet_torch.ops.expectations import dirichlet_expectation
     from svinet_torch.svi.communities import (
         edge_assignments, edge_assignments_plain)
@@ -2443,8 +2527,12 @@ def check_edge_assign(dev, gamma, lam, edges, mask, csr, label):
     elogpi = dirichlet_expectation(gamma)
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
     a_p, m_p = edge_assignments_plain(elogpi, elb0, edges)
+    a_1, m_1 = _assign_v1(elogpi, elb0, edges, csr)
     torch.cuda.synchronize()
     assert torch.equal(a_k, a_2) and torch.equal(m_k, m_2), label
+    assert torch.equal(a_k, a_1) and torch.equal(m_k, m_1), (
+        label, "not PR 8's bits", int((a_k != a_1).sum()),
+        float((m_k - m_1).abs().max()))
     # the gap between the two largest phi of each link, blocked
     e, k = edges.shape[0], gamma.shape[1]
     block = max(1, (1 << 26) // k)
@@ -2459,26 +2547,60 @@ def check_edge_assign(dev, gamma, lam, edges, mask, csr, label):
     share = float((a_k == a_p).float().mean())
     assert agree and err <= 1e-6, (label, agree, err)
     n = gamma.shape[0]
+    reps = 3 if e * k > 10**9 else 20
     ms = cuda_ms(lambda: edge_assignments(gamma, lam, edges, mask, csr=csr),
-                 3 if e * k > 10**9 else 20)
+                 reps)
+    alone = {name: cuda_ms(fn, reps) for name, fn in (
+        ("v1", lambda: _assign_v1(elogpi, elb0, edges, csr)),
+        ("new", lambda: _assign_v2(elogpi, elb0, edges, csr)),
+        ("v1 again", lambda: _assign_v1(elogpi, elb0, edges, csr)),
+        ("new again", lambda: _assign_v2(elogpi, elb0, edges, csr)))}
     plain_ms = cuda_ms(lambda: edge_assignments_plain(elogpi, elb0, edges),
                        1 if e * k > 10**9 else 5)
     owners = int((csr.rowptr[1:] > csr.rowptr[:-1]).sum())
     bnd, floor, floor2 = assign_bound(n, k, e, owners)
+    new_ms = min(alone["new"], alone["new again"])
+    v1_ms = min(alone["v1"], alone["v1 again"])
     log(f"phase {label}: edge_assignments n={n} K={k} links={e}: kernel "
-        f"{ms:.4f} ms (with kernel 1 on gamma and lambda), plain "
-        f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor of "
-        f"E + {owners} uncached rows {floor:.4f} ms (2E rows: "
-        f"{floor2:.4f} ms), argmax equal on {share:.6%} of the links and on "
-        f"every link whose top two phi differ by more than 1e-6 "
-        f"({int(clear.sum())}), max phi err {err:.3e}, two launches "
-        f"bitwise equal")
-    return _report(err, ms, plain_ms, bnd)
+        f"{ms:.4f} ms (with kernel 1 on gamma and lambda), kernel alone "
+        f"{alone['new']:.4f} / {alone['new again']:.4f} ms against PR 8's "
+        f"{alone['v1']:.4f} / {alone['v1 again']:.4f} (bit for bit equal), "
+        f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), floor "
+        f"of E + {owners} uncached rows {floor:.4f} ms ({floor / new_ms:.0%}"
+        f" reached; PR 8's {floor / v1_ms:.0%}; 2E rows: {floor2:.4f} ms), "
+        f"argmax equal to the plain version's on {share:.6%} of the links "
+        f"and on every link whose top two phi differ by more than 1e-6 "
+        f"({int(clear.sum())}), max phi err {err:.3e}, two launches bitwise "
+        f"equal")
+    return dict(_report(err, ms, plain_ms, bnd), floor_ms=floor,
+                kernel_alone_ms=new_ms, pr8_ms=v1_ms)
+
+
+def _assign_v2(elogpi, elb0, edges, csr):
+    """The library's kernel 9 on the wrapper's inputs, Elogpi and Elogbeta
+    given (its launch as edge_assignments makes it, uncounted)."""
+    from svinet_torch.kernels import build
+    e = edges.shape[0]
+    argmax = torch.empty(e, dtype=torch.int32, device=edges.device)
+    maxval = torch.empty(e, dtype=torch.float32, device=edges.device)
+    build.launch("svt_edge_assign", edges.device, elogpi.data_ptr(),
+                 elb0.data_ptr(), edges.data_ptr(), csr.rowptr.data_ptr(),
+                 csr.nbr.data_ptr(), csr.seg_node.data_ptr(),
+                 csr.seg_begin.data_ptr(), csr.seg_end.data_ptr(),
+                 argmax.data_ptr(), maxval.data_ptr(), elogpi.shape[0],
+                 csr.seg_node.shape[0], elogpi.shape[1], csr.seg_len)
+    return argmax, maxval
+
+
+# kernel 9 on planted-20k's links beside its K=20 state: wide states (the
+# sparse crossover's widths)
+ASSIGN_WIDE_K = (2_000, 8_000)
 
 
 def phase1_edge_assign(dev, workdir):
     """Kernel 9 on planted-20k's training links and initial state, as the
-    CLI run of phase 2 holds them."""
+    CLI run of phase 2 holds them, then on the same links at K = 2000 and
+    8000 (gamma spread as _fp_state spreads it)."""
     from svinet_torch.ops.edges import owner_csr
     from svinet_torch.svi.linksampling import from_edges
     from svinet_torch.synth import planted_blocks
@@ -2489,6 +2611,14 @@ def phase1_edge_assign(dev, workdir):
     csr = owner_csr(eng.edges[:, 0], eng.n)
     report = check_edge_assign(dev, eng.gamma, eng.lam, eng.edges, eng.mask,
                                csr, "1")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    for k in ASSIGN_WIDE_K:
+        gamma = 0.05 + torch.rand((eng.n, k), generator=gen,
+                                  device=dev) ** 4 * 10.0
+        lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+        check_edge_assign(dev, gamma, lam, eng.edges, eng.mask, csr, "1")
+        del gamma
     eng.close()
     return report
 
@@ -2586,6 +2716,8 @@ def phase2_mmsb(workdir):
     launches = {}
     for label, (out, secs, counted, forms) in info.items():
         _rows_close(rows[label], MMSB_CPU_ROWS[label], label)
+        held = (f"rows {_rows_gap(rows[label], MMSB_CPU_ROWS[label]):.3e} "
+                f"from the CPU port's (limit {MMSB_ROW_RTOL:g})")
         mx = open(os.path.join(out, "max.txt")).read().split()
         assert len(mx) == 7, mx
         nmi = float(open(os.path.join(out, "mutual.txt")).read().split()[-1])
@@ -2606,11 +2738,22 @@ def phase2_mmsb(workdir):
                  "mmsb-wide": f"no engine flag, n=2,000, K={MMSB_WIDE_K}"
                  }.get(label, " ".join(MMSB_RUNS.get(label, [])))
         log(f"phase 2: MMSBInfer {label} ({flags or 'no engine flag'}): "
-            f"{secs:.1f} s, {steps} steps, {reports} reports, rows equal the "
-            f"CPU port's to {MMSB_ROW_RTOL:g}, last heldout nshol "
+            f"{secs:.1f} s, {steps} steps, {reports} reports, {held}, last "
+            f"heldout nshol "
             f"{rows[label]['heldout'][-1][-1]:.6f}, max.txt {mx}, NMI "
             f"{nmi:.6f}, launches {forms}")
     return launches
+
+
+def _rows_gap(got, want):
+    """The largest relative difference of got's rows from want's, the
+    measure MMSB_ROW_RTOL bounds."""
+    worst = 0.0
+    for name in want:
+        for a, b in zip(got[name], want[name]):
+            a, b = np.asarray(a[1:], float), np.asarray(b[1:], float)
+            worst = max(worst, float((np.abs(a - b) / np.abs(b)).max()))
+    return worst
 
 
 def _crash_after(iteration):
@@ -2734,7 +2877,7 @@ def phase3_mmsb(dev, eng):
     from svinet_torch.ops.expectations import dirichlet_expectation
     from svinet_torch.ops.edges import owner_csr
     from svinet_torch.ops.phicomp import (
-        NodeUpdate, node_update_plain, pair_block_stats_plain,
+        BLOCK, NodeUpdate, node_update_plain, pair_block_stats_plain,
         phi_fixed_point)
     from svinet_torch.svi.mmsb import svi_step
     n, k = eng.n, eng.k
@@ -2778,14 +2921,20 @@ def phase3_mmsb(dev, eng):
     assert torch.isfinite(g2).all() and torch.isfinite(l2).all()
     step_dev_ms = cuda_ms(step, 3)
     # the plain step on the same inputs, in float64 for the kernel's rounds
-    # (both stop each pair on its own rule; a pair at the threshold may
-    # exit a round apart in f32)
+    # (a block whose largest change sits at the threshold may end a round
+    # apart in f32 on the card and in the plain version: those blocks are
+    # counted below)
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
     csr = owner_csr(pairs.reshape(-1), n)
     upd = NodeUpdate(gamma, alpha, gs, nr)
-    _, _, rounds = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps, 50,
-                                   1e-5, csr=csr, update=upd)
+    _, _, rounds, _, stop = phi_fixed_point(
+        elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, csr=csr, update=upd,
+        keep_staged=True)
+    _, _, r_p = pair_block_stats_plain(elogpi, elogbeta, pairs, y, w,
+                                       log_eps, 50, 1e-5)
+    n_blocks, n_differ, r_gap = _block_rounds_differ(rounds, r_p)
+    del r_p
     g_p, l_p, _ = pair_block_stats_plain(
         elogpi.double(), elogbeta.double(), pairs, y, w.double(), log_eps, 50,
         1e-5, given=rounds)
@@ -2810,8 +2959,9 @@ def phase3_mmsb(dev, eng):
     k8_ms = cuda_ms(lambda: phi_fixed_point(
         elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, csr=csr,
         update=upd), 3)
-    rs = rounds.double()
-    bnd = fp_bound(n, k, s, s, float(rs.sum()), update=True)
+    needed = float(torch.minimum(stop, rounds).double().sum())
+    reruns = int((stop > rounds).sum())
+    bnd = fp_bound(n, k, s, s, needed, update=True)
     floor = fp_floor_ms(n, k, s, update=True)
     log(f"phase 3: one MMSBInfer step on the stretch graph and state (n={n} "
         f"K={k}, s={s} random pairs, {int(y.sum())} links): {step_ms:.2f} "
@@ -2822,7 +2972,11 @@ def phase3_mmsb(dev, eng):
         f"in no pair bitwise the plain f32 update's; kernel 8 with the update "
         f"{k8_ms:.4f} ms with its CSR given ({k8_ms / step_dev_ms:.1%} of "
         f"the step), bound {bnd[0]:.4f} ms ({bnd[1]}), floor {floor:.4f} ms, "
-        f"rounds mean {float(rs.mean()):.2f} max {int(rs.max())}")
+        f"{n_blocks} blocks of {BLOCK}, R_b mean "
+        f"{float(rounds[::BLOCK].double().mean()):.2f} max "
+        f"{int(rounds.max())}, needed within R_b {needed / s:.2f} a pair, "
+        f"{reruns} pairs run again in pass 2; the plain version under the "
+        f"rule: R_b differs on {n_differ} blocks (by at most {r_gap})")
     del elogpi, csr, g2, gamma
     torch.cuda.empty_cache()
     # kernel 9 at 19.9M links, and the report's community extraction

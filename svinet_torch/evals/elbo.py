@@ -11,13 +11,15 @@ from __future__ import annotations
 import torch
 
 from svinet_torch.ops.expectations import dirichlet_expectation
-from svinet_torch.ops.phicomp import phi_fixed_point
+from svinet_torch.ops.phicomp import BLOCK, phi_fixed_point
 
 
 def approx_elbo(gamma, lam, pairs, y, w, alpha: float, eta, log_eps: float,
-                max_iters: int = 50, thresh: float = 1e-5) -> torch.Tensor:
+                max_iters: int = 50, thresh: float = 1e-5,
+                block: int = BLOCK) -> torch.Tensor:
     """pairs: all non-heldout training pairs (links and nonlinks); w their
-    weights (0 on padding). Returns a () f32 tensor."""
+    weights; `block` the exit rule's (ops/phicomp.py). Returns a () f32
+    tensor."""
     n, k = gamma.shape
     lg = torch.lgamma
     elogpi = dirichlet_expectation(gamma)
@@ -30,7 +32,7 @@ def approx_elbo(gamma, lam, pairs, y, w, alpha: float, eta, log_eps: float,
              + ((lam - 1.0) * elogbeta).sum(1)).sum()
 
     pair_s, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                max_iters, thresh, elbo=True)
+                                max_iters, thresh, block=block, elbo=True)
     s = s + pair_s
 
     # per-node Dirichlet terms (gamma against the alpha prior)

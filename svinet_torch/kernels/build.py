@@ -87,12 +87,12 @@ SIGNATURES = {
     # k, w, info (3 ints out): no launch, no stream
     "svt_sparse_union_info": (_I32, _I32, _P),
     # elogpi, fr, pairs, y, w, staged, rounds, lam, rows, partial, sums,
-    # the seven endpoint-CSR arrays, seg_partial, gamma, gscale, rho, out,
-    # n, pairs, n_hubs, n_segs, k, seg_len, max_iters, log_eps, thresh,
-    # alpha, mode, elbo, blocks
-    "svt_phi_fixed_point": (_P,) * 23 + (_I64, _I64, _I64, _I64, _I32, _I32,
+    # masks, stop, block_rounds, terms, the seven endpoint-CSR arrays,
+    # seg_partial, gamma, gscale, rho, out, n, pairs, n_hubs, n_segs, k,
+    # seg_len, max_iters, log_eps, thresh, alpha, mode, elbo, blocks, block
+    "svt_phi_fixed_point": (_P,) * 27 + (_I64, _I64, _I64, _I64, _I32, _I32,
                                          _I32, _F32, _F32, _F32, _I32, _I32,
-                                         _I32, _P),
+                                         _I32, _I32, _P),
     # k, elbo, pairs, info (7 ints out): no launch, no stream
     "svt_phi_fixed_point_plan": (_I32, _I32, _I64, _P),
     # elogpi, elb0, edges, rowptr, nbr, seg_node, seg_begin, seg_end,

@@ -36,7 +36,7 @@ from svinet_torch.graph import Network
 from svinet_torch.io.writers import load_model
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.edges import owner_csr
-from svinet_torch.ops.phicomp import NodeUpdate, phi_fixed_point
+from svinet_torch.ops.phicomp import BLOCK, NodeUpdate, phi_fixed_point
 from svinet_torch.svi.base import EngineBase
 
 
@@ -79,15 +79,16 @@ def nonuniform_weights(gamma, pairs, y, mask, infthresh: float):
 def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
              noderhot, rhot, do_lambda, log_eps: float, max_iters: int,
              thresh: float = 1e-5, infthresh: float = 0.0,
-             nonuniform: bool = False, csr=None):
+             nonuniform: bool = False, csr=None, block: int = BLOCK):
     """One natural-gradient SVI step (svinet_tpu/svi/mmsb.py:123-164).
     infthresh > 0 gives weight 0 to the nonlinks whose max_k pi_p pi_q is
     below it (reference: MMSBInfer::opt_process,
     src/mmsbinfer.cc:1192-1298); with `nonuniform` the weights are
     nonuniform_weights' and the scales carry the -rnode flag in their
     sign: > 0 takes the scale 3n / (2 n_processed), <= 0 keeps |scale|
-    (src/mmsbinfer.cc:571-572). The scalars are f32 tensors or floats.
-    Returns the new (gamma, lam)."""
+    (src/mmsbinfer.cc:571-572). The scalars are f32 tensors or floats;
+    `block` is the exit rule's (ops/phicomp.py), the engine's B. Returns
+    the new (gamma, lam)."""
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
     dev = gamma.device
@@ -111,7 +112,7 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
     rt = torch.as_tensor(rhot, dtype=torch.float32).to(dev)
     # kernel 8's node pass writes the next gamma (ops/phicomp.py:NodeUpdate)
     gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                     max_iters, thresh, csr=csr,
+                                     max_iters, thresh, block=block, csr=csr,
                                      update=NodeUpdate(gamma, alpha, gs, nr))
     if float(do_lambda) > 0:
         lambdat = eta + ls * lacc
@@ -121,7 +122,7 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
 
 def batch_step(gamma, lam, pairs, y, w, alpha: float, eta, do_lambda,
                log_eps: float, max_iters: int, thresh: float = 1e-5,
-               csr=None):
+               csr=None, block: int = BLOCK):
     """One coordinate-ascent pass over all non-heldout pairs
     (svinet_tpu/svi/mmsb.py:233-243; reference: MMSBInfer::batch_infer,
     src/mmsbinfer.cc:833-895): gamma = alpha + gamma_hat, and lambda =
@@ -129,7 +130,7 @@ def batch_step(gamma, lam, pairs, y, w, alpha: float, eta, do_lambda,
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
     gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                     max_iters, thresh, csr=csr,
+                                     max_iters, thresh, block=block, csr=csr,
                                      update=NodeUpdate(None, alpha))
     if float(do_lambda) > 0:
         lam = eta + lacc
@@ -174,6 +175,8 @@ class MMSBInfer(EngineBase):
         self._nonuniform = bool(cfg.nonuniform and cfg.infthresh > 0)
         self._lambda_start_iter = 0
         self._delaylearn_reported = False
+        # the exit rule's block (svinet_tpu/svi/mmsb.py:307)
+        self._block = min(cfg.edge_block, BLOCK)
         # the report files keep their rows of before a resume
         mode = "a" if cfg.resume else "w"
         self._lf = open(cfg.file_str("logl.txt"), mode) if cfg.logl else None
@@ -265,8 +268,8 @@ class MMSBInfer(EngineBase):
         """One minibatch and its schedule scalars (pairs, y, w, gscale,
         lscale, noderhot, rhot, do_lambda); advances the host sampling
         state (the family alternation, delaylearn's bookkeeping). The
-        JAX engine pads the minibatch to whole blocks; the kernel takes it
-        as it is."""
+        JAX engine pads the minibatch to whole blocks; here the padding is
+        the exit rule's virtual pad pair (ops/phicomp.py)."""
         cfg = self.cfg
         if cfg.randomnode:
             pairs, y, w = self._sample_rnode()
@@ -315,7 +318,7 @@ class MMSBInfer(EngineBase):
                 torch.as_tensor(w, device=dev), self.alpha, self.eta,
                 _f32(gs), _f32(ls), _f32(nr), _f32(rt), dl, self.log_eps,
                 cfg.online_iterations, cfg.meanchangethresh,
-                float(cfg.infthresh), self._nonuniform)
+                float(cfg.infthresh), self._nonuniform, block=self._block)
         self._eval_tail()
 
     def report(self) -> bool:
@@ -338,7 +341,8 @@ class MMSBInfer(EngineBase):
             s = approx_elbo(self.gamma, self.lam, pairs, y, w, self.alpha,
                             self.eta, self.log_eps,
                             max_iters=self.cfg.online_iterations,
-                            thresh=self.cfg.meanchangethresh)
+                            thresh=self.cfg.meanchangethresh,
+                            block=self._block)
             self._lf.write(f"{self.iteration}\t{self.duration()}\t"
                            f"{float(s):.5f}\n")
             self._lf.flush()
@@ -397,7 +401,7 @@ class MMSBInfer(EngineBase):
             self.gamma, self.lam = batch_step(
                 self.gamma, self.lam, pairs, y, w, self.alpha, self.eta,
                 do_lambda, self.log_eps, cfg.online_iterations,
-                cfg.meanchangethresh, csr=csr)
+                cfg.meanchangethresh, csr=csr, block=self._block)
             # the eval tail rides the report-boundary pass only
             if (self.iteration + 1) % cfg.reportfreq == 0:
                 self._eval_tail()

@@ -45,10 +45,8 @@ sweeps, at W = 8, 16, 32, 64 on the stretch graph (n=1M, K=500, 20M links;
 the engine's state after three annealing sweeps and a late-fit state) and
 on the planted n=20k graph at K = 500, 2000 and 8000, with kernel 7's
 registers, shared memory and warps an SM; kernel 8 (MMSBInfer's per-pair
-phi fixed point) against its first design (csrc/alt/phi_fixed_point_v1.cu)
-and its pair pass against the form that fetches the next pair's rows
-ahead (csrc/alt/phi_fixed_point_prefetch.cu), split by kernel, and an
-MMSBInfer step
+phi fixed point) against its first design (csrc/alt/phi_fixed_point_v1.cu,
+which stops each pair on its own), split by kernel, and an MMSBInfer step
 with each, at n=1M, K=500 (random pairs, -rnode, the stretch engine's
 state), n=20k at K = 20, 1024, 2000, and its ELBO form. --only names the
 parts to run (sectors, sparse, fixedpoint, ...). --quick
@@ -120,13 +118,9 @@ ALT_SIGNATURES = {
     "svt_phi_fixed_point_v1": (_P,) * 18 + (_I64, _I64, _I64, _I64, _I32,
                                             _I32, _I32, _F32, _F32, _I32, _P),
     "svt_phi_fixed_point_v1_info": (_P,),
-    # kernel 8's pair pass with the next pair's rows fetched ahead
-    # (csrc/alt/phi_fixed_point_prefetch.cu): k, pairs, info (6 ints out);
-    # elogpi, fr, pairs, y, w, staged, rounds, lam, pairs, k, max_iters,
-    # log_eps, thresh, blocks
-    "svt_phi_fixed_point_prefetch_plan": (_I32, _I64, _P),
-    "svt_phi_fixed_point_prefetch": (_P,) * 8 + (_I64, _I32, _I32, _F32,
-                                                 _F32, _I32, _P),
+    # kernel 9 as PR 8 designed it (csrc/alt/edge_assign_v1.cu): the
+    # library's arguments
+    "svt_edge_assign_v1": build.SIGNATURES["svt_edge_assign"],
     "svt_phi_pass_edge_atomic": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     "svt_phi_half_push": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     **s3_slab.SIGNATURES,
@@ -1057,38 +1051,6 @@ def _fp_v1_call(alt, elogpi, elogbeta, pairs, y, w, csr):
     return call
 
 
-def _fp_prefetch_call(alt, elogpi, elogbeta, pairs, y, w):
-    """Kernel 8's pair pass with the next pair's rows fetched ahead
-    (csrc/alt/phi_fixed_point_prefetch.cu) into fixed buffers: returns
-    (its plan, call() -> (staged, rounds)), or (plan, None) where no block
-    of it fits an SM."""
-    n, k = elogpi.shape
-    m = pairs.shape[0]
-    kp = (k + 3) // 4 * 4
-    info = (ctypes.c_int * 6)()
-    alt.call("svt_phi_fixed_point_prefetch_plan", k, m, info)
-    plan = dict(blocks=info[0], groups_per_block=info[1],
-                blocks_per_sm=info[2], smem_bytes=info[3],
-                registers=info[4], lanes=info[5])
-    if plan["blocks_per_sm"] < 1:
-        return plan, None
-    fr = torch.zeros((2, kp), device="cuda")
-    fr[:, :k] = elogbeta.t()
-    staged = torch.empty((2 * m, k), device="cuda")
-    rounds = torch.empty(m, dtype=torch.int32, device="cuda")
-    lam = torch.empty((info[0] * info[1], 2, kp), device="cuda")
-
-    def call():
-        alt.call("svt_phi_fixed_point_prefetch", elogpi.data_ptr(),
-                 fr.data_ptr(), pairs.data_ptr(), y.data_ptr(),
-                 w.data_ptr(), staged.data_ptr(), rounds.data_ptr(),
-                 lam.data_ptr(), m, k, 50, FP_LOG_EPS, 1e-5, info[0],
-                 stream())
-        return staged, rounds
-
-    return plan, call
-
-
 def _device_split(fn) -> list:
     """fn() once under torch.profiler after an unrecorded warm-up call:
     [(kernel name, device us)] in launch order."""
@@ -1117,7 +1079,9 @@ def _split_by(events, table) -> dict:
     return out
 
 
-FP_SPLIT_TABLE = (("per-pair pass", ("fixed_point_kernel", "pair_pass")),
+FP_SPLIT_TABLE = (("pass 2 (reruns, lacc)", ("pair_finish",)),
+                  ("block rounds", ("block_rounds",)),
+                  ("per-pair pass", ("fixed_point_kernel", "pair_pass")),
                   ("node pass", ("staged_pull", "node_pass")),
                   ("hub combine (f64)", ("combine_segments",)),
                   ("lacc colsum", ("colsum_partials",)),
@@ -1152,13 +1116,12 @@ def _v1_step(alt, gamma, lam, pairs, y, w, k: int):
 
 def bench_fixed_point(alt, quick: bool) -> list:
     """Kernel 8, its first design (csrc/alt/phi_fixed_point_v1.cu) beside the
-    present one (ops/phicomp.py:phi_fixed_point), and its pair pass beside
-    the form that fetches the next pair's rows ahead
-    (csrc/alt/phi_fixed_point_prefetch.cu), compared first (error of the
-    largest entry, gamma_hat bitwise equal, pairs whose rounds differ,
-    the fetch-ahead form's staging rows and rounds bitwise equal; above
-    K=512 the present one against the plain version in float64 on its
-    rounds); each
+    present one (ops/phicomp.py:phi_fixed_point); the first design stops
+    each pair on its own (the rule before the block rule), so the
+    comparison with it (error of the largest entry, gamma_hat bitwise
+    equal, pairs whose rounds differ) spans the two rules; above K=512
+    the present one against the plain version in float64 on its rounds;
+    each
     kernel's device time split by the kernels it launches (torch.profiler),
     the endpoint CSR timed apart; then a whole svi_step with the first
     design (plain update) beside the present one, split the same way, with
@@ -1225,20 +1188,6 @@ def bench_fixed_point(alt, quick: bool) -> list:
                 float((g_n - g_p).abs().max() / g_p.abs().max()),
                 float((l_n - l_p).abs().max() / l_p.abs().max()))
             del g_p
-        # the pair pass with the next pair's rows fetched ahead: the same
-        # staging rows and rounds, its device time beside the present
-        # pass's in the split below
-        row["plan_prefetch"], pf = _fp_prefetch_call(alt, elogpi, elogbeta,
-                                                     pairs, y, w)
-        if pf is not None:
-            _, _, r_s, st_n = phi_fixed_point(elogpi, elogbeta, pairs, y, w,
-                                              FP_LOG_EPS, 50, 1e-5, csr=csr,
-                                              keep_staged=True)
-            st_p, r_p = pf()
-            row["prefetch_bitwise_equal"] = bool(
-                torch.equal(st_p, st_n) and torch.equal(r_p, r_s))
-            del st_n
-            fns["prefetch_pair_pass"] = pf
         if k <= 512:
             v1 = _fp_v1_call(alt, elogpi, elogbeta, pairs, y, w, csr)
             g_1, s_1, r_1 = v1()

@@ -38,7 +38,8 @@ def _gamma_lam(seed, n, k, tied=0):
     return gamma, lam
 
 
-@pytest.mark.parametrize("k,tied", [(4, 0), (20, 30), (33, 0), (64, 10)])
+@pytest.mark.parametrize("k,tied", [(4, 0), (20, 30), (33, 0), (64, 10),
+                                    (640, 20)])
 def test_edge_assignments_match_jax(k, tied):
     n = 200
     gamma, lam = _gamma_lam(k, n, k, tied)
