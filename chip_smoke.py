@@ -32,7 +32,16 @@ K=640, its rows held to the CPU port's (`python3 chip_smoke.py
 report and -resume'd, must write the uninterrupted run's files bit for
 bit; phase 3 holds an MMSBInfer step (kernel 8 writing the next gamma) to
 the plain step and times it and a report's community extraction at the
-stretch shape.
+stretch shape. Phase 4 drives the mesh (-mesh N, -mesh-rowshard;
+svinet_torch/parallel/mesh.py) through the launcher on two gloo ranks
+sharing the card (link sampling default, -fuse-s3 -report-batch 4 and
+row-sharded, MMSBInfer with no engine flag and -batch -logl) and, on one
+NCCL rank, every layout (-bf16 row-sharded too), each run held to the
+single-card run of its flags (stop, NMI, heldout rows, and gamma and
+lambda where the fit does not amplify the reordered sums: see
+MESH_RTOL) with the replicas bit for bit equal, then times the stretch
+step under both layouts, the collectives alone on (n, K) rows and a
+sharded MMSBInfer step there.
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -44,6 +53,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2174,7 +2184,7 @@ def phase3(dev, workdir):
         f"{p_ms + s_ms:.4f} ms")
     del gacc, sumk
     torch.cuda.empty_cache()
-    return phase3_mmsb(dev, eng)
+    return phase3_mmsb(dev, eng), eng
 
 
 # ---------------------------------------------------------------------------
@@ -2994,6 +3004,354 @@ def phase3_mmsb(dev, eng):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the mesh (svinet_torch/parallel/mesh.py: -mesh N, -mesh-rowshard).
+# One card holds one NCCL rank ("Duplicate GPU detected" refuses a second),
+# so two gloo ranks share cuda:0 (gloo stages CUDA tensors through the
+# host; on torch 2.11 it carries the tiled all_gather and reduce_scatter of
+# them too), and every layout runs on one NCCL rank in this process. Each
+# run is held to a single-card run of the same flags: the same stop, the
+# NMI within NMI_TOL, its heldout (and -logl) rows within a relative bound,
+# and gamma and lambda within a bound of their largest entry, or where
+# that bound is None their gaps logged. Two ranks sum gamma_hat in another
+# order than one card, and two kinds of run amplify that: once annealing
+# ends a link-sampling fit moves along flat directions (a node split
+# between two communities shifts between them with the heldout likelihood
+# nearly unchanged), and a -batch step's link pairs in 2-cycles end where
+# the last bits of their logits put them (PERF.md section 6, PR 10). So the
+# two-rank link-sampling runs to their stop are held on their rows at
+# MESH_LONG_RTOL, the JAX package's bound for its own -mesh CLI runs
+# (tests/test_sharding.py:209), with gamma and lambda held at MESH_RTOL
+# after SHORT_FLAGS' 20 sweeps instead; the -batch run on its rows at
+# MESH_RTOL; every other run on both at MESH_RTOL, and the -bf16
+# row-sharded run at MESH_BF16_RTOL (PERF.md section 2). The ranks of a
+# replicated layout end bit for bit equal. Nothing here asserts a speed:
+# the stretch readings are logged.
+MESH_RTOL = 1e-4
+MESH_BF16_RTOL = 1e-3
+MESH_LONG_RTOL = 5e-4
+LS_FLAGS = ["-max-iterations", "400"]
+FUSED_FLAGS = ["-fuse-s3", "-report-batch", str(REPORT_BATCH)]
+SHORT_FLAGS = ["-max-iterations", "20", "-no-stop"]
+# (label, engine, flags, the label of the single-card run it is held to,
+# the bound on gamma and lambda, the bound on the rows): the single-card
+# runs are phase 2's, and "gpu-short" is made here
+GLOO_RUNS = (("mesh2-default", "ls", LS_FLAGS + ["-mesh", "2"], "gpu", None,
+              MESH_LONG_RTOL),
+             ("mesh2-fused", "ls", LS_FLAGS + FUSED_FLAGS + ["-mesh", "2"],
+              "gpu-fused", None, MESH_LONG_RTOL),
+             ("mesh2-short", "ls", SHORT_FLAGS + ["-mesh", "2"], "gpu-short",
+              MESH_RTOL, MESH_RTOL),
+             ("mesh2-rs", "ls",
+              SHORT_FLAGS + ["-mesh", "2", "-mesh-rowshard"], "gpu-short",
+              MESH_RTOL, MESH_RTOL),
+             ("mesh2-mmsb", "mmsb", MMSB_FLAGS + ["-mesh", "2"], "mmsb",
+              MESH_RTOL, MESH_RTOL),
+             ("mesh2-batch", "batch", BATCH_FLAGS + ["-mesh", "2"],
+              "mmsb-batch", None, MESH_RTOL))
+NCCL_RUNS = (("nccl1-rep", "ls", LS_FLAGS + ["-mesh", "1"], "gpu",
+              MESH_RTOL, MESH_RTOL),
+             ("nccl1-rs", "ls", LS_FLAGS + ["-mesh", "1", "-mesh-rowshard"],
+              "gpu", MESH_RTOL, MESH_RTOL),
+             ("nccl1-rs-fused", "ls",
+              LS_FLAGS + FUSED_FLAGS + ["-mesh", "1", "-mesh-rowshard"],
+              "gpu-fused", MESH_RTOL, MESH_RTOL),
+             ("nccl1-rs-bf16", "ls",
+              LS_FLAGS + ["-bf16", "-mesh", "1", "-mesh-rowshard"],
+              "gpu-bf16", MESH_BF16_RTOL, MESH_BF16_RTOL),
+             ("nccl1-mmsb", "mmsb", MMSB_FLAGS + ["-mesh", "1"], "mmsb",
+              MESH_RTOL, MESH_RTOL))
+# what a rank of each engine launches on the mesh path (rank 0 alone
+# extracts the communities, and evaluates -logl's ELBO)
+MESH_PATH = {"ls": ("dirichlet_expectation", "phi_pass",
+                    "mean_indicator_update", "s3_pass", "heldout_sums"),
+             "ls-fused": ("dirichlet_expectation", "mean_indicator_update",
+                          "fused_phi_s3_pass", "heldout_sums"),
+             "mmsb": ("dirichlet_expectation", "phi_fixed_point",
+                      "heldout_sums"),
+             "batch": ("dirichlet_expectation", "phi_fixed_point",
+                       "heldout_sums")}
+
+
+def _outdir(workdir, label):
+    outs = [d for d in os.listdir(workdir)
+            if re.match(rf"n\d+-k\d+-{re.escape(label)}-seed1", d)]
+    assert len(outs) == 1, (label, outs)
+    return os.path.join(workdir, outs[0])
+
+
+def _mesh_argv(engine, label, flags, graphs):
+    net, gt, shape = graphs["batch" if engine == "batch" else "planted"]
+    return ["-file", net, "-n", str(shape["n"]), "-k", str(shape["k"]),
+            "-nmi", gt, "-seed", "1", "-lt-min-deg", "1", "-label", label,
+            *(["-link-sampling"] if engine == "ls" else []), *flags]
+
+
+def _held_to(out, ref, label, state_rtol, rows_rtol):
+    """out's gamma and lambda (unless state_rtol is None), heldout
+    (validation, -logl) rows, stop and NMI against ref's; returns the
+    largest gaps."""
+    gaps = {}
+    for name in ("gamma.txt", "lambda.txt"):
+        a = np.loadtxt(os.path.join(out, name), ndmin=2)
+        b = np.loadtxt(os.path.join(ref, name), ndmin=2)
+        cols = slice(2, None) if name == "gamma.txt" else slice(None)
+        assert a.shape == b.shape, (label, name, a.shape, b.shape)
+        gap = float(np.abs(a[:, cols] - b[:, cols]).max()
+                    / np.abs(b[:, cols]).max())
+        assert state_rtol is None or gap <= state_rtol, (label, name, gap)
+        gaps[name] = gap
+    for name in ("heldout.txt", "validation.txt", "logl.txt"):
+        pa, pb = os.path.join(out, name), os.path.join(ref, name)
+        if not os.path.exists(pb) or not os.path.getsize(pb):
+            assert not os.path.exists(pa) or not os.path.getsize(pa), name
+            continue
+        a, b = np.loadtxt(pa, ndmin=2), np.loadtxt(pb, ndmin=2)
+        assert a.shape == b.shape, (label, name, a.shape, b.shape)
+        assert (a[:, 0] == b[:, 0]).all(), (label, name)
+        gap = float((np.abs(a[:, 2:] - b[:, 2:])
+                     / np.maximum(np.abs(b[:, 2:]), 1e-30)).max())
+        assert gap <= rows_rtol, (label, name, gap)
+        gaps[name] = gap
+    mx_a = open(os.path.join(out, "max.txt")).read().split()
+    mx_b = open(os.path.join(ref, "max.txt")).read().split()
+    assert mx_a[0] == mx_b[0], (label, mx_a, mx_b)
+    gaps["stop"] = int(mx_a[0])
+    nmi = [float(open(os.path.join(d, "mutual.txt")).read().split()[-1])
+           for d in (out, ref)]
+    assert abs(nmi[0] - nmi[1]) <= NMI_TOL, (label, nmi)
+    gaps["nmi"] = nmi[0]
+    return gaps
+
+
+def _path_launched(counts, engine, flags, primary, label):
+    """Every kernel of the path launched on a rank; the communities'
+    kernel 9 on rank 0 alone."""
+    path = MESH_PATH["ls-fused" if "-fuse-s3" in flags else engine]
+    missing = [name for name in path if not counts.get(name)]
+    assert not missing, (label, missing, counts)
+    assert bool(counts.get("edge_assignments")) == primary, (label, counts)
+
+
+def phase4(dev, workdir, stretch_eng):
+    """The mesh on one card: both layouts on two gloo ranks, every layout
+    on one NCCL rank, then the stretch shape on one NCCL rank. Returns the
+    launches of phase 4's runs by kernel and "kernel:form"."""
+    from svinet_torch.cli import main as cli_main
+    from svinet_torch.parallel import mesh
+    from svinet_torch.synth import write_planted
+    graphs = {"planted": (*write_planted(
+                  workdir, PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
+                  PLANTED["seed"]), PLANTED),
+              "batch": (*write_planted(
+                  workdir, BATCH_PLANTED["n"], BATCH_PLANTED["k"],
+                  BATCH_PLANTED["avg_deg"], BATCH_PLANTED["seed"]),
+                  BATCH_PLANTED)}
+    launched = {}
+
+    def add(counts, forms):
+        for name, v in counts.items():
+            launched[name] = launched.get(name, 0) + v
+        for name, v in forms.items():
+            launched[name] = launched.get(name, 0) + v
+
+    torch.cuda.empty_cache()
+    # the single-card run the 20-sweep mesh runs are held to
+    _run_cli(workdir, graphs["planted"][0], graphs["planted"][1], "gpu-short",
+             SHORT_FLAGS)
+    for label, engine, flags, ref, state_rtol, rows_rtol in GLOO_RUNS:
+        reports = os.path.join(workdir, f"{label}-ranks")
+        os.makedirs(reports)
+        os.chdir(workdir)
+        t0 = time.perf_counter()
+        assert mesh.launch(_mesh_argv(engine, label, flags, graphs), 2,
+                           backend="gloo", devices=[dev, dev],
+                           report_dir=reports) == 0
+        secs = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(reports, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        # lambda is replicated in every layout, gamma unless row-sharded
+        replicated = "-mesh-rowshard" not in flags
+        assert ranks[0]["lam_sha256"] == ranks[1]["lam_sha256"], label
+        assert replicated == (ranks[0]["gamma_sha256"]
+                              == ranks[1]["gamma_sha256"]), label
+        for r, rep in enumerate(ranks):
+            counts = {k: v["launches"] for k, v in rep["launches"].items()}
+            forms = {f"{k}:{form}": c for k, v in rep["launches"].items()
+                     for form, c in v["forms"].items()}
+            _path_launched(counts, engine, flags, r == 0, label)
+            add(counts, forms)
+        out = _outdir(workdir, label)
+        gaps = _held_to(out, _outdir(workdir, ref), label, state_rtol,
+                        rows_rtol)
+        log(f"phase 4: {label} ({' '.join(flags)}) on two gloo ranks on "
+            f"{dev}: {secs:.1f} s, held to {ref}: {gaps}, ranks' "
+            f"{'gamma and ' if replicated else ''}lambda bit for bit equal, "
+            f"launches rank 0 "
+            f"{ {k: v['launches'] for k, v in ranks[0]['launches'].items()} }"
+            f", rank 1 "
+            f"{ {k: v['launches'] for k, v in ranks[1]['launches'].items()} }")
+    g = mesh.init_group(0, 1, dev, "nccl")
+    try:
+        for label, engine, flags, ref, state_rtol, rows_rtol in NCCL_RUNS:
+            _zero_counts()
+            os.chdir(workdir)
+            t0 = time.perf_counter()
+            assert cli_main(_mesh_argv(engine, label, flags, graphs),
+                            g) == 0
+            secs = time.perf_counter() - t0
+            g.engine = None
+            counts, forms = _read_counts()
+            _path_launched(counts, engine, flags, True, label)
+            add(counts, forms)
+            gaps = _held_to(_outdir(workdir, label), _outdir(workdir, ref),
+                            label, state_rtol, rows_rtol)
+            log(f"phase 4: {label} ({' '.join(flags)}) on one NCCL rank: "
+                f"{secs:.1f} s, held to {ref} at {state_rtol:g}: {gaps}, "
+                f"launches by form {forms}")
+        phase4_stretch(dev, stretch_eng, g)
+    finally:
+        mesh.shutdown()
+    return launched
+
+
+def phase4_stretch(dev, eng, g):
+    """The stretch engine's state on one NCCL rank: step(3) under the
+    replicated and the row-sharded layouts beside the single-card step
+    from the same state, their peak memory, the collectives alone on
+    (n, K) rows, and an MMSBInfer step of s = 500,000 pairs sharded beside
+    the single-card step. At one rank the layouts hold the state as it
+    is; what changes is the collectives and, under rowshard, the compact
+    heldout table (rowshard_heldout_layout)."""
+    from svinet_torch.evals.likelihood import result_from_sums
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.parallel import mesh
+    from svinet_torch.parallel.mesh import LOCAL, MeshComm
+    from svinet_torch.svi.mmsb import svi_step
+    n, k = eng.n, eng.k
+    net = eng.network
+    n_train = len(net.training_links)
+    eng.mphi = eng._mphi_bf16 = None
+    eng.cfg.fuse_s3 = eng.cfg.bf16_rows = False
+    eng.annealing = True
+    g0, l0 = eng.gamma.clone(), eng.lam.clone()
+    single_ho = eng._ho
+    hidx, pp, yy, ww, nb = mesh.rowshard_heldout_layout(
+        net.validation_pairs, net.validation_y.astype(np.int32), n, 1)
+    rs_ho = tuple(torch.as_tensor(a, device=dev) for a in (pp, yy, ww)) + (
+        nb,)
+    rs_comm = MeshComm(g, True, torch.as_tensor(hidx.astype(np.int64),
+                                                device=dev))
+    layouts = {"single card": (None, LOCAL, single_ho),
+               "replicated": (g, MeshComm(g, False), single_ho),
+               "row-sharded": (g, rs_comm, rs_ho)}
+    three = {"dirichlet_expectation": 6, "phi_pass": 3,
+             "mean_indicator_update": 3, "s3_pass": 3, "heldout_sums": 1}
+    res = {}
+    for name, (grp, comm, ho) in layouts.items():
+        eng._group, eng._comm, eng._ho = grp, comm, ho
+        eng.gamma, eng.lam = g0.clone(), l0.clone()
+        eng.step(1)                       # warm-up
+        eng.gamma, eng.lam = g0.clone(), l0.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        eng.step(3)
+        sums = result_from_sums(eng._ho_res)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {key: v for key, v in _read_counts()[0].items() if v}
+        assert counts == three, (name, counts)
+        assert torch.isfinite(eng.gamma).all()
+        res[name] = dict(rate=3 * n_train / dt, ms=dt * 1e3,
+                         peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                         held=held / 2**30, avg=sums.avg,
+                         gamma=eng.gamma, lam=eng.lam)
+    ref = res["single card"]
+    for name in ("replicated", "row-sharded"):
+        r = res[name]
+        gap = float((r["gamma"] - ref["gamma"]).abs().max()
+                    / ref["gamma"].abs().max())
+        lgap = float((r["lam"] - ref["lam"]).abs().max()
+                     / ref["lam"].abs().max())
+        assert gap <= MESH_RTOL and lgap <= MESH_RTOL, (name, gap, lgap)
+        assert abs(r["avg"] - ref["avg"]) <= MESH_RTOL * abs(ref["avg"])
+        r["gap"] = max(gap, lgap)
+    for name, r in res.items():
+        log(f"phase 4: stretch step(3) {name}: {r['ms']:.1f} ms = "
+            f"{r['rate']:.0f} edges/s, peak device memory "
+            f"{r['peak']:.2f} GiB ({r['held']:.2f} GiB held as it began), "
+            f"heldout avg {r['avg']:.6f}"
+            + (f", gamma and lambda {r['gap']:.2e} of their largest entry "
+               f"from the single-card step" if "gap" in r else ""))
+    eng._group, eng._comm, eng._ho = None, LOCAL, single_ho
+    eng.gamma, eng.lam = g0, l0
+    del res, ref
+    torch.cuda.empty_cache()
+    # the collectives alone on the stretch rows
+    buf = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    ar_ms = cuda_ms(lambda: mesh.all_reduce(buf), 5)
+    rs_ms = cuda_ms(lambda: mesh.reduce_scatter(buf, g), 5)
+    del buf
+    elogpi = dirichlet_expectation(g0)
+    ag_ms = cuda_ms(lambda: mesh.all_gather(elogpi, g), 5)
+    elogpi_b = elogpi.to(torch.bfloat16)
+    del elogpi
+    ag_b_ms = cuda_ms(lambda: mesh.all_gather(elogpi_b, g), 5)
+    del elogpi_b
+    log(f"phase 4: NCCL at one rank on ({n}, {k}) rows: all_reduce of "
+        f"gamma_hat (f32, {n * k * 4 / 1e9:.1f} GB) {ar_ms:.3f} ms, "
+        f"reduce_scatter {rs_ms:.3f} ms, all_gather of Elogpi f32 "
+        f"{ag_ms:.3f} ms, bf16 {ag_b_ms:.3f} ms")
+    # MMSBInfer: one step of s = 500,000 random pairs (phase 3's inputs),
+    # sharded on the one rank beside the single-card step
+    rng = np.random.default_rng(3)
+    s = MMSB_STRETCH_S
+    a = rng.integers(0, n, size=2 * s)
+    b = rng.integers(0, n, size=2 * s)
+    ok = (a != b) & net.edge_ok_mask(np.minimum(a, b), np.maximum(a, b))
+    lo, hi = np.minimum(a, b)[ok][:s], np.maximum(a, b)[ok][:s]
+    y = torch.as_tensor(net.y(lo, hi).astype(np.int32), device=dev)
+    pairs = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
+                            device=dev)
+    w = torch.ones(s, dtype=torch.float32, device=dev)
+    eta = torch.tensor([[1.0, 1.0]], device=dev).repeat(k, 1)
+    gs, nr, rt = (torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (float(net.total_pairs) / s, 0.7, 0.01))
+    args = (g0, l0, pairs, y, w, float(np.float32(1.0 / k)), eta, gs, gs, nr,
+            rt, 1.0, float(np.float32(np.log(1e-30))), 50, 1e-5)
+    out = {}
+    for name, grp in (("single card", None), ("sharded", g)):
+        svi_step(*args, group=grp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        gg, ll = svi_step(*args, group=grp)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()[0]
+        assert counts["phi_fixed_point"] == 1, counts
+        out[name] = (gg, ll, wall, cuda_ms(lambda: svi_step(*args, group=grp),
+                                           3),
+                     (torch.cuda.max_memory_allocated(dev) - held) / 2**30)
+    (g1, l1, w1, d1, p1), (g2, l2, w2, d2, p2) = out.values()
+    gap = float((g2 - g1).abs().max() / g1.abs().max())
+    lgap = float((l2 - l1).abs().max() / l1.abs().max())
+    assert gap <= MESH_RTOL and lgap <= MESH_RTOL, (gap, lgap)
+    log(f"phase 4: MMSBInfer step at stretch, s = {s}: single card {w1:.2f} "
+        f"ms wall ({d1:.2f} on the card, peak {p1:.2f} GiB above the state), "
+        f"sharded on one NCCL rank (kernel 8 without its update, the "
+        f"all-reduces, gamma's step in plain PyTorch) {w2:.2f} ms wall "
+        f"({d2:.2f} on the card, peak {p2:.2f} GiB); gamma and lambda "
+        f"{max(gap, lgap):.2e} of their largest entry apart")
+
+
 def main() -> int:
     if sys.argv[1:] == ["--record-cpu"]:
         return record_cpu()
@@ -3004,7 +3362,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     cwd = os.getcwd()
     t_start = time.perf_counter()
-    phase0(dev)
+    card = phase0(dev)
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
@@ -3017,7 +3375,9 @@ def main() -> int:
             phase1_edge_assign(dev, workdir)
             launches, per_sweep = phase2(workdir)
             mmsb = phase2_mmsb(workdir)
-            assign_report = phase3(dev, workdir)
+            assign_report, stretch = phase3(dev, workdir)
+            mesh_launches = phase4(dev, workdir, stretch)
+            del stretch
         finally:
             os.chdir(cwd)
     # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
@@ -3083,14 +3443,25 @@ def main() -> int:
         for form in sorted(form_reports) if form.split(":")[0] == name)
     missing = [name for name, *_ in rows if not launches.get(name)]
     assert not missing, f"never launched on the main path: {missing}"
+    # phase 4: every kernel of the mesh path launched there (the -sparse-w
+    # kernels are refused under a mesh)
+    missing = [name for name in ("dirichlet_expectation", "phi_pass",
+                                 "mean_indicator_update", "s3_pass",
+                                 "fused_phi_s3_pass", "heldout_sums",
+                                 "phi_fixed_point", "phi_fixed_point:elbo",
+                                 "edge_assignments", "phi_pass:bf16")
+               if not mesh_launches.get(name)]
+    assert not missing, f"never launched on the mesh path: {missing}"
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "launches_per_sweep": per_sweep[name], **report,
+         "launches_per_sweep": per_sweep[name],
+         "mesh_launches": mesh_launches.get(name, 0), **report,
          "library_ms": None}
         for name, source, replaces, report in rows]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.0f} s")
+    log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,20 +5,25 @@
 USAGE and parse_args are the port's own copy of svinet_tpu/cli.py:21-278
 (every flag parses to the same Config there and here; the tests hold the
 two equal); the network set-up is that of svinet_tpu/cli.py:314-319. The
-port runs single-device -link-sampling. Every flag outside that slice
-stops the run with SystemExit naming the flag; none is ignored. The
-device comes from $SVINET_TORCH_DEVICE (default cuda).
+port runs -link-sampling and MMSBInfer, on one device or under -mesh N
+(-mesh-rowshard for -link-sampling), where the CLI spawns N ranks
+(parallel/mesh.py:launch). Every flag outside that slice stops the run
+with SystemExit naming the flag; none is ignored. The device comes from
+$SVINET_TORCH_DEVICE (default cuda).
 """
 
 from __future__ import annotations
 
+import shutil
 import signal
 import sys
+import tempfile
 from typing import List, Optional
 
 from svinet_torch import resolve_device
 from svinet_torch.config import Config
 from svinet_torch.graph import Network
+from svinet_torch.parallel import mesh
 
 USAGE = """\
 SVINET-TORCH: stochastic variational inference of undirected networks (PyTorch/CUDA)
@@ -289,8 +294,7 @@ _ENGINE_FLAGS = (
 )
 _LATER_ENGINE_FLAGS = (("single", "-single"),)
 _UNPORTED_FLAGS = (
-    ("mesh_devices", "-mesh"),
-    ("mesh_rowshard", "-mesh-rowshard"), ("mesh_locality", "-mesh-locality"),
+    ("mesh_locality", "-mesh-locality"),
     ("dist_coordinator", "-dist-coordinator"),
     ("dist_nprocs", "-dist-nprocs"), ("dist_procid", "-dist-procid"),
 )
@@ -319,14 +323,64 @@ def check_slice(cfg: Config) -> None:
             raise SystemExit(f"svinet_torch: {flag} is not ported")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, group=None) -> int:
+    """The CLI on `argv`. `group` (parallel/mesh.py:Group) is given to a
+    rank of a mesh, which runs the engine as that rank; without it a mesh
+    run spawns its ranks."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print(USAGE)
         return -1
     cfg = parse_args(argv)
     check_slice(cfg)
+    if group is None and mesh.wants_mesh(cfg):
+        # one rank a device, each running this CLI (parallel/mesh.py)
+        return mesh.launch(argv, cfg.mesh_devices)
 
+    # SIGTERM: before the engine exists the run ends with status 0; after,
+    # it only sets a flag, and the engine saves the model files at the
+    # next report boundary and keeps running (reference:
+    # src/main.cc:29-46; svinet_tpu/cli.py:343-353)
+    box = {}
+
+    def _term(_sig, _frm):
+        engine = box.get("engine")
+        if engine is None:
+            sys.exit(0)
+        engine.terminate_requested = True
+
+    previous = signal.signal(signal.SIGTERM, _term)
+    private = None
+    try:
+        if group is not None and not group.primary:
+            # a rank other than 0 writes its report rows apart; every rank
+            # restores checkpoints from rank 0's directory
+            cfg.ckpt_outdir = cfg.outdir
+            private = tempfile.mkdtemp(
+                prefix=f"svinet_torch_rank{group.rank}_")
+            cfg.outdir = private
+        engine, run = _build_engine(cfg, group)
+        if engine is None:
+            return 0
+        box["engine"] = engine
+        if group is not None:
+            mesh.engine_ready(group, engine)
+        try:
+            run()
+        finally:
+            engine.close()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+        if private is not None:
+            shutil.rmtree(private, ignore_errors=True)
+    return 0
+
+
+def _build_engine(cfg: Config, group):
+    """Read the network and build the engine the flags name, in the
+    dispatch order of svinet_tpu/cli.py:375-418 over the ported engines.
+    Returns (engine, its loop), or (None, None) for -preprocess, which
+    writes neighbors.bin on the host and runs no engine."""
     network = Network(cfg)
     network.read(cfg.datfname)
     print(f"+ network: n = {network.n}, ones = {network.ones}, "
@@ -335,38 +389,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     network.drop_singles()
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
-    # the dispatch order of svinet_tpu/cli.py:375-418 over the ported
-    # engines
-    device = resolve_device()
+    device = resolve_device() if group is None else group.device
     if cfg.link_sampling:
         from svinet_torch.svi.linksampling import LinkSampling
-        engine = LinkSampling(cfg, network, device)
-        run = engine.infer
-    elif cfg.batch:
+        engine = LinkSampling(cfg, network, device, group)
+        return engine, engine.infer
+    if cfg.batch:
         from svinet_torch.svi.mmsb import MMSBInfer
-        engine = MMSBInfer(cfg, network, device)
-        run = engine.batch_infer
-    elif cfg.preprocess:
-        # host only: neighbors.bin
+        engine = MMSBInfer(cfg, network, device, group)
+        return engine, engine.batch_infer
+    if cfg.preprocess:
         network.set_neighborhood_sets(cfg)
-        return 0
-    else:
-        from svinet_torch.svi.mmsb import MMSBInfer
-        engine = MMSBInfer(cfg, network, device)
-        run = engine.infer
-
-    # SIGTERM only sets a flag; the engine saves the model files at the
-    # next report boundary and keeps running (reference: src/main.cc:29-46)
-    def _term(_sig, _frm):
-        engine.terminate_requested = True
-
-    previous = signal.signal(signal.SIGTERM, _term)
-    try:
-        run()
-    finally:
-        signal.signal(signal.SIGTERM, previous)
-        engine.close()
-    return 0
+        return None, None
+    from svinet_torch.svi.mmsb import MMSBInfer
+    engine = MMSBInfer(cfg, network, device, group)
+    return engine, engine.infer
 
 
 if __name__ == "__main__":

@@ -2,8 +2,12 @@
 
 Output files, the heldout splits, the stopping controller, mrstats,
 community/NMI logging and native checkpoints live here; the engine
-subclass owns the gamma/lam tensors and the steps. Single process: the
-multi-process agreement of the JAX package is left out.
+subclass owns the gamma/lam tensors and the steps. Under a mesh
+(parallel/mesh.py) every rank runs the same loop: rank 0 alone writes the
+model files, the communities and the checkpoints, the other ranks write
+their report rows into a private directory, and the decisions come from
+values every rank holds (the step's heldout sums, broadcast from rank 0)
+or agree on (a SIGTERM).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from svinet_torch.evals.likelihood import (
 from svinet_torch.evals.nmi import overlapping_nmi, read_cover_file
 from svinet_torch.evals.stopping import ValidationStop
 from svinet_torch.ops.edges import owner_csr, pad_edges
+from svinet_torch.parallel import mesh
 from svinet_torch.svi.communities import edge_assignments, extract_communities
 
 
@@ -60,10 +65,15 @@ class EngineBase:
     # _end_of_report themselves, so a checkpoint sees the whole report
     defer_report_hooks = False
 
-    def __init__(self, cfg: Config, network: Network, device: torch.device):
+    def __init__(self, cfg: Config, network: Network, device: torch.device,
+                 group: "mesh.Group | None" = None):
         self.cfg = cfg
         self.network = network
         self.device = device
+        # the mesh this engine is a rank of (None: one device); rank 0 is
+        # the primary, which writes the output directory
+        self._group = group
+        self.primary = self._group is None or self._group.primary
         self.rng = np.random.default_rng(cfg.seed)
         self._start = time.time()
         self._dur_offset = 0
@@ -286,21 +296,30 @@ class EngineBase:
         if self.cfg.resume and self.try_restore():
             print(f"+ resumed from checkpoint at iteration {self.iteration}")
 
+    def _ckpt_dir(self) -> str:
+        """Where checkpoints live: the output directory, or under a mesh
+        rank 0's, which every rank restores from
+        (svinet_tpu/svi/base.py:352-359)."""
+        return self.cfg.ckpt_outdir or self.cfg.outdir
+
     def save_checkpoint(self, iteration: "int | None" = None) -> None:
         """`iteration` overrides the stored step; checkpoints store the
-        NEXT iteration to run."""
-        state = self._state_dict()
-        if iteration is not None:
-            state["iteration"] = int(iteration)
-        checkpoint.save_checkpoint(self.cfg.outdir, state,
-                                   state["iteration"])
+        NEXT iteration to run. Under a mesh rank 0 saves, the others
+        only restart their clock (svinet_tpu/io/checkpoint.py:38-43)."""
+        if self.primary:
+            state = self._state_dict()
+            if iteration is not None:
+                state["iteration"] = int(iteration)
+            checkpoint.save_checkpoint(self._ckpt_dir(), state,
+                                       state["iteration"])
         self._last_ckpt = time.time()
 
     def try_restore(self) -> bool:
         """Restore the newest native checkpoint of the output directory;
         False when there is none (the -load TSV model is the other way
-        in)."""
-        state = checkpoint.load_checkpoint(self.cfg.outdir)
+        in). Under a mesh every rank restores the same state and
+        iteration (svinet_tpu/io/checkpoint.py:185-188)."""
+        state = checkpoint.load_checkpoint(self._ckpt_dir())
         if state is None:
             return False
         self._restore_state(state)
@@ -366,7 +385,10 @@ class EngineBase:
                                             self.cfg.epsilon, nb), names)
 
     def _stash_tail(self, rows, names) -> None:
-        """rows: (S, 6) sums in _tail_device_sets order."""
+        """rows: (S, 6) sums in _tail_device_sets order; under a mesh rank
+        0's, on every rank."""
+        if self._group is not None:
+            mesh.broadcast(rows)
         rows = rows.cpu()
         self._tail_res = {nm: rows[i] for i, nm in enumerate(names)}
 
@@ -460,6 +482,8 @@ class EngineBase:
         """training.txt + stats.txt rows, and -accuracy's done.txt on the
         first training-likelihood plateau (reference:
         src/mmsbinfer.cc:2366, src/fastamm.cc:1238-1255)."""
+        if not self.primary:
+            return
         cfg = self.cfg
         tp, ty = self._train_sample
         trres = self._heldout(tp, ty)
@@ -513,8 +537,15 @@ class EngineBase:
         if self._light_report:
             return
         self._maybe_periodic_checkpoint()
-        if self.terminate_requested:
-            self.terminate_requested = False
+        # the flag is taken before the ranks agree on it, so that a SIGTERM
+        # landing during the agreement waits for the next boundary instead
+        # of being overwritten
+        requested, self.terminate_requested = self.terminate_requested, False
+        if self._group is not None:
+            # the SIGTERM reached rank 0 (the launcher forwards it there):
+            # every rank saves at this same boundary
+            requested = mesh.agree_flag(requested, self._group)
+        if requested:
             self.log("SIGTERM: saving model state at iteration %d",
                      self.iteration)
             nxt = self.iteration + self.ckpt_boundary_offset
@@ -551,7 +582,10 @@ class EngineBase:
         """communities.txt, mcount.txt, aggregate.txt and a mutual.txt row
         (reference: src/linksampling.cc:839-852, src/fastamm.cc:734-735,
         826, 858-882). The counting runs on the device; the NMI reads the
-        cover in memory, as communities.txt holds it."""
+        cover in memory, as communities.txt holds it. Rank 0's work under a
+        mesh."""
+        if not self.primary:
+            return
         cfg = self.cfg
         edges, mask, csr = self._community_edges()
         argmax, maxval = edge_assignments(self.gamma, self.lam, edges, mask,
@@ -588,7 +622,16 @@ class EngineBase:
     def do_on_stop(self, next_iteration: "int | None" = None) -> None:
         """Communities, the model files, groups, communities_size and
         summary; with -checkpoint-freq a last checkpoint (callers at a
-        completed report boundary pass the next iteration)."""
+        completed report boundary pass the next iteration). Under a mesh
+        rank 0 writes."""
+        if self.primary:
+            self._write_model()
+        if self.cfg.checkpoint_freq:
+            self.save_checkpoint(next_iteration)
+        self.log("stopped at iteration %d (%d s)", self.iteration,
+                 self.duration())
+
+    def _write_model(self) -> None:
         self.log_communities()
         gamma, lam = self.gamma.cpu().numpy(), self.lam.cpu().numpy()
         save_model(self.cfg.outdir, gamma, lam, self.network.seq2id)
@@ -600,7 +643,10 @@ class EngineBase:
         counts = np.bincount(gamma.argmax(1), minlength=self.k)
         with open(self.cfg.file_str("summary.txt"), "a") as f:
             f.write("\t".join(str(int(c)) for c in counts) + "\n")
-        if self.cfg.checkpoint_freq:
-            self.save_checkpoint(next_iteration)
-        self.log("stopped at iteration %d (%d s)", self.iteration,
-                 self.duration())
+
+    def _out_of_time(self, max_seconds: float) -> bool:
+        """Whether max_seconds of wall time have passed since the engine
+        was made: under a mesh, rank 0's clock decides for every rank."""
+        late = time.time() - self._start > max_seconds
+        return (late if self._group is None
+                else mesh.from_primary(late, self._group))

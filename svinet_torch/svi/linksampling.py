@@ -1,5 +1,6 @@
-"""LinkSampling engine, single device, with -fuse-s3, -report-batch,
--bf16, -freeze, -prune, -sparse-w, -init-communities, -load-test-sets and
+"""LinkSampling engine, on one device or as a rank of a mesh (-mesh N,
+-mesh-rowshard: parallel/mesh.py), with -fuse-s3, -report-batch, -bf16,
+-freeze, -prune, -sparse-w, -init-communities, -load-test-sets and
 -profile (svinet_tpu/svi/linksampling.py).
 
 One iteration is one full sweep over the training links with the
@@ -17,6 +18,7 @@ runs B such intervals before the host reads anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -34,6 +36,8 @@ from svinet_torch.evals.precision import auc as auc_fn
 from svinet_torch.ops.edges import (
     Adjacency, build_adjacency, choose_edge_block, owner_csr, pad_edges)
 from svinet_torch.ops.expectations import dirichlet_expectation
+from svinet_torch.parallel import mesh
+from svinet_torch.parallel.mesh import LOCAL, LocalComm, MeshComm
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
     LSConsts, edge_blocks, finish_lambda, fused_phi_s3_pass,
@@ -96,19 +100,25 @@ def _expectations(gamma, lam, annealing: bool, x: SweepExtras):
 
 
 def _sweep(gamma, lam, adj: Adjacency, deg, consts: LSConsts,
-           annealing: bool, x: SweepExtras):
-    """sweep's body: (gamma, lam, the extras of the sweep after)."""
+           annealing: bool, x: SweepExtras, c: LocalComm = LOCAL):
+    """sweep's body: (gamma, lam, the extras of the sweep after). `c` puts
+    in the collectives of a mesh (parallel/mesh.py), at the points where
+    the JAX package's sharded sweeps have them
+    (svinet_tpu/parallel/mesh.py:110-128, 824-847)."""
     elogpi, elb0, annealing, bf16 = _expectations(gamma, lam, annealing, x)
-    gacc, sumk = phi_pass(elogpi, elb0, adj, x.conv)
+    gacc, sumk = phi_pass(c.rows(elogpi), elb0, adj, x.conv)
     del elogpi
+    gacc, sumk = c.stat(gacc), c.total(sumk)
     # with bf16 rows mphi serves the s3 pass only, so only its bf16 form is
     # made
     out = mean_indicator_update(gacc, sumk, deg, consts, annealing,
                                 mphi_f32=not bf16, mphi_bf16=bf16,
                                 conv=x.conv)
-    s3 = s3_pass(out.mphi_bf16 if bf16 else out.mphi, adj, x.conv)
-    return (out.gnext, finish_lambda(out.s1, out.s2, s3, out.lam0, consts),
-            dataclasses.replace(x, conv=out.conv))
+    s3 = c.total(s3_pass(c.rows(out.mphi_bf16 if bf16 else out.mphi), adj,
+                         x.conv))
+    lam = finish_lambda(c.row_total(out.s1), c.row_total(out.s2), s3,
+                        out.lam0, consts)
+    return out.gnext, lam, dataclasses.replace(x, conv=out.conv)
 
 
 def sweep(gamma, lam, adj: Adjacency, deg, consts: LSConsts,
@@ -123,9 +133,11 @@ def sweep(gamma, lam, adj: Adjacency, deg, consts: LSConsts,
 
 
 def _fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
-                 annealing: bool, x: SweepExtras):
+                 annealing: bool, x: SweepExtras, c: LocalComm = LOCAL):
     """fused_sweep's body: (gamma, lam, mphi, the extras of the sweep
-    after)."""
+    after); `c` as in _sweep (svinet_tpu/parallel/mesh.py:180-196,
+    250-271: the row-sharded layout gathers Elogpi and mphi, each after
+    the -bf16 cast)."""
     if x.conv is not None:
         raise ValueError("the -fuse-s3 sweep has no converged-freezing "
                          "form; run -freeze unfused")
@@ -134,12 +146,16 @@ def _fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
     if bf16:
         prev = (x.mphi_bf16 if x.mphi_bf16 is not None
                 else mphi.to(torch.bfloat16))
-    gacc, sumk, s3 = fused_phi_s3_pass(elogpi, prev, elb0, adj)
+    gacc, sumk, s3 = fused_phi_s3_pass(c.rows(elogpi), c.rows(prev), elb0,
+                                       adj)
     del elogpi, prev
+    gacc, sumk, s3 = c.stat(gacc), c.total(sumk), c.total(s3)
     out = mean_indicator_update(gacc, sumk, deg, consts, annealing,
                                 mphi_out=mphi, mphi_bf16=bf16)
-    return (out.gnext, finish_lambda(out.s1, out.s2, s3, out.lam0, consts),
-            out.mphi, dataclasses.replace(x, mphi_bf16=out.mphi_bf16))
+    lam = finish_lambda(c.row_total(out.s1), c.row_total(out.s2), s3,
+                        out.lam0, consts)
+    return (out.gnext, lam, out.mphi,
+            dataclasses.replace(x, mphi_bf16=out.mphi_bf16))
 
 
 def fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
@@ -160,38 +176,44 @@ def fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
 
 def multi_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
                 annealing: bool, n_sweeps: int, fused: bool,
-                extras: Optional[SweepExtras] = None):
+                extras: Optional[SweepExtras] = None,
+                comm: LocalComm = LOCAL):
     """n_sweeps sweeps back to back; `fused` takes the -fuse-s3 body,
-    which carries mphi, otherwise mphi passes through untouched. Returns
-    (gamma, lam, mphi, the extras of the sweep after the last)."""
+    which carries mphi, otherwise mphi passes through untouched. Under a
+    mesh `comm` is the rank's MeshComm, adj the CSR of its shard of the
+    links and gamma, mphi and deg its rows. Returns (gamma, lam, mphi, the
+    extras of the sweep after the last)."""
     x = extras or SweepExtras()
     for _ in range(n_sweeps):
         if fused:
             gamma, lam, mphi, x = _fused_sweep(gamma, lam, mphi, adj, deg,
-                                               consts, annealing, x)
+                                               consts, annealing, x, comm)
         else:
             gamma, lam, x = _sweep(gamma, lam, adj, deg, consts, annealing,
-                                   x)
+                                   x, comm)
     return gamma, lam, mphi, x
 
 
 def sweep_ho_trace(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
                    annealing: bool, ho_pairs, ho_y, ho_w, epsilon: float,
                    r: int, n_batches: int, ho_blocks: int, fused: bool,
-                   extras: Optional[SweepExtras] = None):
+                   extras: Optional[SweepExtras] = None,
+                   comm: LocalComm = LOCAL):
     """n_batches report boundaries, r sweeps apart, with the six
     validation heldout sums of the state at EVERY boundary
-    (svinet_tpu/svi/linksampling.py:194-234); `fused` as in multi_sweep.
-    Nothing in here reads a value back to the host. Returns
-    (gamma, lam, mphi, trace (n_batches, 6)), and after them the next
-    sweep's extras when `extras` is given."""
+    (svinet_tpu/svi/linksampling.py:194-234); `fused` and `comm` as in
+    multi_sweep (under a mesh this is make_mesh_trace_sweep,
+    svinet_tpu/parallel/mesh.py:293-455, the program every mesh report
+    interval runs). Nothing in here reads a value back to the host.
+    Returns (gamma, lam, mphi, trace (n_batches, 6)), and after them the
+    next sweep's extras when `extras` is given."""
     x = extras
     trace = []
     for _ in range(n_batches):
         gamma, lam, mphi, x = multi_sweep(gamma, lam, mphi, adj, deg, consts,
-                                          annealing, r, fused, x)
-        trace.append(heldout_sums_blocked(gamma, lam, ho_pairs, ho_y, ho_w,
-                                          epsilon, ho_blocks))
+                                          annealing, r, fused, x, comm)
+        trace.append(comm.heldout(gamma, lam, ho_pairs, ho_y, ho_w, epsilon,
+                                  ho_blocks))
     out = (gamma, lam, mphi, torch.stack(trace))
     return out if extras is None else (*out, x)
 
@@ -347,17 +369,31 @@ class LinkSampling(EngineBase):
     # boundary checkpoint stores the next one
     ckpt_boundary_offset = 1
 
-    def __init__(self, cfg: Config, network: Network, device: torch.device):
-        super().__init__(cfg, network, device)
+    def __init__(self, cfg: Config, network: Network, device: torch.device,
+                 group: "mesh.Group | None" = None):
+        super().__init__(cfg, network, device, group)
         n, k = self.n, self.k
         block = choose_edge_block(len(network.training_links), k)
         edges_p, mask = pad_edges(network.training_links, block)
         self.edges = torch.as_tensor(edges_p, device=device)
         self.mask = torch.as_tensor(mask, device=device)
-        # the same links as a symmetric CSR, built once: what the phi and
-        # s3 passes walk (padding rows are absent from it); the padded
-        # list serves the community extraction
-        self.adj = build_adjacency(network.training_links, n, device)
+        # under a mesh (-mesh N, -mesh-rowshard: parallel/mesh.py) this
+        # rank's shard of the links, in the JAX package's order
+        # (shard_edges), and under -mesh-rowshard n padded to whole rows a
+        # rank (svinet_tpu/svi/linksampling.py:558-595)
+        links = network.training_links
+        self._rowshard = self._group is not None and bool(cfg.mesh_rowshard)
+        self._n_pad = n
+        if self._group is not None:
+            nd = self._group.size
+            if self._rowshard:
+                self._n_pad = -(-n // nd) * nd
+            links = links[np.array_split(np.arange(len(links)),
+                                         nd)[self._group.rank]]
+        # the links as a symmetric CSR, built once: what the phi and s3
+        # passes walk (padding rows are absent from it); the padded list
+        # serves the community extraction
+        self.adj = build_adjacency(links, self._n_pad, device)
         self.deg = torch.as_tensor(network.training_deg.astype(np.float32),
                                    device=device)
 
@@ -408,6 +444,8 @@ class LinkSampling(EngineBase):
         # They are not self.mphi, whose presence makes a dense sweep fused
         self._sparse_rows = None
         if cfg.sparse_w:
+            if self._group is not None:
+                raise SystemExit("-sparse-w is single-device; drop -mesh")
             if cfg.freeze_converged:
                 raise SystemExit("-sparse-w does not support -freeze")
             if cfg.sparse_w >= k:
@@ -421,6 +459,9 @@ class LinkSampling(EngineBase):
             print("+ -fuse-s3 has no converged-freezing fast path; "
                   "running unfused to honor -freeze")
             cfg.fuse_s3 = False
+        if cfg.freeze_converged and self._group is not None:
+            raise SystemExit("-freeze is not supported under -mesh / "
+                             "-mesh-rowshard; drop one of the flags")
         # -fuse-s3 carries the mean indicators across sweeps; zeros before
         # the first sweep (and after -load), so its s3 is 0. Under -bf16
         # their bf16 rows ride beside them once annealing is over
@@ -432,6 +473,11 @@ class LinkSampling(EngineBase):
                                     device=device)
         if cfg.bf16_rows:
             cfg.plog("bf16 rows", True)
+        if self._group is not None:
+            if self._n_pad != n:
+                cfg.plog("rowshard padded rows", self._n_pad - n)
+            cfg.plog("mesh devices", self._group.size)
+            cfg.plog("mesh rowshard", self._rowshard)
 
         # -load-test-sets: fixed uniform/biased heldout pair files from the
         # cwd, each with its own per-report likelihood trace (reference:
@@ -457,18 +503,88 @@ class LinkSampling(EngineBase):
                                 append=bool(cfg.resume))))
 
         # the validation pairs, padded once to whole blocks, ride the tail
-        # of every step; _ho_res holds the sums of the last step
+        # of every step; _ho_res holds the sums of the last step. Under
+        # -mesh-rowshard each rank holds its share of the pairs over the
+        # compact table of heldout-touched rows (rowshard_heldout_layout)
         self._ho = None
         self._ho_res = None
+        self._comm = LOCAL
         m = len(network.validation_pairs)
-        if m:
+        if m and self._rowshard:
+            g = self._group
+            hidx, pp, yy, ww, nb = mesh.rowshard_heldout_layout(
+                network.validation_pairs,
+                network.validation_y.astype(np.int32), self._n_pad, g.size)
+            h, t = len(hidx) // g.size, len(pp) // g.size
+            mine = slice(g.rank * t, (g.rank + 1) * t)
+            self._comm = MeshComm(g, True, self._device_pairs(
+                hidx[g.rank * h:(g.rank + 1) * h].astype(np.int64)))
+            self._ho = (self._device_pairs(pp[mine]),
+                        self._device_pairs(yy[mine]),
+                        self._device_pairs(ww[mine]), nb)
+        elif m:
             blk = min(1 << 17, max(64, 1 << int(np.ceil(np.log2(m)))))
             pp, ww = pad_edges(network.validation_pairs, blk)
             yy = np.zeros(len(pp), np.int32)
             yy[:m] = network.validation_y
             self._ho = (self._device_pairs(pp), self._device_pairs(yy),
                         self._device_pairs(ww), len(pp) // blk)
+        if self._group is not None and self._comm is LOCAL:
+            self._comm = MeshComm(self._group, self._rowshard)
+        # under -mesh-rowshard the (n, K) gamma and mphi of a report, a
+        # stop or a checkpoint while _full_rows holds them; else None
+        self._local_rows = None
         self._resume_if_requested()
+        if self._group is not None:
+            self._distribute_state()
+
+    def _distribute_state(self) -> None:
+        """Under a mesh: rank 0's state on every rank (at start and after
+        -resume), then under -mesh-rowshard each rank's rows, n padded with
+        rows at (alpha, deg 0) that no link or heldout pair touches
+        (svinet_tpu/svi/linksampling.py:558-595)."""
+        n, k, n_pad = self.n, self.k, self._n_pad
+
+        def padded(t, fill):
+            if t is None or n_pad == n:
+                return t
+            return torch.cat([t, t.new_full((n_pad - n, *t.shape[1:]),
+                                            fill)])
+
+        self.gamma = mesh.broadcast(padded(self.gamma, self.cfg.alpha)
+                                    .contiguous())
+        self.lam = mesh.broadcast(self.lam.contiguous())
+        if self.mphi is not None:
+            self.mphi = mesh.broadcast(padded(self.mphi, 0.0).contiguous())
+            self._mphi_bf16 = None
+        self.deg = padded(self.deg, 0.0)
+        if self._rowshard:
+            g = self._group
+            rows = slice(g.rank * n_pad // g.size,
+                         (g.rank + 1) * n_pad // g.size)
+            self.gamma = self.gamma[rows].clone()
+            self.deg = self.deg[rows].clone()
+            if self.mphi is not None:
+                self.mphi = self.mphi[rows].clone()
+
+    @contextlib.contextmanager
+    def _full_rows(self):
+        """Under -mesh-rowshard, the whole (n, K) gamma and mphi, gathered
+        from the ranks (a collective: every rank enters it at the same
+        point), for what a report, a stop or a checkpoint reads of the
+        state; the rank's rows come back after. Else nothing happens."""
+        if not self._rowshard or self._local_rows is not None:
+            yield
+            return
+        self._local_rows = (self.gamma, self.mphi)
+        self.gamma = mesh.all_gather(self.gamma, self._group)[:self.n]
+        if self.mphi is not None:
+            self.mphi = mesh.all_gather(self.mphi, self._group)[:self.n]
+        try:
+            yield
+        finally:
+            self.gamma, self.mphi = self._local_rows
+            self._local_rows = None
 
     def _resume_if_requested(self) -> None:
         """-resume: restore the newest checkpoint; under -prune compact at
@@ -544,7 +660,7 @@ class LinkSampling(EngineBase):
             self.gamma, self.lam, self.mphi, x = multi_sweep(
                 self.gamma, self.lam, self.mphi, self.adj, self.deg,
                 self.consts, self.annealing, n_sweeps, self.mphi is not None,
-                self._sweep_extras())
+                self._sweep_extras(), self._comm)
             self._conv, self._mphi_bf16 = x.conv, x.mphi_bf16
             return
         self._ho_res = self._run_trace(n_sweeps, 1)[0]
@@ -587,13 +703,17 @@ class LinkSampling(EngineBase):
 
     def _run_trace(self, r: int, n_batches: int) -> torch.Tensor:
         """Advance the state by n_batches intervals of r sweeps; returns
-        the (n_batches, 6) heldout sums, still on the device."""
+        the (n_batches, 6) heldout sums, still on the device. Under a mesh
+        every rank holds rank 0's sums, from which the stop and the
+        annealing exit are decided."""
         hp, hy, hw, nb = self._ho
         self.gamma, self.lam, self.mphi, trace, x = sweep_ho_trace(
             self.gamma, self.lam, self.mphi, self.adj, self.deg, self.consts,
             self.annealing, hp, hy, hw, self.cfg.epsilon, r, n_batches, nb,
-            self.mphi is not None, self._sweep_extras())
+            self.mphi is not None, self._sweep_extras(), self._comm)
         self._conv, self._mphi_bf16 = x.conv, x.mphi_bf16
+        if self._group is not None:
+            mesh.broadcast(trace)
         return trace
 
     # ------------------------------------------------------------------
@@ -632,7 +752,9 @@ class LinkSampling(EngineBase):
         -report-batch batch never compact: the state belongs to the
         batch's last iteration."""
         cfg = self.cfg
-        if not cfg.prune or self.annealing or self._light_report:
+        if (not cfg.prune or self.annealing or self._light_report
+                or self._group is not None):
+            # never under a mesh (svinet_tpu/svi/linksampling.py:955)
             return
         act = _active_cols(self.gamma, self.consts.alpha).cpu().numpy()
         ka = int(act.sum())
@@ -690,7 +812,15 @@ class LinkSampling(EngineBase):
         (> -anneal-drawdown) drawdown below the best, or a sustained
         monotone decline of -anneal-decline-sweeps sweeps; iteration 1000
         is a backstop. A column-compacted state (-prune) is expanded first
-        and compacted again last, for the next interval's sweeps."""
+        and compacted again last, for the next interval's sweeps. Under
+        -mesh-rowshard a report that is not a batch's replayed row reads
+        the gathered (n, K) state (_full_rows)."""
+        if self._light_report:
+            return self._report()
+        with self._full_rows():
+            return self._report()
+
+    def _report(self) -> bool:
         self._expand_if_compacted()
         stop = super().report()
         if not self._light_report:
@@ -738,6 +868,8 @@ class LinkSampling(EngineBase):
         {name}_auc.txt ("y P(link)" rows) rewritten (reference:
         src/linksampling.cc:1056-1074, ~1150)."""
         cfg = self.cfg
+        if not self.primary:
+            return
         for name, pairs, ys, rf in self._test_sets:
             res = heldout_stats(self.gamma, self.lam, pairs, ys, cfg.epsilon)
             rf.write(self.iteration, self.duration(), res, cfg.zeros_prob,
@@ -770,6 +902,8 @@ class LinkSampling(EngineBase):
         LinkSampling::check_and_set_converged, src/linksampling.cc:456-475;
         MMSBInfer::hosts_conv, src/mmsbinfer.cc:754-790). Only the (n,)
         counts leave the device."""
+        if not self.primary:
+            return
         if not hasattr(self, "_convf"):
             app = bool(self.cfg.resume)
             self._convf = open(self.cfg.file_str("convergence.txt"),
@@ -800,6 +934,8 @@ class LinkSampling(EngineBase):
         """auc.txt: 'y score' rows over the heldout pairs + the AUC in
         auc-all.txt (reference: LinkSampling::auc,
         src/linksampling.cc:854-879)."""
+        if not self.primary:
+            return
         net = self.network
         if len(net.precision_pairs):
             pairs, ys = net.precision_pairs, net.precision_y
@@ -814,9 +950,10 @@ class LinkSampling(EngineBase):
             f.write(f"{auc_fn(scores, np.asarray(ys)):.5f}\n")
 
     def do_on_stop(self, next_iteration: "int | None" = None) -> None:
-        self._expand_if_compacted()
-        super().do_on_stop(next_iteration=next_iteration)
-        self.write_auc()
+        with self._full_rows():
+            self._expand_if_compacted()
+            super().do_on_stop(next_iteration=next_iteration)
+            self.write_auc()
 
     # ------------------------------------------------------------------
     def _trace_intervals(self, j: int, r: int, batch: int, timef,
@@ -865,7 +1002,7 @@ class LinkSampling(EngineBase):
         -sparse-w and while the state is column-compacted
         (svinet_tpu/svi/linksampling.py:1288-1316). -profile DIR traces the
         loop with torch.profiler into DIR (:1199-1211)."""
-        if not self.cfg.profile_dir:
+        if not self.cfg.profile_dir or not self.primary:
             self._infer_loop(max_seconds)
             return
         from torch.profiler import ProfilerActivity, profile
@@ -903,8 +1040,7 @@ class LinkSampling(EngineBase):
                     return
                 # the time budget gates both paths (the -report-batch
                 # branch continues before the loop's tail)
-                if (max_seconds is not None
-                        and time.time() - self._start > max_seconds):
+                if max_seconds is not None and self._out_of_time(max_seconds):
                     self.do_on_stop()
                     return
                 j = ((self.iteration + r - 1) // r) * r

@@ -21,7 +21,15 @@ PyTorch on (K,2):
 
 batch_infer sweeps all non-heldout pairs each iteration with gamma =
 alpha + gamma_hat (reference: src/mmsbinfer.cc:833-930).
-The -mesh branches of the JAX engine are not ported.
+
+Under -mesh N (parallel/mesh.py; svinet_tpu/svi/mmsb.py:309-330 and
+make_sharded_svi_multi_step, make_sharded_batch_step,
+svinet_tpu/parallel/mesh.py:602-758) every rank draws the same
+minibatches, pads each to N equal whole-block shards as the JAX engine
+does and runs kernel 8 on its shard without the node update; gamma_hat
+and lambda_hat are all-reduced and every rank takes gamma's step in plain
+PyTorch, in the JAX step's expression order, on replicated gamma and
+lambda (the reference's pthread map-reduce, src/mmsbinfer.cc:2400-2550).
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from svinet_torch.graph import Network
 from svinet_torch.io.writers import load_model
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.edges import owner_csr
-from svinet_torch.ops.phicomp import BLOCK, NodeUpdate, phi_fixed_point
+from svinet_torch.ops.phicomp import (
+    BLOCK, NodeUpdate, node_update_plain, phi_fixed_point)
+from svinet_torch.parallel import mesh
 from svinet_torch.svi.base import EngineBase
 
 
@@ -76,10 +86,28 @@ def nonuniform_weights(gamma, pairs, y, mask, infthresh: float):
     return w, n_processed
 
 
+def _shard_stats(elogpi, elogbeta, pairs, y, w, log_eps: float,
+                 max_iters: int, thresh: float, csr, block: int, group):
+    """gamma_hat (n,K) and lambda_hat (K,2) over all ranks' shards: kernel
+    8 on this rank's pairs without the node update, then both summed over
+    the ranks (svinet_tpu/parallel/mesh.py:654-659). A shard that holds
+    no pair adds zeros."""
+    n, k = elogpi.shape
+    if pairs.shape[0]:
+        gacc, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w,
+                                        log_eps, max_iters, thresh,
+                                        block=block, csr=csr)
+    else:
+        gacc = elogpi.new_zeros((n, k))
+        lacc = elogpi.new_zeros((k, 2))
+    return mesh.all_reduce(gacc), mesh.all_reduce(lacc)
+
+
 def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
              noderhot, rhot, do_lambda, log_eps: float, max_iters: int,
              thresh: float = 1e-5, infthresh: float = 0.0,
-             nonuniform: bool = False, csr=None, block: int = BLOCK):
+             nonuniform: bool = False, csr=None, block: int = BLOCK,
+             group=None):
     """One natural-gradient SVI step (svinet_tpu/svi/mmsb.py:123-164).
     infthresh > 0 gives weight 0 to the nonlinks whose max_k pi_p pi_q is
     below it (reference: MMSBInfer::opt_process,
@@ -87,15 +115,23 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
     nonuniform_weights' and the scales carry the -rnode flag in their
     sign: > 0 takes the scale 3n / (2 n_processed), <= 0 keeps |scale|
     (src/mmsbinfer.cc:571-572). The scalars are f32 tensors or floats;
-    `block` is the exit rule's (ops/phicomp.py), the engine's B. Returns
-    the new (gamma, lam)."""
+    `block` is the exit rule's (ops/phicomp.py), the engine's B. With a
+    mesh `group`, pairs, y and w are this rank's shard of the minibatch
+    (make_sharded_svi_multi_step, svinet_tpu/parallel/mesh.py:633-663):
+    the -nonuniform weights take the global counts
+    (mesh.sharded_nonuniform_weights) and gamma's step runs after the
+    all-reduce. Returns the new (gamma, lam)."""
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
     dev = gamma.device
     gs = torch.as_tensor(gscale, dtype=torch.float32).to(dev)
     ls = torch.as_tensor(lscale, dtype=torch.float32).to(dev)
     if nonuniform and infthresh > 0.0:
-        w, n_proc = nonuniform_weights(gamma, pairs, y, w, infthresh)
+        if group is None:
+            w, n_proc = nonuniform_weights(gamma, pairs, y, w, infthresh)
+        else:
+            w, n_proc = mesh.sharded_nonuniform_weights(gamma, pairs, y, w,
+                                                        infthresh, group)
         n = torch.tensor(float(gamma.shape[0]), dtype=gamma.dtype,
                          device=dev)
         dev_scale = 3.0 * n / (2.0 * n_proc.clamp_min(1).to(gamma.dtype))
@@ -110,10 +146,17 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
         w = torch.where((y == 1) | inf, w, 0.0)
     nr = torch.as_tensor(noderhot, dtype=torch.float32).to(dev)
     rt = torch.as_tensor(rhot, dtype=torch.float32).to(dev)
-    # kernel 8's node pass writes the next gamma (ops/phicomp.py:NodeUpdate)
-    gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                     max_iters, thresh, block=block, csr=csr,
-                                     update=NodeUpdate(gamma, alpha, gs, nr))
+    upd = NodeUpdate(gamma, alpha, gs, nr)
+    if group is None:
+        # kernel 8's node pass writes the next gamma
+        # (ops/phicomp.py:NodeUpdate)
+        gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w,
+                                         log_eps, max_iters, thresh,
+                                         block=block, csr=csr, update=upd)
+    else:
+        gacc, lacc = _shard_stats(elogpi, elogbeta, pairs, y, w, log_eps,
+                                  max_iters, thresh, csr, block, group)
+        gamma = node_update_plain(gacc, upd)
     if float(do_lambda) > 0:
         lambdat = eta + ls * lacc
         lam = (1.0 - rt) * lam + rt * lambdat
@@ -122,16 +165,24 @@ def svi_step(gamma, lam, pairs, y, w, alpha: float, eta, gscale, lscale,
 
 def batch_step(gamma, lam, pairs, y, w, alpha: float, eta, do_lambda,
                log_eps: float, max_iters: int, thresh: float = 1e-5,
-               csr=None, block: int = BLOCK):
+               csr=None, block: int = BLOCK, group=None):
     """One coordinate-ascent pass over all non-heldout pairs
     (svinet_tpu/svi/mmsb.py:233-243; reference: MMSBInfer::batch_infer,
     src/mmsbinfer.cc:833-895): gamma = alpha + gamma_hat, and lambda =
-    eta + lambda_hat unless -nolambda."""
+    eta + lambda_hat unless -nolambda. With a mesh `group`, pairs are this
+    rank's shard and gamma_hat, lambda_hat are summed over the ranks first
+    (make_sharded_batch_step, svinet_tpu/parallel/mesh.py:706-758)."""
     elogpi = dirichlet_expectation(gamma)
     elogbeta = dirichlet_expectation(lam)
-    gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
-                                     max_iters, thresh, block=block, csr=csr,
-                                     update=NodeUpdate(None, alpha))
+    if group is None:
+        gamma, lacc, _ = phi_fixed_point(elogpi, elogbeta, pairs, y, w,
+                                         log_eps, max_iters, thresh,
+                                         block=block, csr=csr,
+                                         update=NodeUpdate(None, alpha))
+    else:
+        gacc, lacc = _shard_stats(elogpi, elogbeta, pairs, y, w, log_eps,
+                                  max_iters, thresh, csr, block, group)
+        gamma = node_update_plain(gacc, NodeUpdate(None, alpha))
     if float(do_lambda) > 0:
         lam = eta + lacc
     return gamma, lam
@@ -155,8 +206,9 @@ class MMSBInfer(EngineBase):
 
     dual_heldout_splits = True   # src/mmsbinfer.cc:206-328
 
-    def __init__(self, cfg: Config, network: Network, device: torch.device):
-        super().__init__(cfg, network, device)
+    def __init__(self, cfg: Config, network: Network, device: torch.device,
+                 group: "mesh.Group | None" = None):
+        super().__init__(cfg, network, device, group)
         n, k = self.n, self.k
         if cfg.model_load and cfg.gamma_location:
             g0, l0 = load_model(cfg.gamma_location, n, k, cfg.t)
@@ -182,7 +234,13 @@ class MMSBInfer(EngineBase):
         self._lf = open(cfg.file_str("logl.txt"), mode) if cfg.logl else None
         self._mf = open(cfg.file_str("modularity.txt"), mode)
         self._elbo_cache = None
+        if self._group is not None:
+            cfg.plog("mesh devices", self._group.size)
         self._resume_if_requested()
+        if self._group is not None:
+            # rank 0's state on every rank, at start and after -resume
+            self.gamma = mesh.broadcast(self.gamma.contiguous())
+            self.lam = mesh.broadcast(self.lam.contiguous())
 
     def close(self) -> None:
         super().close()
@@ -264,6 +322,25 @@ class MMSBInfer(EngineBase):
             w[zeros[np.arange(len(zeros)) % ss == 0]] = float(ss)
         return np.stack([lo, hi], 1).astype(np.int32), y, w
 
+    def _pad_to(self, m: int) -> int:
+        """Pairs a minibatch of m is padded to in the JAX engine: whole
+        blocks, and under -mesh nd equal whole-block shards
+        (svinet_tpu/svi/mmsb.py:430-438). Only the mesh path reads it:
+        the shards' spans (mesh.shard_span)."""
+        b = self._block
+        pt = max(b, ((m + b - 1) // b) * b)
+        if self._group is not None:
+            nd = self._group.size
+            pt = max(b, ((pt + nd - 1) // nd + b - 1) // b * b) * nd
+        return pt
+
+    def _shard(self, pairs, y, w, pad_to: int):
+        """This rank's pairs of a minibatch padded to pad_to, on the
+        device: (pairs, y, w)."""
+        lo, hi = mesh.shard_span(len(pairs), pad_to, self._group)
+        return tuple(torch.as_tensor(a[lo:hi], device=self.device)
+                     for a in (pairs, y, w))
+
     def _prepare_minibatch(self, it: int):
         """One minibatch and its schedule scalars (pairs, y, w, gscale,
         lscale, noderhot, rhot, do_lambda); advances the host sampling
@@ -310,21 +387,29 @@ class MMSBInfer(EngineBase):
         cfg = self.cfg
         batches = [self._prepare_minibatch(self.iteration + b)
                    for b in range(count)]
-        dev = self.device
         for pairs, y, w, gs, ls, nr, rt, dl in batches:
+            if self._group is None:
+                pairs, y, w = (torch.as_tensor(a, device=self.device)
+                               for a in (pairs, y, w))
+            else:
+                # the JAX engine pads a -rnode minibatch as n pairs, the
+                # others as s
+                pairs, y, w = self._shard(pairs, y, w, self._pad_to(
+                    self.n if cfg.randomnode else cfg.s))
             self.gamma, self.lam = svi_step(
-                self.gamma, self.lam, torch.as_tensor(pairs, device=dev),
-                torch.as_tensor(y, device=dev),
-                torch.as_tensor(w, device=dev), self.alpha, self.eta,
+                self.gamma, self.lam, pairs, y, w, self.alpha, self.eta,
                 _f32(gs), _f32(ls), _f32(nr), _f32(rt), dl, self.log_eps,
                 cfg.online_iterations, cfg.meanchangethresh,
-                float(cfg.infthresh), self._nonuniform, block=self._block)
+                float(cfg.infthresh), self._nonuniform, block=self._block,
+                group=self._group)
         self._eval_tail()
 
     def report(self) -> bool:
         """EngineBase's report, then a modularity.txt row and, with -logl,
         a logl.txt row (svinet_tpu/svi/mmsb.py:567-588)."""
         stop = super().report()
+        if not self.primary:
+            return stop
         from svinet_torch.evals.modularity import modularity
         edges, mask, _ = self._community_edges()
         if not hasattr(self, "_deg"):
@@ -391,7 +476,16 @@ class MMSBInfer(EngineBase):
 
     def batch_infer(self) -> None:
         cfg = self.cfg
-        pairs, y, w, csr = self._elbo_pairs()
+        if self._group is None:
+            pairs, y, w, csr = self._elbo_pairs()
+        else:
+            # this rank's shard of all the pairs, with its endpoint CSR
+            p_all, y_all = self._all_training_pairs()
+            pairs, y, w = self._shard(p_all, y_all,
+                                      np.ones(len(p_all), np.float32),
+                                      self._pad_to(len(p_all)))
+            csr = (owner_csr(pairs.reshape(-1), self.n)
+                   if pairs.shape[0] else None)
         do_lambda = 0.0 if cfg.nolambda else 1.0
         while True:
             if cfg.max_iterations and self.iteration > cfg.max_iterations:
@@ -401,7 +495,8 @@ class MMSBInfer(EngineBase):
             self.gamma, self.lam = batch_step(
                 self.gamma, self.lam, pairs, y, w, self.alpha, self.eta,
                 do_lambda, self.log_eps, cfg.online_iterations,
-                cfg.meanchangethresh, csr=csr, block=self._block)
+                cfg.meanchangethresh, csr=csr, block=self._block,
+                group=self._group)
             # the eval tail rides the report-boundary pass only
             if (self.iteration + 1) % cfg.reportfreq == 0:
                 self._eval_tail()

@@ -10,9 +10,11 @@ a machine without one, are checked here too."""
 import os
 import pathlib
 import re
+import signal
 import subprocess
 import sys
 import textwrap
+import time
 
 import pytest
 import torch
@@ -71,6 +73,97 @@ def test_cli_runs_with_jax_blocked(tmp_path):
         assert (out / "ckpt" / "latest").exists()
 
 
+# Installed as sitecustomize.py for a subprocess and every rank it spawns:
+# an import of jax or of the JAX package fails, and leaves a mark.
+_SITE_BLOCKER = textwrap.dedent("""
+    import os
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "svinet_tpu"):
+                marks = os.environ["NOJAX_MARKS"]
+                with open(os.path.join(marks, str(os.getpid())), "a") as f:
+                    f.write(name + "\\n")
+                raise ImportError(name + " is blocked")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+""")
+
+
+@pytest.mark.parametrize("flags", [["-link-sampling", "-max-iterations", "6"],
+                                   ["-rnode", "-max-iterations", "4"]],
+                         ids=["link-sampling", "rnode"])
+def test_mesh_ranks_run_with_jax_blocked(tmp_path, flags):
+    """`-mesh 2` with jax and svinet_tpu blocked in the CLI's process and
+    in both ranks it spawns (the blocker is the interpreter's
+    sitecustomize, which the spawned ranks run too)."""
+    site, marks = tmp_path / "site", tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_BLOCKER)
+    env = dict(os.environ, SVINET_TORCH_DEVICE="cpu", NOJAX_MARKS=str(marks),
+               PYTHONPATH=os.pathsep.join([str(site), str(REPO)]))
+    code = ("import sys\n"
+            "from svinet_torch.synth import write_planted\n"
+            "from svinet_torch.cli import main\n"
+            "net, gt = write_planted('.', 200, 4, 12, 5)\n"
+            "rc = main(['-file', net, '-n', '200', '-k', '4', '-nmi', gt,\n"
+            "           '-seed', '3', '-label', 'mesh', '-mesh', '2',\n"
+            f"           *{flags!r}])\n"
+            "assert rc == 0 and 'jax' not in sys.modules\n"
+            "print('OK')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+    assert not list(marks.iterdir()), [p.read_text() for p in marks.iterdir()]
+    out = [p for p in tmp_path.iterdir() if p.name.startswith("n200-k4-mesh")]
+    assert len(out) == 1 and (out[0] / "gamma.txt").exists()
+
+
+@pytest.mark.parametrize("flags", [[], ["-mesh", "2"]], ids=["one", "mesh2"])
+def test_sigterm_during_setup_exits_0(tmp_path, flags):
+    """A SIGTERM that arrives before the engine exists ends the CLI with
+    status 0, as svinet_tpu/cli.py:343-353 does: the handler is in place
+    before the network is read; under -mesh 2 the launcher ends its ranks
+    and exits 0. The input is a FIFO (read through the Python reader,
+    -strid), so the CLI (or a rank) is held inside Network.read until the
+    signal comes."""
+    fifo = tmp_path / "net.fifo"
+    os.mkfifo(fifo)
+    env = dict(os.environ, SVINET_TORCH_DEVICE="cpu",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "svinet_torch", "-file", str(fifo), "-n",
+         "10", "-k", "2", "-link-sampling", "-strid", "-label", "term",
+         *flags],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + 120
+    fd = None
+    while fd is None:
+        # opening the write end succeeds once the CLI has opened the read
+        # end, that is once it is inside Network.read
+        try:
+            fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+        except OSError:
+            assert proc.poll() is None, proc.communicate()
+            assert time.time() < deadline, "the CLI never opened its input"
+            time.sleep(0.02)
+    try:
+        os.write(fd, b"a\tb\n")
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        os.close(fd)
+    assert proc.returncode == 0, (proc.returncode, out, err)
+    assert "+ network:" not in out
+
+
 def test_no_jax_import_in_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|svinet_tpu)\b", re.M)
     files = sorted((REPO / "svinet_torch").rglob("*.py"))
@@ -101,24 +194,25 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-link-sampling", "-mesh-rowshard"], "-mesh-rowshard"),
+    (["-link-sampling", "-mesh-rowshard", "-mesh-locality"],
+     "-mesh-locality"),
     (["-link-sampling", "-dist-coordinator", "host:1"], "-dist-coordinator"),
-    (["-link-sampling", "-sparse-w", "8", "-resume", "-mesh", "2"],
-     "-mesh"),
+    (["-link-sampling", "-sparse-w", "8", "-resume", "-dist-procid", "1"],
+     "-dist-procid"),
     (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8",
       "-checkpoint-freq", "5", "-dist-nprocs", "2"], "-dist-nprocs"),
     (["-link-sampling", "-mesh-locality"], "-mesh-locality"),
     (["-link-sampling", "-dist-procid", "1"], "-dist-procid"),
-    (["-link-sampling", "-mesh", "2"], "-mesh"),
+    (["-link-sampling", "-mesh", "2", "-dist-nprocs", "2"], "-dist-nprocs"),
     (["-link-sampling", "-dist-nprocs", "2"], "-dist-nprocs"),
-    (["-checkpoint-freq", "5", "-mesh-rowshard"], "-mesh-rowshard"),
+    (["-checkpoint-freq", "5", "-mesh-locality"], "-mesh-locality"),
     (["-rnode", "-resume", "-dist-coordinator", "h:1"], "-dist-coordinator"),
-    (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2"],
-     "-mesh"),
+    (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2",
+      "-dist-coordinator", "h:1"], "-dist-coordinator"),
     (["-link-sampling", "-load-test-sets", "-dist-nprocs", "2"],
      "-dist-nprocs"),
-    (["-link-sampling", "-profile", "p", "-mesh-rowshard"],
-     "-mesh-rowshard"),
+    (["-link-sampling", "-profile", "p", "-mesh-rowshard",
+      "-dist-procid", "1"], "-dist-procid"),
     (["-single"], "-single"),
     (["-link-sampling", "-findk"], "-findk"),
     (["-stratified", "-rnode"], "-stratified -rnode"),
