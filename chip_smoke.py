@@ -41,7 +41,19 @@ single-card run of its flags (stop, NMI, heldout rows, and gamma and
 lambda where the fit does not amplify the reordered sums: see
 MESH_RTOL) with the replicas bit for bit equal, then times the stretch
 step under both layouts, the collectives alone on (n, K) rows and a
-sharded MMSBInfer step there.
+sharded MMSBInfer step there. Phase 5 drives -mesh-locality on two gloo
+ranks sharing the card, held to the single card's -fuse-s3 run on the same
+permuted network (to the stop, and after 20 sweeps), and alone on one NCCL
+rank, bit for bit -mesh 1 -mesh-rowshard -fuse-s3 on the same order;
+-dist-nprocs 2 as two processes of one gloo rank each, bit for bit the
+one-process run; FastAMM2 (-stratified -rnode) on the card and on two gloo
+ranks, held to the CPU port's rows (precision counts equal up to score
+ties); kernel 8 at FastAMM2's block of 512 pairs against its plain version;
+then times the stretch -fuse-s3 step under the locality and row-sharded
+layouts at one NCCL rank, FastAMM2's steps on that state, and the host's
+locality order and layout at d = 1, 2, 4, 8 on a planted n=100k graph
+(`python3 chip_smoke.py
+--phase5` runs phase 5 alone and prints no result).
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -2693,17 +2705,23 @@ def _mmsb_runs(workdir, record):
     return rows, info
 
 
-def record_cpu() -> int:
-    """--record-cpu: run phase 2's MMSBInfer runs on the CPU (the plain
-    versions) and print the rows MMSB_CPU_ROWS holds."""
+def record_cpu(which=("mmsb", "fa")) -> int:
+    """--record-cpu [mmsb|fa]: run phase 2's MMSBInfer runs and phase 5's
+    FastAMM2 run on the CPU (the plain versions) and print the rows
+    MMSB_CPU_ROWS and FA_CPU_ROWS hold."""
     os.environ["SVINET_TORCH_DEVICE"] = "cpu"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
         try:
-            rows, _ = _mmsb_runs(workdir, record=True)
+            if "mmsb" in which:
+                rows, _ = _mmsb_runs(workdir, record=True)
+                print("MMSB_CPU_ROWS = " + json.dumps(rows))
+            if "fa" in which:
+                net, gt, _ = _planted_graphs(workdir)["planted"]
+                out = _fa_cli(workdir, net, gt, "fa-cpu", FA_FLAGS)
+                print("FA_CPU_ROWS = " + json.dumps({"fa": _fa_rows(out)}))
         finally:
             os.chdir(cwd)
-    print("MMSB_CPU_ROWS = " + json.dumps(rows))
     return 0
 
 
@@ -2788,7 +2806,7 @@ def _crash_after(iteration):
 _TIMED = {"infer.log", "time.txt", "mrstats.txt", "ckpt"}
 _DURATION_COL = {"heldout.txt", "validation.txt", "training.txt",
                  "stats.txt", "max.txt", "convergence.txt",
-                 "modularity.txt", "logl.txt"}
+                 "modularity.txt", "logl.txt", "precision.txt"}
 
 
 def _strip(path, name):
@@ -3133,6 +3151,23 @@ def _path_launched(counts, engine, flags, primary, label):
     assert bool(counts.get("edge_assignments")) == primary, (label, counts)
 
 
+def _rank_reports(reports, ranks):
+    """The launcher's report (rank<r>.json) of each rank in `ranks`."""
+    out = []
+    for r in ranks:
+        with open(os.path.join(reports, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _rank_counts(rep):
+    """A rank report's (launches by kernel, launches by "kernel:form")."""
+    counts = {k: v["launches"] for k, v in rep["launches"].items()}
+    forms = {f"{k}:{form}": c for k, v in rep["launches"].items()
+             for form, c in v["forms"].items()}
+    return counts, forms
+
+
 def phase4(dev, workdir, stretch_eng):
     """The mesh on one card: both layouts on two gloo ranks, every layout
     on one NCCL rank, then the stretch shape on one NCCL rank. Returns the
@@ -3168,19 +3203,14 @@ def phase4(dev, workdir, stretch_eng):
                            backend="gloo", devices=[dev, dev],
                            report_dir=reports) == 0
         secs = time.perf_counter() - t0
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(reports, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = _rank_reports(reports, (0, 1))
         # lambda is replicated in every layout, gamma unless row-sharded
         replicated = "-mesh-rowshard" not in flags
         assert ranks[0]["lam_sha256"] == ranks[1]["lam_sha256"], label
         assert replicated == (ranks[0]["gamma_sha256"]
                               == ranks[1]["gamma_sha256"]), label
         for r, rep in enumerate(ranks):
-            counts = {k: v["launches"] for k, v in rep["launches"].items()}
-            forms = {f"{k}:{form}": c for k, v in rep["launches"].items()
-                     for form, c in v["forms"].items()}
+            counts, forms = _rank_counts(rep)
             _path_launched(counts, engine, flags, r == 0, label)
             add(counts, forms)
         out = _outdir(workdir, label)
@@ -3352,9 +3382,689 @@ def phase4_stretch(dev, eng, g):
         f"{max(gap, lgap):.2e} of their largest entry apart")
 
 
+# ---------------------------------------------------------------------
+# Phase 5: -mesh-locality, -dist-* and FastAMM2 (-stratified -rnode).
+
+# FastAMM2 on planted-20k: two reports, held to the CPU port's rows
+# (`python3 chip_smoke.py --record-cpu` prints FA_CPU_ROWS): heldout.txt's
+# columns as MMSB_CPU_ROWS holds them, and precision.txt's counts at
+# 10/100/1000
+FA_FLAGS = ["-stratified", "-rnode", "-max-iterations", "200", "-rfreq",
+            "100"]
+FA_CPU_ROWS = {
+    "fa": {
+        "heldout": [
+            [100, -3.908597354, -0.0004385, -7.816756292, -0.000438065,
+             -0.007738585, -0.00817665],
+            [200, -3.978008089, -0.000382368, -7.955633551, -0.000381989,
+             -0.007876073, -0.008258062],
+        ],
+        "validation": [],
+        "logl": [],
+        "precision": [[100, 0, 1, 2], [200, 0, 0, 2]],
+    },
+}
+# a precision count on the card may differ from the CPU port's only where
+# the pair at its cutoff lies in a run of scores this close together
+# across the cutoff (the card's link probabilities differ from the CPU's
+# in their last bits)
+PRECISION_TIE = 1e-6
+# kernel 8 at FastAMM2's block (512 pairs): (n, K, pairs, y) of one
+# minibatch: one node's links, and n/10 nonlinks of one node at n=20k and
+# at n=1M, K=500
+FA_FP_SHAPES = ((20_000, 20, 20, 1), (20_000, 20, 2_000, 0),
+                (1_000_000, 500, 100_000, 0))
+# the ranks of the layouts whose locality order and collective bytes are
+# timed (on a planted n=100k graph: one reorder of stretch's uniform random
+# links takes over two minutes of host time, tools/locality_order.py)
+LOCALITY_D = (1, 2, 4, 8)
+
+
+def _planted_graphs(workdir):
+    from svinet_torch.synth import write_planted
+    return {"planted": (*write_planted(
+                workdir, PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
+                PLANTED["seed"]), PLANTED)}
+
+
+def _permuted_run(workdir, argv, d, dev, group=None):
+    """The CLI's link-sampling run of argv with no mesh of its own (one
+    card, or the rank `group`), on the network permuted by
+    reorder_locality(d) as the -mesh-locality runs permute it. Returns its
+    output directory."""
+    from svinet_torch.cli import parse_args
+    from svinet_torch.graph import Network
+    from svinet_torch.svi.linksampling import LinkSampling
+    os.chdir(workdir)
+    cfg = parse_args(argv)
+    net = Network(cfg)
+    net.read(cfg.datfname)
+    net.drop_singles()
+    net.reorder_locality(d)
+    eng = LinkSampling(cfg, net, dev, group)
+    try:
+        eng.infer()
+    finally:
+        eng.close()
+    return os.path.abspath(cfg.outdir)
+
+
+# the model and report files of a link-sampling run that two layouts of
+# the same sweeps write alike (param.txt logs the layout)
+_MODEL_FILES = ("gamma.txt", "lambda.txt", "heldout.txt", "validation.txt",
+                "max.txt", "communities.txt", "mutual.txt", "groups.txt",
+                "training.txt", "convergence.txt")
+
+
+def _same_files(a, b, names=None):
+    """Files of two runs bit for bit (wall-time columns aside): `names`,
+    or every file both hold (process 1's proc1/ aside), which must be the
+    same set. Returns how many were compared."""
+    if names is None:
+        skip = _TIMED | {"proc1"}
+        names = sorted(set(os.listdir(a)) - skip)
+        assert names == sorted(set(os.listdir(b)) - skip), (a, b)
+    differ = [nm for nm in names if _strip(a, nm) != _strip(b, nm)]
+    assert not differ, (a, b, differ)
+    return len(names)
+
+
+def phase5_locality(dev, workdir, graphs, launched):
+    """-mesh-locality: two gloo ranks on cuda:0 against the single card's
+    -fuse-s3 run on the same permuted network (to the stop, and 20 sweeps),
+    then one NCCL rank against -mesh 1 -mesh-rowshard -fuse-s3 on the same
+    order, bit for bit."""
+    from svinet_torch.cli import main as cli_main
+    from svinet_torch.parallel import mesh
+    out = {}
+    for label, flags, state_rtol, rows_rtol in (
+            ("loc2", LS_FLAGS, None, MESH_LONG_RTOL),
+            ("loc2-short", SHORT_FLAGS, MESH_RTOL, MESH_RTOL)):
+        reports = os.path.join(workdir, f"{label}-ranks")
+        os.makedirs(reports)
+        os.chdir(workdir)
+        t0 = time.perf_counter()
+        assert mesh.launch(_mesh_argv("ls", label, [*flags, "-mesh", "2",
+                                                    "-mesh-locality"],
+                                      graphs), 2, backend="gloo",
+                           devices=[dev, dev], report_dir=reports) == 0
+        secs = time.perf_counter() - t0
+        ranks = _rank_reports(reports, (0, 1))
+        assert ranks[0]["lam_sha256"] == ranks[1]["lam_sha256"], label
+        assert ranks[0]["order_sha256"] == ranks[1]["order_sha256"], label
+        for r, rep in enumerate(ranks):
+            counts, forms = _rank_counts(rep)
+            _path_launched(counts, "ls", ["-fuse-s3"], r == 0, label)
+            for name, v in {**counts, **forms}.items():
+                launched[name] = launched.get(name, 0) + v
+        ref = _permuted_run(workdir, _mesh_argv(
+            "ls", f"{label}-ref", [*flags, "-fuse-s3"], graphs), 2, dev)
+        loc = _outdir(workdir, label)
+        gaps = _held_to(loc, ref, label, state_rtol, rows_rtol)
+        params = open(os.path.join(loc, "param.txt")).read()
+        frac = re.search(r"locality internal frac\S*\s+(\S+)", params)
+        rows = re.search(r"locality boundary rows\S*\s+(\S+)", params)
+        out[label] = secs
+        log(f"phase 5: {label} (-mesh 2 -mesh-locality {' '.join(flags)}) "
+            f"on two gloo ranks on {dev}: {secs:.1f} s, internal fraction "
+            f"{frac.group(1) if frac else '?'}, boundary rows "
+            f"{rows.group(1) if rows else '?'}; held to the single card's "
+            f"-fuse-s3 run on the same order: {gaps}; both ranks the same "
+            f"node order and lambda bit for bit; launches rank 0 "
+            f"{_rank_counts(ranks[0])[1]}, rank 1 {_rank_counts(ranks[1])[1]}")
+    g = mesh.init_group(0, 1, dev, "nccl")
+    try:
+        _zero_counts()
+        os.chdir(workdir)
+        t0 = time.perf_counter()
+        assert cli_main(_mesh_argv("ls", "loc1", [*LS_FLAGS,
+                                                  "-mesh-locality"],
+                                   graphs), g) == 0
+        secs = time.perf_counter() - t0
+        g.engine = None
+        counts, forms = _read_counts()
+        _path_launched(counts, "ls", ["-fuse-s3"], True, "loc1")
+        for name, v in {**counts, **forms}.items():
+            launched[name] = launched.get(name, 0) + v
+        ref = _permuted_run(workdir, _mesh_argv(
+            "ls", "loc1-rs", [*LS_FLAGS, "-mesh", "1", "-mesh-rowshard",
+                              "-fuse-s3"], graphs), 1, dev, g)
+        n_files = _same_files(_outdir(workdir, "loc1"), ref, _MODEL_FILES)
+        mx = open(os.path.join(ref, "max.txt")).read().split()
+        log(f"phase 5: -mesh-locality alone on one NCCL rank: {secs:.1f} s, "
+            f"stop {mx[0]}; {n_files} model and report files equal "
+            f"-mesh 1 -mesh-rowshard -fuse-s3's on the same order bit for "
+            f"bit; launches {forms}")
+    finally:
+        mesh.shutdown()
+    return out
+
+
+_DIST_RANK = """
+import sys
+sys.path.insert(0, {repo!r})
+from svinet_torch.cli import parse_args
+from svinet_torch.parallel import mesh
+argv = {argv!r}
+sys.exit(mesh.launch(argv, 2, backend="gloo", devices=[{device!r}],
+                     report_dir={reports!r},
+                     dist=mesh.Dist.of(parse_args(argv))))
+"""
+
+
+def phase5_dist(dev, workdir, graphs, launched):
+    """-dist-nprocs 2: two processes, each one gloo rank on cuda:0, meet
+    at a TCP rendezvous on 127.0.0.1 and write the one-process two-rank
+    run's files bit for bit (phase 4's mesh2-short, made here when phase 4
+    did not run), process 1 under proc1/."""
+    import socket
+    from svinet_torch.parallel import mesh
+    flags = [*SHORT_FLAGS, "-mesh", "2"]
+    argv = _mesh_argv("ls", "mesh2-short", flags, graphs)
+    os.chdir(workdir)
+    if not [d for d in os.listdir(workdir) if "-mesh2-short-" in d]:
+        assert mesh.launch(argv, 2, backend="gloo", devices=[dev, dev]) == 0
+    one = _outdir(workdir, "mesh2-short")
+    two = os.path.join(workdir, "dist")
+    reports = os.path.join(workdir, "dist-ranks")
+    os.makedirs(two)
+    os.makedirs(reports)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DIST_RANK.format(
+            repo=repo, reports=reports, device=str(dev),
+            argv=[*argv, "-dist-coordinator", f"127.0.0.1:{port}",
+                  "-dist-nprocs", "2", "-dist-procid", str(i)])],
+        cwd=two, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in (0, 1)]
+    try:
+        for i, p in enumerate(procs):
+            o, e = p.communicate(timeout=600)
+            assert p.returncode == 0, (i, o[-2000:], e[-4000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    out = _outdir(two, "mesh2-short")
+    assert os.path.isdir(os.path.join(out, "proc1")), os.listdir(out)
+    n_files = _same_files(out, one)
+    ranks = _rank_reports(reports, (0, 1))
+    assert ranks[0]["lam_sha256"] == ranks[1]["lam_sha256"]
+    for r, rep in enumerate(ranks):
+        counts, forms = _rank_counts(rep)
+        _path_launched(counts, "ls", flags, r == 0, "dist")
+    log(f"phase 5: -dist-nprocs 2 (one gloo rank a process on {dev}, TCP "
+        f"rendezvous on 127.0.0.1): {secs:.1f} s for both processes; "
+        f"{n_files} files equal the one-process -mesh 2 run's bit for bit, "
+        f"process 1's rows under proc1/ "
+        f"({len(os.listdir(os.path.join(out, 'proc1')))} files)")
+
+
+def _precision_rows(out):
+    path = os.path.join(out, "precision.txt")
+    return [[int(v) for i, v in enumerate(l.split()) if i != 1]
+            for l in open(path).read().splitlines() if l.strip()]
+
+
+def _fa_rows(out):
+    rows = _mmsb_rows(out)
+    rows["precision"] = _precision_rows(out)
+    return rows
+
+
+def _precision_ties(got, want, scores, label):
+    """precision.txt rows on the card (`got`) against the CPU port's:
+    equal counts, or where a count differs, the pair at its cutoff in a
+    run of scores within PRECISION_TIE of each other across the cutoff,
+    long enough on both sides to carry the difference (`scores`: each
+    report's (link probabilities, y)). Returns the ties, printed."""
+    ties = []
+    assert [r[0] for r in got] == [r[0] for r in want], (label, got, want)
+    for row_g, row_w, (s, y) in zip(got, want, scores):
+        order = np.argsort(-s, kind="stable")
+        ss = s[order]
+        for cut, a, b in zip((10, 100, 1000), row_g[1:], row_w[1:]):
+            if a == b:
+                continue
+            t = min(cut, len(ss)) - 1
+            near = np.abs(ss - ss[t]) <= PRECISION_TIE
+            before = int(near[:t + 1].sum())
+            after = int(near[t + 1:].sum())
+            assert min(before, after) >= abs(a - b), (
+                label, row_g[0], cut, a, b, before, after)
+            ties.append((row_g[0], cut, a, b, float(ss[t]), before + after))
+    for tie in ties:
+        log(f"phase 5: {label}: precision at iteration {tie[0]}, top "
+            f"{tie[1]}: {tie[2]} hits on the card against {tie[3]} on the "
+            f"CPU, a tie of {tie[5]} scores within {PRECISION_TIE:g} of "
+            f"{tie[4]:.9g}")
+    return ties
+
+
+def _fa_cli(workdir, net, gt, label, flags, scores=None):
+    """FastAMM2 through the CLI in this process; with `scores` a list, each
+    report's (link probabilities, y) is appended to it."""
+    from svinet_torch.svi import fastamm2
+    counts = fastamm2.precision_counts
+    if scores is not None:
+        def keep(s, y):
+            scores.append((np.asarray(s).copy(), np.asarray(y).copy()))
+            return counts(s, y)
+        fastamm2.precision_counts = keep
+    try:
+        return _run_engine_cli(workdir, net, gt, PLANTED["n"], PLANTED["k"],
+                               label, flags)
+    finally:
+        fastamm2.precision_counts = counts
+
+
+def phase5_fastamm2(dev, workdir, graphs, launched):
+    """FastAMM2 on planted-20k on the card and on two gloo ranks sharing
+    it, each held to the CPU port's rows (heldout at 1e-4, precision
+    counts equal up to ties). Returns the launches of kernel 8 in the
+    single-card run."""
+    from svinet_torch.parallel import mesh
+    net, gt, _ = graphs["planted"]
+    scores = []
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = _fa_cli(workdir, net, gt, "fa", FA_FLAGS, scores)
+    secs = time.perf_counter() - t0
+    counts, forms = _read_counts()
+    rows = _fa_rows(out)
+    want = FA_CPU_ROWS["fa"]
+    held = {k: want[k] for k in ("heldout", "validation")}
+    _rows_close({k: rows[k] for k in held}, held, "fa")
+    scores = scores[1:]      # the Adamic-Adar baseline's first
+    assert len(scores) == len(rows["precision"]), len(scores)
+    ties = _precision_ties(rows["precision"], want["precision"], scores,
+                           "fa")
+    steps = int(FA_FLAGS[FA_FLAGS.index("-max-iterations") + 1]) + 1
+    assert forms["phi_fixed_point:f32"] == steps, (forms, steps)
+    for name in ("dirichlet_expectation", "phi_fixed_point", "heldout_sums",
+                 "edge_assignments"):
+        assert counts[name], (name, counts)
+    for name, v in {**counts, **forms}.items():
+        launched[name] = launched.get(name, 0) + v
+    aa = open(os.path.join(out, "adamic_adar.txt")).read().split()
+    log(f"phase 5: FastAMM2 ({' '.join(FA_FLAGS)}) on planted-20k: "
+        f"{secs:.1f} s, {steps} steps, heldout rows "
+        f"{_rows_gap(rows, held):.3e} from the CPU port's (limit "
+        f"{MMSB_ROW_RTOL:g}), precision rows {rows['precision']} (CPU "
+        f"{want['precision']}, {len(ties)} ties), Adamic-Adar {aa}; "
+        f"launches {forms}")
+    reports = os.path.join(workdir, "fa2-ranks")
+    os.makedirs(reports)
+    os.chdir(workdir)
+    t0 = time.perf_counter()
+    assert mesh.launch(["-file", net, "-n", str(PLANTED["n"]), "-k",
+                        str(PLANTED["k"]), "-nmi", gt, "-seed", "1",
+                        "-lt-min-deg", "1", "-label", "fa2", *FA_FLAGS,
+                        "-mesh", "2"], 2, backend="gloo", devices=[dev, dev],
+                       report_dir=reports) == 0
+    secs2 = time.perf_counter() - t0
+    ranks = _rank_reports(reports, (0, 1))
+    for key in ("gamma_sha256", "lam_sha256"):
+        assert ranks[0][key] == ranks[1][key], key
+    for r, rep in enumerate(ranks):
+        c, f = _rank_counts(rep)
+        _path_launched(c, "mmsb", [], r == 0, "fa2")
+        for name, v in {**c, **f}.items():
+            launched[name] = launched.get(name, 0) + v
+    out2 = _outdir(workdir, "fa2")
+    rows2 = _fa_rows(out2)
+    _rows_close({k: rows2[k] for k in held}, held, "fa2")
+    ties2 = _precision_ties(rows2["precision"], want["precision"], scores,
+                            "fa2")
+    log(f"phase 5: FastAMM2 -mesh 2 on two gloo ranks on {dev}: "
+        f"{secs2:.1f} s, heldout rows {_rows_gap(rows2, held):.3e} from the "
+        f"CPU port's, precision rows {rows2['precision']} ({len(ties2)} "
+        f"ties), replicas bit for bit equal")
+    return forms["phi_fixed_point:f32"]
+
+
+def phase5_fp512(dev):
+    """Kernel 8 at FastAMM2's block (B = 512) and minibatch shapes against
+    its plain version in float64 on the kernel's rounds, two launches
+    bitwise equal, each block's pairs on one R_b, and R_b against the
+    plain version's own. Returns the report of the n=1M, K=500 shape."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.phicomp import (
+        pair_block_stats_plain, phi_fixed_point)
+    from svinet_torch.svi.fastamm2 import BLOCK as FB
+    log_eps = float(np.float32(np.log(1e-30)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    report = None
+    for n, k, m, link in FA_FP_SHAPES:
+        elogpi, elogbeta = _fp_state(dev, gen, n, k)
+        r = n // 3
+        other = torch.randperm(n - 1, generator=gen, device=dev)[:m]
+        other = other + (other >= r).to(other.dtype)
+        pairs = torch.stack([other.clamp(max=r), other.clamp(min=r)],
+                            1).to(torch.int32).contiguous()
+        y = torch.full((m,), link, dtype=torch.int32, device=dev)
+        w = torch.ones(m, dtype=torch.float32, device=dev)
+        csr = owner_csr(pairs.reshape(-1), n)
+
+        def run():
+            return phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
+                                   50, 1e-5, block=FB, csr=csr)
+
+        def plain():
+            return pair_block_stats_plain(elogpi, elogbeta, pairs, y, w,
+                                          log_eps, 50, 1e-5, block=FB)
+
+        g_k, l_k, r_k, staged, stop = phi_fixed_point(
+            elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, block=FB,
+            csr=csr, keep_staged=True)
+        g_2, l_2, r_2 = run()
+        torch.cuda.synchronize()
+        assert (torch.equal(g_k, g_2) and torch.equal(l_k, l_2)
+                and torch.equal(r_k, r_2)), (n, k, m)
+        del g_2
+        blk = torch.arange(m, device=dev) // FB
+        assert torch.equal(r_k, r_k[::FB][blk]), (n, k, m)
+        split, phi_err = _split_pairs(elogpi, elogbeta, pairs, y, w, r_k,
+                                      staged, log_eps)
+        del staged
+        n_split = int(split.sum())
+        assert n_split <= max(FP_SPLIT_SHARE * m, 0), (n, k, m, n_split)
+        g_p, l_p, _ = pair_block_stats_plain(
+            elogpi.double(), elogbeta.double(), pairs, y, w.double(),
+            log_eps, 50, 1e-5, given=r_k, block=FB)
+        err = max(_close_to_max(g_k, g_p), _close_to_max(l_k, l_p))
+        assert err <= FP_TOL, (n, k, m, err)
+        del g_p
+        _, _, r_p = plain()
+        differ = int((r_k[::FB] != r_p[::FB]).sum())
+        needed = float(torch.minimum(stop, r_k).double().sum())
+        big = n * k >= 10**7
+        ms = cuda_ms(run, 5 if big else 20)
+        plain_ms = cuda_ms(plain, 2 if big else 5)
+        bnd = fp_bound(n, k, m, m, needed)
+        floor = fp_floor_ms(n, k, m)
+        log(f"phase 5: phi_fixed_point at B={FB}, n={n} K={k}, "
+            f"{m} {'links' if link else 'nonlinks'} of node {r}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}), floor {floor:.4f} ms; {-(-m // FB)} blocks, R_b "
+            f"mean {float(r_k[::FB].double().mean()):.2f}, differs from the "
+            f"plain version's on {differ}; err (of the largest entry) "
+            f"{err:.3e}, phi within {phi_err:.3e} on all but {n_split} "
+            f"pairs; two launches bitwise equal")
+        report = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
+        del g_k, elogpi, csr
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase5_order():
+    """Host seconds of reorder_locality and locality_edge_layout at every
+    d of LOCALITY_D, with the layout's internal fraction, boundary rows and
+    collective bytes, on the planted n=100k graph: on stretch one reorder
+    takes longer than the phase's budget (`python -m
+    svinet_torch.tools.locality_order --graph stretch` times it)."""
+    from svinet_torch.tools import locality_order as lo
+    n, k = lo.GRAPHS["planted"]
+    net = lo.ingest(lo.graph_edges("planted"), n, k)
+    for row in lo.time_orders(net, k, LOCALITY_D):
+        log("phase 5: locality order of "
+            + lo.describe("planted", net.n, len(net.edges), k, row))
+
+
+def phase5_locality_kernels(dev, adj_n, adj_loc, g0, lam, workdir):
+    """Kernels 2, 4 and 5 over the locality row space: on stretch's links
+    at d = 1 (adj_loc: n + Xmax rows, every link internal) beside the same
+    passes over the engine's n rows, bit for bit on the owned rows, timed;
+    and kernel 5 on rank 0's links of planted-20k's d = 2 layout ([owned |
+    boundary table] rows, a quarter of the links with one end in the
+    table) against its plain version at 1e-4, timed."""
+    from svinet_torch.graph import Network
+    from svinet_torch.cli import parse_args
+    from svinet_torch.ops.digamma import dirichlet_expectation_plain
+    from svinet_torch.ops.edges import build_adjacency, choose_edge_block
+    from svinet_torch.ops.expectations import dirichlet_expectation
+    from svinet_torch.parallel.locality import locality_edge_layout
+    from svinet_torch.svi.sweep_math import (
+        fused_phi_s3_pass, fused_phi_s3_pass_pull_plain, phi_pass, s3_pass)
+    n, k = g0.shape
+    rows = adj_loc.n
+    elogpi = torch.zeros((rows, k), device=dev)
+    elogpi[:n] = dirichlet_expectation(g0)
+    mphi = torch.zeros((rows, k), device=dev)
+    mphi[:n] = g0 / g0.sum(1, keepdim=True)
+    elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
+    ga, sa = phi_pass(elogpi, elb0, adj_loc)
+    gb, sb = phi_pass(elogpi[:n], elb0, adj_n)
+    assert torch.equal(ga[:n], gb) and torch.equal(sa, sb)
+    assert torch.equal(s3_pass(mphi, adj_loc), s3_pass(mphi[:n], adj_n))
+    del ga, gb
+    links = adj_n.nbr.shape[0] // 2
+    t = {"phi_pass": (cuda_ms(lambda: phi_pass(elogpi, elb0, adj_loc), 3),
+                      cuda_ms(lambda: phi_pass(elogpi[:n], elb0, adj_n), 3),
+                      phi_bound(rows, k, links, adj_loc)),
+         "s3_pass": (cuda_ms(lambda: s3_pass(mphi, adj_loc), 3),
+                     cuda_ms(lambda: s3_pass(mphi[:n], adj_n), 3),
+                     s3_bound(rows, k, links, adj_loc))}
+    del elogpi, mphi
+    torch.cuda.empty_cache()
+    for name, (ms_loc, ms_n, bnd) in t.items():
+        log(f"phase 5: {name} over stretch's locality rows (n + "
+            f"{rows - n}, d=1): {ms_loc:.4f} ms against {ms_n:.4f} ms over "
+            f"the n rows, bound {bnd[0]:.4f} ms ({bnd[1]}); the owned "
+            f"rows' results bit for bit equal")
+    # kernel 5 on planted-20k's d=2 layout, rank 0's links
+    os.chdir(workdir)
+    net_path = os.path.join(workdir, f"planted-n{PLANTED['n']}-k"
+                                     f"{PLANTED['k']}.txt")
+    cfg = parse_args(["-file", net_path, "-n", str(PLANTED["n"]), "-k",
+                      str(PLANTED["k"]), "-link-sampling"])
+    net = Network(cfg)
+    net.read(net_path)
+    net.drop_singles()
+    net.reorder_locality(2)
+    n_pad = -(-net.n // 2) * 2
+    es, ms, _, info = locality_edge_layout(net.edges, n_pad, 2, 1 << 16)
+    per = info["per_shard"]
+    mine = es[:per][ms[:per] > 0]
+    rows, k = info["rows_per"] + 2 * info["xmax"], PLANTED["k"]
+    adj = build_adjacency(mine, rows, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    elogpi = dirichlet_expectation_plain(
+        0.01 + 9.99 * torch.rand((rows, k), generator=gen, device=dev))
+    mphi = torch.rand((rows, k), generator=gen, device=dev)
+    mphi = mphi / mphi.sum(1, keepdim=True)
+    elb0 = dirichlet_expectation_plain(
+        0.5 + 4.5 * torch.rand((k, 2), generator=gen,
+                               device=dev))[:, 0].contiguous()
+    block = choose_edge_block(adj.nbr.shape[0], k)
+    got = fused_phi_s3_pass(elogpi, mphi, elb0, adj, one_launch=True)
+    again = fused_phi_s3_pass(elogpi, mphi, elb0, adj, one_launch=True)
+    want = fused_phi_s3_pass_pull_plain(elogpi, mphi, elb0, adj, block)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    err = max(_rel_err(a, b) for a, b in zip(got, want))
+    assert err <= PHI_TOL, err
+    ms5 = cuda_ms(lambda: fused_phi_s3_pass(elogpi, mphi, elb0, adj,
+                                            one_launch=True), 20)
+    plain_ms = cuda_ms(lambda: fused_phi_s3_pass_pull_plain(
+        elogpi, mphi, elb0, adj, block), 5)
+    bnd = fused_bound(rows, k, len(mine), adj)
+    remote = int((mine >= info["rows_per"]).any(1).sum())
+    log(f"phase 5: fused_phi_s3_pass (kernel 5) over rank 0's locality rows "
+        f"of planted-20k at d=2 ({info['rows_per']} owned + "
+        f"{2 * info['xmax']} table rows, {len(mine)} links, {remote} with "
+        f"an end in the table): kernel {ms5:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}), err {err:.3e}; two launches "
+        f"bitwise equal")
+
+
+def phase5_stretch(dev, eng, workdir):
+    """The stretch engine's state on one NCCL rank under -fuse-s3:
+    step(3) single card, row-sharded and locality (d = 1: every link
+    internal, an 8-row table), their peak memory, kernels 2, 4 and 5 over
+    locality row spaces; then a FastAMM2 step of each kind on the
+    state."""
+    from svinet_torch.evals.likelihood import result_from_sums
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.parallel import mesh
+    from svinet_torch.parallel.locality import locality_edge_layout
+    from svinet_torch.parallel.mesh import LOCAL, LocalityComm, MeshComm
+    from svinet_torch.svi.fastamm2 import BLOCK as FB, M_SETS
+    from svinet_torch.svi.mmsb import svi_step
+    n, k = eng.n, eng.k
+    net = eng.network
+    n_train = len(net.training_links)
+    g0, l0 = eng.gamma.clone(), eng.lam.clone()
+    single = (eng._ho, eng.adj)
+    g = mesh.init_group(0, 1, dev, "nccl")
+    try:
+        hidx, pp, yy, ww, nb = mesh.rowshard_heldout_layout(
+            net.validation_pairs, net.validation_y.astype(np.int32), n, 1)
+        rs_ho = tuple(torch.as_tensor(a, device=dev)
+                      for a in (pp, yy, ww)) + (nb,)
+        hidx_d = torch.as_tensor(hidx.astype(np.int64), device=dev)
+        t0 = time.perf_counter()
+        es, ms, exp_idx, info = locality_edge_layout(net.training_links, n,
+                                                     1, 1 << 16)
+        loc_adj = build_adjacency(es[ms > 0], n + info["xmax"], dev)
+        torch.cuda.synchronize()
+        t_layout = time.perf_counter() - t0
+        loc_comm = LocalityComm(g, hidx_d, torch.as_tensor(
+            exp_idx.astype(np.int64), device=dev), 0)
+        layouts = {"single card": (None, LOCAL, single[0], single[1]),
+                   "row-sharded": (g, MeshComm(g, True, hidx_d), rs_ho,
+                                   single[1]),
+                   "locality": (g, loc_comm, rs_ho, loc_adj)}
+        eng.cfg.fuse_s3 = True
+        eng.cfg.bf16_rows = False
+        eng._mphi_bf16 = None
+        eng.annealing = True
+        res = {}
+        for name, (grp, comm, ho, adj) in layouts.items():
+            eng._group, eng._comm, eng._ho, eng.adj = grp, comm, ho, adj
+            mphi = comm.rows_out("mphi", n, k, torch.float32, dev)
+            for _ in range(2):          # a warm-up, then the timed steps
+                eng.gamma, eng.lam = g0.clone(), l0.clone()
+                eng.mphi = (torch.zeros((n, k), device=dev) if mphi is None
+                            else mphi.zero_())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+                _zero_counts()
+                t0 = time.perf_counter()
+                eng.step(3)
+                sums = result_from_sums(eng._ho_res)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            counts = {key: v for key, v in _read_counts()[0].items() if v}
+            assert counts == {"dirichlet_expectation": 6, "phi_pass": 3,
+                              "mean_indicator_update": 3, "s3_pass": 3,
+                              "heldout_sums": 1}, (name, counts)
+            res[name] = dict(rate=3 * n_train / dt, ms=dt * 1e3,
+                             peak=torch.cuda.max_memory_allocated(dev)
+                             / 2**30, held=held / 2**30, avg=sums.avg,
+                             gamma=eng.gamma, lam=eng.lam)
+        ref = res["single card"]
+        for name in ("row-sharded", "locality"):
+            r = res[name]
+            gap = max(float((r["gamma"] - ref["gamma"]).abs().max()
+                            / ref["gamma"].abs().max()),
+                      float((r["lam"] - ref["lam"]).abs().max()
+                            / ref["lam"].abs().max()))
+            assert gap <= MESH_RTOL, (name, gap)
+            r["gap"] = gap
+        assert torch.equal(res["locality"]["gamma"],
+                           res["row-sharded"]["gamma"])
+        for name, r in res.items():
+            log(f"phase 5: stretch step(3) -fuse-s3 {name}: {r['ms']:.1f} ms "
+                f"= {r['rate']:.0f} edges/s, peak device memory "
+                f"{r['peak']:.2f} GiB ({r['held']:.2f} GiB held as it "
+                f"began), heldout avg {r['avg']:.6f}"
+                + (f", {r['gap']:.2e} from the single card" if "gap" in r
+                   else ""))
+        log(f"phase 5: the locality layout at d=1 on stretch's "
+            f"{n_train} links and its adjacency over {n + info['xmax']} "
+            f"rows: {t_layout:.1f} s; locality's gamma equals row-sharded's "
+            f"bit for bit")
+        del res, ref
+        eng.mphi = None
+        torch.cuda.empty_cache()
+        phase5_locality_kernels(dev, single[1], loc_adj, g0, l0, workdir)
+    finally:
+        eng._group, eng._comm, eng._ho, eng.adj = (None, LOCAL, single[0],
+                                                   single[1])
+        eng.gamma, eng.lam = g0, l0
+        eng.mphi = None
+        eng.cfg.fuse_s3 = False
+        mesh.shutdown()
+    torch.cuda.empty_cache()
+    # FastAMM2's step on the state: an informative step (one node's links)
+    # and a non-informative one (n/10 nonlinks), block 512, gamma's update
+    # in kernel 8's node pass
+    rng = np.random.default_rng(5)
+    r = int(rng.integers(0, n))
+    nbr = net.neighbors(r).astype(np.int64)
+    other = rng.choice(n - 1, size=n // M_SETS, replace=False)
+    other = other + (other >= r)
+    eta = torch.tensor([[1.0, 1.0]], device=dev).repeat(k, 1)
+    out = {}
+    for kind, others, y, scale in (("informative", nbr, 1, float(n)),
+                                   ("non-informative", other, 0,
+                                    float(n) * M_SETS)):
+        lo, hi = np.minimum(r, others), np.maximum(r, others)
+        pairs = torch.as_tensor(np.stack([lo, hi], 1).astype(np.int32),
+                                device=dev)
+        yy = torch.full((len(lo),), y, dtype=torch.int32, device=dev)
+        w = torch.ones(len(lo), dtype=torch.float32, device=dev)
+        sc, nr, rt = (torch.tensor(v, dtype=torch.float32, device=dev)
+                      for v in (scale, 0.5, 0.01))
+        args = (g0, l0, pairs, yy, w, float(np.float32(1.0 / k)), eta, sc,
+                sc, nr, rt, 1.0, float(np.float32(np.log(1e-30))), 50, 1e-5)
+        svi_step(*args, block=FB)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        gg, _ = svi_step(*args, block=FB)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        assert _read_counts()[0]["phi_fixed_point"] == 1
+        assert torch.isfinite(gg).all()
+        out[kind] = (len(lo), wall, cuda_ms(lambda: svi_step(*args,
+                                                             block=FB), 5))
+    log("phase 5: FastAMM2 step on stretch's state (n=1M, K=500, block "
+        f"{FB}): " + "; ".join(
+            f"{kind} ({m} pairs) {w:.2f} ms wall, {d:.2f} ms on the card"
+            for kind, (m, w, d) in out.items()))
+
+
+def phase5(dev, workdir, stretch_eng):
+    """-mesh-locality, -dist-* and FastAMM2. Returns (the launches of the
+    phase's paths by kernel and "kernel:form", kernel 8's report at
+    FastAMM2's block and its launches in the FastAMM2 run)."""
+    t0 = time.perf_counter()
+    graphs = _planted_graphs(workdir)
+    launched = {}
+    fp_report = phase5_fp512(dev)
+    phase5_locality(dev, workdir, graphs, launched)
+    phase5_dist(dev, workdir, graphs, launched)
+    fa_launches = phase5_fastamm2(dev, workdir, graphs, launched)
+    phase5_stretch(dev, stretch_eng, workdir)
+    phase5_order()
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    return launched, fp_report, fa_launches
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--record-cpu"]:
-        return record_cpu()
+    if sys.argv[1:2] == ["--record-cpu"]:
+        return record_cpu(sys.argv[2:] or ("mmsb", "fa"))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3363,6 +4073,21 @@ def main() -> int:
     cwd = os.getcwd()
     t_start = time.perf_counter()
     card = phase0(dev)
+    if sys.argv[1:] == ["--phase5"]:
+        # phase 5 alone on a stretch engine of its own, for work on it;
+        # prints no result
+        from svinet_torch.svi.linksampling import from_edges
+        from svinet_torch.synth import random_edges
+        with tempfile.TemporaryDirectory() as workdir:
+            try:
+                eng = from_edges(random_edges(STRETCH["n"],
+                                              STRETCH["n_edges"], 0),
+                                 STRETCH["n"], STRETCH["k"], dev,
+                                 os.path.join(workdir, "stretch"))
+                phase5(dev, workdir, eng)
+            finally:
+                os.chdir(cwd)
+        return 4
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
@@ -3377,6 +4102,8 @@ def main() -> int:
             mmsb = phase2_mmsb(workdir)
             assign_report, stretch = phase3(dev, workdir)
             mesh_launches = phase4(dev, workdir, stretch)
+            p5_launches, fa_fp_report, fa_launches = phase5(dev, workdir,
+                                                            stretch)
             del stretch
         finally:
             os.chdir(cwd)
@@ -3386,6 +4113,10 @@ def main() -> int:
     launches["phi_fixed_point:elbo"] = mmsb["phi_fixed_point:elbo"]
     per_sweep["phi_fixed_point"] = 1.0
     per_sweep["phi_fixed_point:elbo"] = 1.0     # -batch -logl: a report a step
+    # kernel 8 at FastAMM2's block of 512 pairs: phase 5's single-card run,
+    # one launch a step
+    launches["phi_fixed_point:b512"] = fa_launches
+    per_sweep["phi_fixed_point:b512"] = 1.0
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
     # kernel 5 from its -fuse-s3 run, kernel 7 and the top-W form from its
@@ -3401,10 +4132,10 @@ def main() -> int:
     sm = "svinet_tpu/svi/sweep_math.py"
     rows = (
         ("dirichlet_expectation", "svinet_torch/csrc/dirichlet_expectation.cu",
-         "svinet_tpu/ops/pallas_digamma.py:68", d_report),
+         "svinet_tpu/ops/pallas_digamma.py:69", d_report),
         ("dirichlet_expectation:topw",
          "svinet_torch/csrc/dirichlet_expectation.cu",
-         "svinet_tpu/ops/pallas_digamma.py:68",
+         "svinet_tpu/ops/pallas_digamma.py:69",
          sparse_reports["dirichlet_expectation:topw"]),
         ("phi_pass", "svinet_torch/csrc/phi_pass.cu",
          "tools/pallas_gather_bench.py:69", reports["phi_pass"]),
@@ -3426,6 +4157,9 @@ def main() -> int:
          "svinet_tpu/ops/phicomp.py:33", fp_report),
         ("phi_fixed_point:elbo", "svinet_torch/csrc/phi_fixed_point.cu",
          "svinet_tpu/evals/elbo.py:30", elbo_report),
+        # FastAMM2's step (svinet_tpu/svi/fastamm2.py:192, svi_multi_step)
+        ("phi_fixed_point:b512", "svinet_torch/csrc/phi_fixed_point.cu",
+         "svinet_tpu/ops/phicomp.py:33", fa_fp_report),
         ("edge_assignments", "svinet_torch/csrc/edge_assign.cu",
          "svinet_tpu/svi/communities.py:24", assign_report),
     )
@@ -3452,11 +4186,19 @@ def main() -> int:
                                  "edge_assignments", "phi_pass:bf16")
                if not mesh_launches.get(name)]
     assert not missing, f"never launched on the mesh path: {missing}"
+    # phase 5: every kernel of the locality, -dist and FastAMM2 paths
+    missing = [name for name in ("dirichlet_expectation",
+                                 "mean_indicator_update",
+                                 "fused_phi_s3_pass", "heldout_sums",
+                                 "phi_fixed_point", "edge_assignments")
+               if not p5_launches.get(name)]
+    assert not missing, f"never launched in phase 5: {missing}"
     kernels = [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          "launches_per_sweep": per_sweep[name],
-         "mesh_launches": mesh_launches.get(name, 0), **report,
+         "mesh_launches": mesh_launches.get(name, 0),
+         "phase5_launches": p5_launches.get(name, 0), **report,
          "library_ms": None}
         for name, source, replaces, report in rows]
     log(f"chip_smoke: every phase passed in "

@@ -4,12 +4,13 @@
 
 USAGE and parse_args are the port's own copy of svinet_tpu/cli.py:21-278
 (every flag parses to the same Config there and here; the tests hold the
-two equal); the network set-up is that of svinet_tpu/cli.py:314-319. The
-port runs -link-sampling and MMSBInfer, on one device or under -mesh N
-(-mesh-rowshard for -link-sampling), where the CLI spawns N ranks
-(parallel/mesh.py:launch). Every flag outside that slice stops the run
-with SystemExit naming the flag; none is ignored. The device comes from
-$SVINET_TORCH_DEVICE (default cuda).
+two equal); the network set-up is that of svinet_tpu/cli.py:314-333. The
+port runs -link-sampling, MMSBInfer and FastAMM2 (-stratified -rnode), on
+one device or under -mesh N (-mesh-rowshard and -mesh-locality for
+-link-sampling), where the CLI spawns N ranks (parallel/mesh.py:launch),
+or N/P of them in each of the P processes of -dist-nprocs P. Every flag
+outside that slice stops the run with SystemExit naming the flag; none is
+ignored. The device comes from $SVINET_TORCH_DEVICE (default cuda).
 """
 
 from __future__ import annotations
@@ -293,18 +294,14 @@ _ENGINE_FLAGS = (
     ("gml", "-gml"), ("findk", "-findk"), ("orig", "-orig"),
 )
 _LATER_ENGINE_FLAGS = (("single", "-single"),)
-_UNPORTED_FLAGS = (
-    ("mesh_locality", "-mesh-locality"),
-    ("dist_coordinator", "-dist-coordinator"),
-    ("dist_nprocs", "-dist-nprocs"), ("dist_procid", "-dist-procid"),
-)
 
 
 def check_slice(cfg: Config) -> None:
     """Raise SystemExit naming the first flag the port does not run. The
     ported engines, in svinet_tpu/cli.py's dispatch order: -link-sampling,
-    -batch (MMSBInfer.batch_infer), -preprocess, and MMSBInfer.infer (no
-    engine flag, -rpair, -rnode, -stratified -rpair)."""
+    -batch (MMSBInfer.batch_infer), -preprocess, FastAMM2 (-stratified
+    -rnode) and MMSBInfer.infer (no engine flag, -rpair, -rnode,
+    -stratified -rpair)."""
     for field, flag in _ENGINE_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
@@ -312,15 +309,8 @@ def check_slice(cfg: Config) -> None:
         for field, flag in _LATER_ENGINE_FLAGS:
             if getattr(cfg, field):
                 raise SystemExit(f"svinet_torch: {flag} is not ported")
-        if not (cfg.batch or cfg.preprocess):
-            if cfg.informative_sampling:
-                raise SystemExit("svinet_torch: -infset is not ported")
-            if cfg.stratified and cfg.randomnode:
-                raise SystemExit("svinet_torch: -stratified -rnode "
-                                 "(FastAMM2) is not ported")
-    for field, flag in _UNPORTED_FLAGS:
-        if getattr(cfg, field):
-            raise SystemExit(f"svinet_torch: {flag} is not ported")
+        if not (cfg.batch or cfg.preprocess) and cfg.informative_sampling:
+            raise SystemExit("svinet_torch: -infset is not ported")
 
 
 def main(argv: Optional[List[str]] = None, group=None) -> int:
@@ -333,9 +323,13 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
         return -1
     cfg = parse_args(argv)
     check_slice(cfg)
+    dist = mesh.Dist.of(cfg)
+    if group is None and dist is not None:
+        print(f"+ distributed: process {dist.procid} of {dist.nprocs}")
     if group is None and mesh.wants_mesh(cfg):
-        # one rank a device, each running this CLI (parallel/mesh.py)
-        return mesh.launch(argv, cfg.mesh_devices)
+        # one rank a device, each running this CLI (parallel/mesh.py);
+        # under -dist-nprocs this process's share of them
+        return mesh.launch(argv, mesh.mesh_ranks(cfg), dist=dist)
 
     # SIGTERM: before the engine exists the run ends with status 0; after,
     # it only sets a flag, and the engine saves the model files at the
@@ -353,12 +347,22 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
     private = None
     try:
         if group is not None and not group.primary:
-            # a rank other than 0 writes its report rows apart; every rank
+            # a rank other than 0 writes its report rows apart: the first
+            # rank of a process other than 0 into that process's directory
+            # (outdir/proc<i>), the others into a private one; every rank
             # restores checkpoints from rank 0's directory
             cfg.ckpt_outdir = cfg.outdir
-            private = tempfile.mkdtemp(
-                prefix=f"svinet_torch_rank{group.rank}_")
-            cfg.outdir = private
+            if group.lead and dist is not None:
+                cfg.outdir = dist.outdir(cfg.outdir)
+            else:
+                private = tempfile.mkdtemp(
+                    prefix=f"svinet_torch_rank{group.rank}_")
+                cfg.outdir = private
+        elif group is None and dist is not None:
+            # a process of a run without a mesh runs the engine by itself,
+            # as each process of the JAX CLI does; one other than 0 writes
+            # under outdir/proc<i>, its checkpoints too
+            cfg.outdir = dist.outdir(cfg.outdir)
         engine, run = _build_engine(cfg, group)
         if engine is None:
             return 0
@@ -387,6 +391,20 @@ def _build_engine(cfg: Config, group):
           f"singles = {network.singles}")
     # engines run on the observed nodes only (reference: src/main.cc:291)
     network.drop_singles()
+    if cfg.mesh_locality:
+        # the locality permutation of the seq ids, before any split is
+        # sampled; every rank computes it from the same graph, and it is
+        # deterministic (svinet_tpu/cli.py:320-333)
+        if not cfg.link_sampling:
+            raise SystemExit("-mesh-locality requires -link-sampling")
+        cfg.mesh_devices = nd = mesh.mesh_ranks(cfg)
+        if not cfg.fuse_s3:
+            print("+ -mesh-locality implies -fuse-s3")
+            cfg.fuse_s3 = True
+        if not cfg.mesh_rowshard:
+            print("+ -mesh-locality implies -mesh-rowshard")
+            cfg.mesh_rowshard = True
+        network.reorder_locality(nd)
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
     device = resolve_device() if group is None else group.device
@@ -401,6 +419,10 @@ def _build_engine(cfg: Config, group):
     if cfg.preprocess:
         network.set_neighborhood_sets(cfg)
         return None, None
+    if cfg.stratified and cfg.randomnode:
+        from svinet_torch.svi.fastamm2 import FastAMM2
+        engine = FastAMM2(cfg, network, device, group)
+        return engine, engine.infer
     from svinet_torch.svi.mmsb import MMSBInfer
     engine = MMSBInfer(cfg, network, device, group)
     return engine, engine.infer

@@ -28,7 +28,8 @@ def dirichlet_expectation_plain(x: torch.Tensor, rest: float = 0.0,
 
 
 def dirichlet_expectation(x: torch.Tensor, rest: float = 0.0,
-                          out_dtype: torch.dtype = torch.float32
+                          out_dtype: torch.dtype = torch.float32,
+                          out: "torch.Tensor | None" = None
                           ) -> torch.Tensor:
     """E[log p] for rows of Dirichlet/Beta parameters: gamma (n,K) and
     lambda (K,2) alike, f32, reduced over the last axis.
@@ -37,18 +38,24 @@ def dirichlet_expectation(x: torch.Tensor, rest: float = 0.0,
     columns a column-compacted gamma leaves out
     (svinet_tpu/svi/sweep_math.py:289-299, compact_elogpi). `out_dtype`
     torch.bfloat16 gives the result rounded to nearest even, as a cast
-    does; the kernel rounds in its store and writes no f32 copy."""
+    does; the kernel rounds in its store and writes no f32 copy. `out`, a
+    contiguous tensor of x's shape and out_dtype, receives the result
+    (the leading rows of a larger buffer, as -mesh-locality gives it)."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, "
                         f"got {out_dtype}")
     if x.device.type == "cpu":
-        return dirichlet_expectation_plain(x, rest, out_dtype)
+        res = dirichlet_expectation_plain(x, rest, out_dtype)
+        return res if out is None else out.copy_(res)
     build.require_cuda(x, "dirichlet_expectation")
     if x.dim() != 2:
         raise ValueError(f"dirichlet_expectation takes (rows, k), "
                          f"got {tuple(x.shape)}")
     build.check_cuda(x, "x", torch.float32, tuple(x.shape), x.device)
-    out = torch.empty_like(x, dtype=out_dtype)
+    if out is None:
+        out = torch.empty_like(x, dtype=out_dtype)
+    else:
+        build.check_cuda(out, "out", out_dtype, tuple(x.shape), x.device)
     rows, k = x.shape
     build.launch("svt_dirichlet_expectation", x.device, x.data_ptr(),
                  out.data_ptr(), rows, k, float(rest),

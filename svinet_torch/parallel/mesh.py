@@ -65,6 +65,9 @@ class Group:
     backend: str
     ready: Optional[object] = None
     engine: Optional[object] = None
+    # whether this is the first rank its process started (under
+    # -dist-nprocs it writes the process's directory)
+    lead: bool = False
 
     @property
     def primary(self) -> bool:
@@ -72,12 +75,13 @@ class Group:
 
 
 def init_group(rank: int, size: int, device, backend: Optional[str] = None,
-               init_method: Optional[str] = None, ready=None) -> Group:
+               init_method: Optional[str] = None, ready=None,
+               lead: bool = False) -> Group:
     """Join torch.distributed's default process group, which the
     collectives below use, as rank `rank` of `size`. `backend` defaults to
     nccl on a CUDA device and gloo on the CPU; nothing falls back to
     another backend. `init_method` defaults to a private rendezvous file,
-    which serves a group of one rank."""
+    which serves a group of one rank. `lead`: see Group."""
     device = torch.device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if init_method is None:
@@ -91,7 +95,7 @@ def init_group(rank: int, size: int, device, backend: Optional[str] = None,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=size, rank=rank)
-    return Group(rank, size, device, backend, ready)
+    return Group(rank, size, device, backend, ready, lead=lead)
 
 
 def shutdown() -> None:
@@ -256,6 +260,11 @@ class LocalComm:
         """A column sum over this rank's rows -> over all rows."""
         return t
 
+    def rows_out(self, name: str, n: int, k: int, dtype, device):
+        """Where a kernel should write the (n, K) rows that rows() will be
+        given, or None for a new tensor."""
+        return None
+
     def heldout(self, gamma, lam, pairs, y, w, epsilon: float,
                 num_blocks: int):
         """The six validation heldout sums of the state."""
@@ -306,6 +315,60 @@ class MeshComm(LocalComm):
         table = all_gather(gamma[self.hidx], self.group)
         return all_reduce(heldout_sums_blocked(table, lam, pairs, y, w,
                                                epsilon, num_blocks))
+
+
+class LocalityComm(MeshComm):
+    """-mesh-locality: the row-sharded sweep whose collectives carry the
+    boundary rows only (make_mesh_trace_sweep's locality branch,
+    svinet_tpu/parallel/mesh.py:343-365). The rank's links index the
+    space [its rows_per owned rows | the d*Xmax boundary table]
+    (parallel/locality.py); `exp_idx` (Xmax,) are the owned rows this rank
+    exports into its slots of the table, the first `n_exp` of them real
+    and the rest 0. Each row array a sweep gathers (Elogpi, mphi, after
+    the -bf16 cast) is gathered by itself, so a kernel reads it
+    contiguous. Rows that a kernel wrote into the leading rows of a buffer
+    from rows_out have their table gathered in place behind them; other
+    rows are copied in front of it. The padded slots carry copies of row
+    0, which no link reads, and their gamma_hat is 0."""
+
+    def __init__(self, group: Group, hidx, exp_idx, n_exp: int):
+        super().__init__(group, True, hidx)
+        self.exp_idx = exp_idx
+        self.n_exp = n_exp
+        self.table = group.size * exp_idx.shape[0]
+        self._bufs = {}
+
+    def rows_out(self, name: str, n: int, k: int, dtype, device):
+        """The leading (n, K) rows of this comm's (n + table, K) buffer
+        `name`, made on first use."""
+        buf = self._bufs.get(name)
+        if buf is None or buf.shape != (n + self.table, k) or \
+                buf.dtype != dtype:
+            buf = torch.empty((n + self.table, k), dtype=dtype,
+                              device=device)
+            self._bufs[name] = buf
+        return buf[:n]
+
+    def rows(self, t):
+        """[t | the table]: every rank's exported rows of t, in rank
+        order."""
+        n = t.shape[0]
+        for buf in self._bufs.values():
+            if (buf.data_ptr() == t.data_ptr() and buf.dtype == t.dtype
+                    and buf.shape == (n + self.table, *t.shape[1:])):
+                _ALL_GATHER(buf[n:], t[self.exp_idx])
+                return buf
+        return torch.cat([t, all_gather(t[self.exp_idx], self.group)])
+
+    def stat(self, t):
+        """The owned rows of gamma_hat plus the boundary rows' sums over
+        the ranks, added at the rows they were exported from (owned first,
+        then the boundary sum, as the JAX package adds them; the padded
+        slots' sums are 0 and are left out)."""
+        rows_per = t.shape[0] - self.table
+        bnd = reduce_scatter(t[rows_per:], self.group)
+        return t[:rows_per].index_add_(0, self.exp_idx[:self.n_exp],
+                                       bnd[:self.n_exp])
 
 
 # ---------------------------------------------------------------------
@@ -370,15 +433,65 @@ def shard_span(m: int, pad_to: int, group: Group) -> Tuple[int, int]:
 
 def wants_mesh(cfg) -> bool:
     """Whether the CLI run takes the mesh path, as the JAX engines decide:
-    LinkSampling under -mesh N > 1 or -mesh 1 -mesh-rowshard
-    (svinet_tpu/svi/linksampling.py:545-546), MMSBInfer under -mesh N > 1
-    (svinet_tpu/svi/mmsb.py:314); -preprocess alone runs no engine."""
+    LinkSampling under -mesh N > 1, -mesh 1 -mesh-rowshard
+    (svinet_tpu/svi/linksampling.py:545-546) or -mesh-locality, which
+    implies -mesh-rowshard on at least one device (svinet_tpu/cli.py:
+    320-333); MMSBInfer and FastAMM2 under -mesh N > 1
+    (svinet_tpu/svi/mmsb.py:314, svinet_tpu/svi/fastamm2.py:76);
+    -preprocess alone runs no engine."""
     if cfg.link_sampling:
-        return cfg.mesh_devices > 1 or (cfg.mesh_devices == 1
-                                        and cfg.mesh_rowshard)
+        return (cfg.mesh_devices > 1 or cfg.mesh_locality
+                or (cfg.mesh_devices == 1 and cfg.mesh_rowshard))
     if cfg.preprocess and not cfg.batch:
         return False
     return cfg.mesh_devices > 1
+
+
+def mesh_ranks(cfg) -> int:
+    """The ranks of a mesh run, over all its processes: -mesh N, and at
+    least one under -mesh-locality."""
+    return max(cfg.mesh_devices, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dist:
+    """-dist-coordinator/-dist-nprocs/-dist-procid
+    (svinet_tpu/parallel/mesh.py:524, svinet_tpu/cli.py:287-307): this
+    process is `procid` of `nprocs`, all of whose ranks rendezvous at
+    tcp://<coordinator>, where global rank 0 (process 0's first) listens."""
+    coordinator: str
+    nprocs: int
+    procid: int
+
+    @classmethod
+    def of(cls, cfg) -> "Optional[Dist]":
+        """The processes of the run, or None for one: as the JAX CLI,
+        -dist-nprocs of 1 or less is one process."""
+        if cfg.dist_nprocs <= 1:
+            return None
+        if not 0 <= cfg.dist_procid < cfg.dist_nprocs:
+            raise SystemExit(f"-dist-procid {cfg.dist_procid} is not a "
+                             f"process of -dist-nprocs {cfg.dist_nprocs}")
+        if not cfg.dist_coordinator:
+            raise SystemExit("-dist-nprocs needs -dist-coordinator "
+                             "<host:port>")
+        return cls(cfg.dist_coordinator, cfg.dist_nprocs, cfg.dist_procid)
+
+    def ranks(self, nd: int) -> range:
+        """The global ranks of this process: process i of P starts
+        [i*nd/P, (i+1)*nd/P)."""
+        if nd % self.nprocs:
+            raise SystemExit(f"-mesh {nd} does not split into "
+                             f"-dist-nprocs {self.nprocs} equal parts")
+        per = nd // self.nprocs
+        return range(self.procid * per, (self.procid + 1) * per)
+
+    def outdir(self, outdir: str) -> str:
+        """This process's output directory: process 0's is the run's, the
+        others write under <outdir>/proc<i> (svinet_tpu/cli.py:303-307)."""
+        if self.procid == 0:
+            return outdir
+        return os.path.join(outdir, f"proc{self.procid}")
 
 
 def default_devices(nd: int) -> list:
@@ -419,19 +532,24 @@ def _digest(t: torch.Tensor) -> str:
 def _rank_report(path: str, group: Optional[Group]) -> None:
     """This rank's kernel launch counts and digests of its engine's final
     gamma and lambda (the replicated layouts' ranks must agree bit for
-    bit)."""
+    bit) and of its node order (-mesh-locality's permutation, which every
+    rank computes)."""
     out = {"launches": launch_counts()}
     eng = group.engine if group is not None else None
     if eng is not None:
         out["gamma_sha256"] = _digest(eng.gamma)
         out["lam_sha256"] = _digest(eng.lam)
+        out["order_sha256"] = hashlib.sha256(
+            eng.network.seq2id.tobytes()).hexdigest()
     with open(path, "w") as f:
         json.dump(out, f)
 
 
 def _rank_main(rank: int, size: int, device: str, backend: str, tmp: str,
-               argv: list, ready, report_dir: Optional[str]) -> None:
-    """A spawned rank: join the group, run the CLI, leave a status file."""
+               argv: list, ready, report_dir: Optional[str],
+               init_method: str, lead: bool) -> None:
+    """A spawned rank: join the group, run the CLI, leave a status file
+    (named by the rank's place among its process's ranks)."""
     status = {"rc": None, "exit": None, "error": None}
     code = 0
     group = None
@@ -442,9 +560,8 @@ def _rank_main(rank: int, size: int, device: str, backend: str, tmp: str,
         # sets OMP_NUM_THREADS=1 for its workers
         torch.set_num_threads(1)
     try:
-        group = init_group(rank, size, device, backend,
-                           "file://" + os.path.join(tmp, "rendezvous"),
-                           ready)
+        group = init_group(rank, size, device, backend, init_method, ready,
+                           lead)
         from svinet_torch.cli import main
         status["rc"] = main(argv, group)
     except SystemExit as e:
@@ -461,7 +578,7 @@ def _rank_main(rank: int, size: int, device: str, backend: str, tmp: str,
         if report_dir:
             _rank_report(os.path.join(report_dir, f"rank{rank}.json"),
                          group)
-        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        with open(os.path.join(tmp, f"status{rank}.json"), "w") as f:
             json.dump(status, f)
         if group is not None:
             shutdown()
@@ -471,7 +588,8 @@ def _rank_main(rank: int, size: int, device: str, backend: str, tmp: str,
 
 def launch(argv: Sequence[str], nd: int, backend: Optional[str] = None,
            devices: Optional[Sequence] = None,
-           report_dir: Optional[str] = None) -> int:
+           report_dir: Optional[str] = None,
+           dist: Optional[Dist] = None) -> int:
     """Run the CLI `argv` on nd spawned ranks and wait for them. `devices`
     (rank -> device) and `backend` are the launcher's, not CLI flags: by
     default rank r takes cuda:r with nccl (or the CPU with gloo), and a
@@ -479,26 +597,38 @@ def launch(argv: Sequence[str], nd: int, backend: Optional[str] = None,
     rank writes there (rank<r>.json) its kernels' launch counts and
     digests of its final gamma and lambda.
 
-    A SIGTERM before every rank has built its engine ends the ranks and
-    the run with status 0, as the JAX CLI exits before its engine exists;
-    after, it is forwarded to rank 0, whose flag the ranks agree on at the
-    next report boundary. A rank that fails ends the others (they would
-    wait in a collective). Returns rank 0's status; a SystemExit of a
-    rank is raised again here with its message."""
-    devices = [torch.device(d) for d in (devices or default_devices(nd))]
-    if len(devices) != nd:
-        raise ValueError(f"{len(devices)} devices for {nd} ranks")
+    Under `dist` (-dist-nprocs P > 1) nd counts the ranks of every
+    process: this process starts its nd/P of them (Dist.ranks) on its own
+    devices (`devices` then lists those), and all nd meet at the TCP
+    rendezvous of -dist-coordinator; alone, the ranks meet at a private
+    rendezvous file.
+
+    A SIGTERM before every rank of this process has built its engine ends
+    its ranks and the process with status 0, as the JAX CLI exits before
+    its engine exists; after, it is forwarded to the process's first rank
+    (global rank 0 in process 0), whose flag every rank agrees on at the
+    next report boundary (agree_flag). A rank that fails ends the others
+    of its process (they would wait in a collective). Returns the status
+    of the process's first rank; a SystemExit of a rank is raised again
+    here with its message."""
+    ranks = dist.ranks(nd) if dist is not None else range(nd)
+    local = len(ranks)
+    devices = [torch.device(d) for d in (devices or default_devices(local))]
+    if len(devices) != local:
+        raise ValueError(f"{len(devices)} devices for {local} ranks")
     backend = backend or ("nccl" if devices[0].type == "cuda" else "gloo")
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="svinet_torch_mesh_")
+    init = ("tcp://" + dist.coordinator if dist is not None
+            else "file://" + os.path.join(tmp, "rendezvous"))
     ready = ctx.Value("i", 0)
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, nd, str(devices[r]), backend, tmp,
-                               list(argv), ready, report_dir))
-             for r in range(nd)]
+                         args=(r, nd, str(devices[i]), backend, tmp,
+                               list(argv), ready, report_dir, init, i == 0))
+             for i, r in enumerate(ranks)]
 
     def _term(_sig, _frm):
-        if ready.value < nd:
+        if ready.value < local:
             sys.exit(0)
         if procs[0].pid is not None and procs[0].exitcode is None:
             os.kill(procs[0].pid, signal.SIGTERM)
@@ -513,8 +643,8 @@ def launch(argv: Sequence[str], nd: int, backend: Optional[str] = None,
             if any(p.exitcode not in (None, 0) for p in procs):
                 break
         statuses = []
-        for r, p in enumerate(procs):
-            path = os.path.join(tmp, f"rank{r}.json")
+        for r, p in zip(ranks, procs):
+            path = os.path.join(tmp, f"status{r}.json")
             if p.exitcode is not None and os.path.exists(path):
                 with open(path) as f:
                     statuses.append(json.load(f))
@@ -532,10 +662,10 @@ def launch(argv: Sequence[str], nd: int, backend: Optional[str] = None,
     for st in statuses:
         if st is not None and st["exit"]:
             raise SystemExit(st["exit"])
-    for r, st in enumerate(statuses):
+    for r, st in zip(ranks, statuses):
         if st is not None and st["error"]:
             raise RuntimeError(f"rank {r} of {nd} failed:\n{st['error']}")
-    for r, (p, st) in enumerate(zip(procs, statuses)):
+    for r, p, st in zip(ranks, procs, statuses):
         if st is None or p.exitcode != 0:
             raise RuntimeError(f"rank {r} of {nd} ended with status "
                                f"{p.exitcode}")

@@ -1,7 +1,7 @@
 """LinkSampling engine, on one device or as a rank of a mesh (-mesh N,
--mesh-rowshard: parallel/mesh.py), with -fuse-s3, -report-batch, -bf16,
--freeze, -prune, -sparse-w, -init-communities, -load-test-sets and
--profile (svinet_tpu/svi/linksampling.py).
+-mesh-rowshard, -mesh-locality: parallel/mesh.py), with -fuse-s3,
+-report-batch, -bf16, -freeze, -prune, -sparse-w, -init-communities,
+-load-test-sets and -profile (svinet_tpu/svi/linksampling.py).
 
 One iteration is one full sweep over the training links with the
 closed-form phi per link,
@@ -37,7 +37,9 @@ from svinet_torch.ops.edges import (
     Adjacency, build_adjacency, choose_edge_block, owner_csr, pad_edges)
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.parallel import mesh
-from svinet_torch.parallel.mesh import LOCAL, LocalComm, MeshComm
+from svinet_torch.parallel.locality import locality_edge_layout
+from svinet_torch.parallel.mesh import (
+    LOCAL, LocalComm, LocalityComm, MeshComm)
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.sweep_math import (
     LSConsts, edge_blocks, finish_lambda, fused_phi_s3_pass,
@@ -84,14 +86,17 @@ class SweepExtras:
     rest: float = 0.0
 
 
-def _expectations(gamma, lam, annealing: bool, x: SweepExtras):
-    """Elogpi (bf16 rows where the sweep runs them) and Elogbeta0 of the
-    sweep `x` describes. Returns (elogpi, elb0, annealing, bf16 rows?)."""
+def _expectations(gamma, lam, annealing: bool, x: SweepExtras,
+                  c: LocalComm = LOCAL):
+    """Elogpi (bf16 rows where the sweep runs them, written where `c`
+    wants them) and Elogbeta0 of the sweep `x` describes. Returns
+    (elogpi, elb0, annealing, bf16 rows?)."""
     compact = x.colmask is not None
     bf16 = x.bf16 and not compact
+    dtype = torch.bfloat16 if bf16 else torch.float32
     elogpi = dirichlet_expectation(
-        gamma, rest=x.rest if compact else 0.0,
-        out_dtype=torch.bfloat16 if bf16 else torch.float32)
+        gamma, rest=x.rest if compact else 0.0, out_dtype=dtype,
+        out=c.rows_out("elogpi", *gamma.shape, dtype, gamma.device))
     elb0 = dirichlet_expectation(lam)[:, 0].contiguous()
     if compact:
         elb0 = torch.where(x.colmask > 0, elb0, PAD_LOGIT)
@@ -141,7 +146,8 @@ def _fused_sweep(gamma, lam, mphi, adj: Adjacency, deg, consts: LSConsts,
     if x.conv is not None:
         raise ValueError("the -fuse-s3 sweep has no converged-freezing "
                          "form; run -freeze unfused")
-    elogpi, elb0, annealing, bf16 = _expectations(gamma, lam, annealing, x)
+    elogpi, elb0, annealing, bf16 = _expectations(gamma, lam, annealing, x,
+                                                  c)
     prev = mphi
     if bf16:
         prev = (x.mphi_bf16 if x.mphi_bf16 is not None
@@ -383,17 +389,26 @@ class LinkSampling(EngineBase):
         # rank (svinet_tpu/svi/linksampling.py:558-595)
         links = network.training_links
         self._rowshard = self._group is not None and bool(cfg.mesh_rowshard)
+        # -mesh-locality: the fused row-sharded sweep over the locality
+        # layout (svinet_tpu/svi/linksampling.py:571-584)
+        self._locality = (self._rowshard and bool(cfg.mesh_locality)
+                          and bool(cfg.fuse_s3))
         self._n_pad = n
+        rows = n
+        exports = None
         if self._group is not None:
-            nd = self._group.size
+            nd, rank = self._group.size, self._group.rank
             if self._rowshard:
-                self._n_pad = -(-n // nd) * nd
-            links = links[np.array_split(np.arange(len(links)),
-                                         nd)[self._group.rank]]
+                self._n_pad = rows = -(-n // nd) * nd
+            if self._locality:
+                links, exports, rows = self._locality_shard(links, block)
+            else:
+                links = links[np.array_split(np.arange(len(links)),
+                                             nd)[rank]]
         # the links as a symmetric CSR, built once: what the phi and s3
         # passes walk (padding rows are absent from it); the padded list
         # serves the community extraction
-        self.adj = build_adjacency(links, self._n_pad, device)
+        self.adj = build_adjacency(links, rows, device)
         self.deg = torch.as_tensor(network.training_deg.astype(np.float32),
                                    device=device)
 
@@ -509,6 +524,10 @@ class LinkSampling(EngineBase):
         self._ho = None
         self._ho_res = None
         self._comm = LOCAL
+        if self._locality:
+            self._comm = LocalityComm(self._group, None,
+                                      self._device_pairs(exports[0]),
+                                      exports[1])
         m = len(network.validation_pairs)
         if m and self._rowshard:
             g = self._group
@@ -517,8 +536,12 @@ class LinkSampling(EngineBase):
                 network.validation_y.astype(np.int32), self._n_pad, g.size)
             h, t = len(hidx) // g.size, len(pp) // g.size
             mine = slice(g.rank * t, (g.rank + 1) * t)
-            self._comm = MeshComm(g, True, self._device_pairs(
-                hidx[g.rank * h:(g.rank + 1) * h].astype(np.int64)))
+            hidx = self._device_pairs(
+                hidx[g.rank * h:(g.rank + 1) * h].astype(np.int64))
+            if self._locality:
+                self._comm.hidx = hidx
+            else:
+                self._comm = MeshComm(g, True, hidx)
             self._ho = (self._device_pairs(pp[mine]),
                         self._device_pairs(yy[mine]),
                         self._device_pairs(ww[mine]), nb)
@@ -537,6 +560,32 @@ class LinkSampling(EngineBase):
         self._resume_if_requested()
         if self._group is not None:
             self._distribute_state()
+
+    def _locality_shard(self, links, block: int):
+        """-mesh-locality: this rank's links remapped into its [owned rows
+        | boundary table] space, the owned rows it exports into its slots
+        of the table with the number of them that are real, and the rows of
+        that space (parallel/locality.py, on the padded n as in
+        svinet_tpu/svi/linksampling.py:576-584). Only the real entries of
+        the layout are kept: its padding is (0, 0) pairs, which would be
+        self-links of owned row 0."""
+        g = self._group
+        es, ms, exp_idx, info = locality_edge_layout(links, self._n_pad,
+                                                     g.size, block)
+        self.cfg.plog("locality internal frac",
+                      round(info["internal_frac"], 4))
+        self.cfg.plog("locality boundary rows", info["boundary_rows"])
+        per, xmax, rows_per = info["per_shard"], info["xmax"], info["rows_per"]
+        # a rank's real exports fill the first slots of its part of the
+        # table, and every real slot is a link's remote end
+        real = es[ms > 0]
+        used = np.zeros(g.size * xmax, bool)
+        used[real[real >= rows_per] - rows_per] = True
+        slots = slice(g.rank * xmax, (g.rank + 1) * xmax)
+        exports = (exp_idx[slots].astype(np.int64), int(used[slots].sum()))
+        chunk = slice(g.rank * per, (g.rank + 1) * per)
+        return (es[chunk][ms[chunk] > 0], exports,
+                rows_per + g.size * xmax)
 
     def _distribute_state(self) -> None:
         """Under a mesh: rank 0's state on every rank (at start and after
@@ -565,7 +614,12 @@ class LinkSampling(EngineBase):
             self.gamma = self.gamma[rows].clone()
             self.deg = self.deg[rows].clone()
             if self.mphi is not None:
-                self.mphi = self.mphi[rows].clone()
+                # under -mesh-locality the carried mphi lies in front of
+                # the boundary table its sweeps gather
+                mine = self.mphi[rows]
+                self.mphi = (self._comm.rows_out(
+                    "mphi", *mine.shape, mine.dtype, mine.device).copy_(mine)
+                    if self._locality else mine.clone())
 
     @contextlib.contextmanager
     def _full_rows(self):
@@ -656,6 +710,10 @@ class LinkSampling(EngineBase):
         if self.cfg.sparse_w and not self.annealing:
             self._sparse_step(n_sweeps)
             return
+        if self._locality and self._ho is None:
+            raise RuntimeError(
+                "-mesh-locality requires a validation split (the "
+                "trace program carries the heldout tail)")
         if self._ho is None or self._compact is not None:
             self.gamma, self.lam, self.mphi, x = multi_sweep(
                 self.gamma, self.lam, self.mphi, self.adj, self.deg,

@@ -4,4 +4,6 @@
     python -m svinet_torch.tools.profile_stretch   where a stretch step goes
     python -m svinet_torch.tools.time_report       one report's community
                                                    extraction, timed
+    python -m svinet_torch.tools.locality_order    -mesh-locality's node
+                                                   order and layout, timed
 """

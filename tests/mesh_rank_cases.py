@@ -1,5 +1,6 @@
-"""The rank side of tests/test_torch_mesh.py: inputs made from numpy seeds
-and the port's mesh functions run on each of nd gloo ranks on the CPU.
+"""The rank side of tests/test_torch_mesh.py and tests/test_torch_locality.py:
+inputs made from numpy seeds and the port's mesh functions run on each of
+nd gloo ranks on the CPU.
 Imports the port only (the spawned ranks never load JAX); the test
 imports the same inputs for the JAX package's side."""
 
@@ -218,6 +219,73 @@ def run(rank: int, nd: int, init: str, outdir: str) -> None:
         out = _sweeps(g, rank, nd, dev)
         if nd == 2:
             out.update(_mmsb(g, rank, nd, dev))
+        torch.save({k: tuple(t.detach().float() for t in v)
+                    for k, v in out.items()},
+                   os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def locality_layout(nd: int):
+    """The -mesh-locality layout of sweep_inputs' links on nd ranks: (n
+    padded, locality_edge_layout's (edges, mask, exp_idx, info))."""
+    from svinet_torch.parallel.locality import locality_edge_layout
+    edges = sweep_inputs()[0]
+    n_pad = -(-N // nd) * nd
+    return n_pad, locality_edge_layout(edges, n_pad, nd, BLOCK)
+
+
+def _locality(g, rank, nd, dev):
+    """The locality sweep of this rank (mesh.LocalityComm): SWEEPS sweeps
+    a boundary, 1 and 3 boundaries, f32 and bf16 rows, while annealing."""
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.parallel import mesh
+    from svinet_torch.parallel.mesh import LocalityComm
+    from svinet_torch.svi.linksampling import SweepExtras, sweep_ho_trace
+    from svinet_torch.svi.sweep_math import LSConsts
+    edges, deg, gamma0, lam0, consts, vp, vy = sweep_inputs()
+    c = LSConsts.make(*consts)
+    n_pad, (es, ms, exp_idx, info) = locality_layout(nd)
+    per, xmax, rows_per = info["per_shard"], info["xmax"], info["rows_per"]
+    mine = slice(rank * per, (rank + 1) * per)
+    adj = build_adjacency(es[mine][ms[mine] > 0], rows_per + nd * xmax, dev)
+    rows = slice(rank * rows_per, (rank + 1) * rows_per)
+    gam = np.full((n_pad, K), consts[0], np.float32)
+    gam[:N] = gamma0
+    dg = np.zeros(n_pad, np.float32)
+    dg[:N] = deg
+    hidx, pp, yy, ww, nb = mesh.rowshard_heldout_layout(vp, vy, n_pad, nd)
+    h, t = len(hidx) // nd, len(pp) // nd
+    real = es[ms > 0]
+    used = np.zeros(nd * xmax, bool)
+    used[real[real >= rows_per] - rows_per] = True
+    comm = LocalityComm(
+        g, torch.as_tensor(hidx[rank * h:(rank + 1) * h].astype(np.int64)),
+        torch.as_tensor(exp_idx[rank * xmax:(rank + 1) * xmax]
+                        .astype(np.int64)),
+        int(used[rank * xmax:(rank + 1) * xmax].sum()))
+    hp, hy, hw = (torch.as_tensor(a[rank * t:(rank + 1) * t])
+                  for a in (pp, yy, ww))
+    out = {}
+    for bf16 in (False, True):
+        for nbat in (1, 3):
+            gg, ll, mm, trace, _ = sweep_ho_trace(
+                torch.as_tensor(gam[rows]).clone(), torch.as_tensor(lam0),
+                torch.zeros((rows_per, K)), adj, torch.as_tensor(dg[rows]),
+                c, True, hp, hy, hw, EPS, SWEEPS, nbat, nb, True,
+                SweepExtras(bf16=bf16), comm)
+            out[f"loc-trace{nbat}" + ("-bf16" if bf16 else "")] = (
+                gg, ll, trace, mm)
+    return out
+
+
+def run_locality(rank: int, nd: int, init: str, outdir: str) -> None:
+    """A spawned rank: the locality cases, saved to outdir/rank<r>.pt."""
+    from svinet_torch.parallel import mesh
+    torch.set_num_threads(1)
+    g = mesh.init_group(rank, nd, "cpu", "gloo", init)
+    try:
+        out = _locality(g, rank, nd, torch.device("cpu"))
         torch.save({k: tuple(t.detach().float() for t in v)
                     for k, v in out.items()},
                    os.path.join(outdir, f"rank{rank}.pt"))

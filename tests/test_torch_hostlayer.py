@@ -1,8 +1,9 @@
 """The port's own copies of the host layer against their originals.
 
 svinet_torch imports nothing of svinet_tpu, so it carries copies of the
-JAX-free host modules (config, graph, io.writers, io.native, and the
-flag parser of cli). Each copy is held to its original here, on the CPU:
+JAX-free host modules (config, graph, io.writers, io.native,
+parallel.locality, svi.sampling, evals.precision, and the flag parser of
+cli). Each copy is held to its original here, on the CPU:
 same flags -> same Config, same file -> same Network and splits, same
 arrays -> the same bytes on disk, and the module texts themselves may
 differ only in the package name."""
@@ -159,7 +160,9 @@ def test_io_package_exports():
 
 
 @pytest.mark.parametrize("rel", ["config.py", "graph.py", "io/writers.py",
-                                 "io/native.py", "io/__init__.py"])
+                                 "io/native.py", "io/__init__.py",
+                                 "parallel/locality.py", "svi/sampling.py",
+                                 "evals/precision.py"])
 def test_copies_have_not_drifted(rel):
     """A copy is its original with the package name replaced; a fix to one
     must be made in both."""

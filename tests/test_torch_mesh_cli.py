@@ -213,6 +213,12 @@ def test_cli_mesh_refuses_with_the_jax_message(graphs, tmp_path,
     ["-link-sampling", "-mesh", "2"], ["-link-sampling", "-mesh-rowshard"],
     ["-link-sampling", "-mesh", "4", "-mesh-rowshard", "-fuse-s3"],
     ["-mesh", "2", "-batch"], ["-rnode", "-mesh", "3"],
+    ["-link-sampling", "-mesh-locality"],
+    ["-link-sampling", "-mesh", "4", "-mesh-locality", "-bf16"],
+    ["-stratified", "-rnode", "-mesh", "2", "-adamic-adar"],
+    ["-link-sampling", "-mesh", "2", "-dist-coordinator", "h:1",
+     "-dist-nprocs", "2", "-dist-procid", "1"],
+    ["-rnode", "-dist-nprocs", "1"],
 ])
 def test_cli_takes_the_mesh_flags(flags):
     check_slice(parse_args(["-file", "absent.txt", "-n", "10", "-k", "2",

@@ -92,13 +92,17 @@ _SITE_BLOCKER = textwrap.dedent("""
 """)
 
 
-@pytest.mark.parametrize("flags", [["-link-sampling", "-max-iterations", "6"],
-                                   ["-rnode", "-max-iterations", "4"]],
-                         ids=["link-sampling", "rnode"])
+@pytest.mark.parametrize("flags", [
+    ["-link-sampling", "-max-iterations", "6"],
+    ["-rnode", "-max-iterations", "4"],
+    ["-link-sampling", "-mesh-locality", "-max-iterations", "6"],
+    ["-stratified", "-rnode", "-max-iterations", "20", "-rfreq", "10"],
+], ids=["link-sampling", "rnode", "locality", "fastamm2"])
 def test_mesh_ranks_run_with_jax_blocked(tmp_path, flags):
     """`-mesh 2` with jax and svinet_tpu blocked in the CLI's process and
     in both ranks it spawns (the blocker is the interpreter's
-    sitecustomize, which the spawned ranks run too)."""
+    sitecustomize, which the spawned ranks run too): link sampling, its
+    locality layout, MMSBInfer and FastAMM2."""
     site, marks = tmp_path / "site", tmp_path / "marks"
     site.mkdir()
     marks.mkdir()
@@ -122,6 +126,48 @@ def test_mesh_ranks_run_with_jax_blocked(tmp_path, flags):
     assert not list(marks.iterdir()), [p.read_text() for p in marks.iterdir()]
     out = [p for p in tmp_path.iterdir() if p.name.startswith("n200-k4-mesh")]
     assert len(out) == 1 and (out[0] / "gamma.txt").exists()
+
+
+def test_dist_processes_run_with_jax_blocked(tmp_path):
+    """Two -dist-nprocs processes of `-mesh 2 -mesh-locality`, one rank
+    each, meeting at a TCP rendezvous on 127.0.0.1, with jax and
+    svinet_tpu blocked in both processes and their ranks; FastAMM2 runs
+    alone with them blocked too."""
+    import socket
+    site, marks = tmp_path / "site", tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_BLOCKER)
+    env = dict(os.environ, SVINET_TORCH_DEVICE="cpu", NOJAX_MARKS=str(marks),
+               PYTHONPATH=os.pathsep.join([str(site), str(REPO)]))
+    subprocess.run([sys.executable, "-c",
+                    "from svinet_torch.synth import write_planted\n"
+                    "write_planted('.', 200, 4, 12, 5)"],
+                   cwd=tmp_path, env=env, check=True, timeout=120)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = [sys.executable, "-m", "svinet_torch", "-file",
+            "planted-n200-k4.txt", "-n", "200", "-k", "4", "-seed", "3"]
+    procs = [subprocess.Popen(
+        [*base, "-label", "dist", "-link-sampling", "-mesh", "2",
+         "-mesh-locality", "-max-iterations", "6", "-dist-coordinator",
+         f"127.0.0.1:{port}", "-dist-nprocs", "2", "-dist-procid", str(i)],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for i in (0, 1)]
+    procs.append(subprocess.Popen(
+        [*base, "-label", "fa", "-stratified", "-rnode", "-max-iterations",
+         "20", "-rfreq", "10"], cwd=tmp_path, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, out + err
+    assert not list(marks.iterdir()), [p.read_text() for p in marks.iterdir()]
+    out = [p for p in tmp_path.iterdir() if p.name.startswith("n200-k4-dist")]
+    assert len(out) == 1 and (out[0] / "gamma.txt").exists()
+    assert (out[0] / "proc1" / "heldout.txt").exists()
+    fa = [p for p in tmp_path.iterdir() if p.name.startswith("n200-k4-fa")]
+    assert len(fa) == 1 and (fa[0] / "precision.txt").exists()
 
 
 @pytest.mark.parametrize("flags", [[], ["-mesh", "2"]], ids=["one", "mesh2"])
@@ -194,28 +240,24 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-link-sampling", "-mesh-rowshard", "-mesh-locality"],
-     "-mesh-locality"),
-    (["-link-sampling", "-dist-coordinator", "host:1"], "-dist-coordinator"),
-    (["-link-sampling", "-sparse-w", "8", "-resume", "-dist-procid", "1"],
-     "-dist-procid"),
+    (["-link-sampling", "-mesh-rowshard", "-findk"], "-findk"),
+    (["-link-sampling", "-dist-coordinator", "host:1", "-gen"], "-gen"),
+    (["-link-sampling", "-sparse-w", "8", "-resume", "-orig"], "-orig"),
     (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8",
-      "-checkpoint-freq", "5", "-dist-nprocs", "2"], "-dist-nprocs"),
-    (["-link-sampling", "-mesh-locality"], "-mesh-locality"),
-    (["-link-sampling", "-dist-procid", "1"], "-dist-procid"),
-    (["-link-sampling", "-mesh", "2", "-dist-nprocs", "2"], "-dist-nprocs"),
-    (["-link-sampling", "-dist-nprocs", "2"], "-dist-nprocs"),
-    (["-checkpoint-freq", "5", "-mesh-locality"], "-mesh-locality"),
-    (["-rnode", "-resume", "-dist-coordinator", "h:1"], "-dist-coordinator"),
+      "-checkpoint-freq", "5", "-ppc"], "-ppc"),
+    (["-link-sampling", "-mesh-locality", "-lcstats"], "-lcstats"),
+    (["-link-sampling", "-dist-procid", "1", "-gml"], "-gml"),
+    (["-mesh", "2", "-dist-nprocs", "2", "-infset"], "-infset"),
+    (["-infset"], "-infset"),
+    (["-checkpoint-freq", "5", "-mesh-locality", "-single"], "-single"),
+    (["-rnode", "-resume", "-infset", "-fastqueue", "4"], "-infset"),
     (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2",
-      "-dist-coordinator", "h:1"], "-dist-coordinator"),
-    (["-link-sampling", "-load-test-sets", "-dist-nprocs", "2"],
-     "-dist-nprocs"),
-    (["-link-sampling", "-profile", "p", "-mesh-rowshard",
-      "-dist-procid", "1"], "-dist-procid"),
+      "-orig"], "-orig"),
+    (["-stratified", "-rnode", "-findk"], "-findk"),
+    (["-stratified", "-rnode", "-single"], "-single"),
     (["-single"], "-single"),
     (["-link-sampling", "-findk"], "-findk"),
-    (["-stratified", "-rnode"], "-stratified -rnode"),
+    (["-stratified", "-rnode", "-mesh", "2", "-gen"], "-gen"),
 ])
 def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
