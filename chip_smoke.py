@@ -53,7 +53,16 @@ then times the stretch -fuse-s3 step under the locality and row-sharded
 layouts at one NCCL rank, FastAMM2's steps on that state, and the host's
 locality order and layout at d = 1, 2, 4, 8 on a planted n=100k graph
 (`python3 chip_smoke.py
---phase5` runs phase 5 alone and prints no result).
+--phase5` runs phase 5 alone and prints no result). Phase 6 holds
+FastAMM's kernels to their plain versions with the same rounds and two
+launches bitwise equal (kernel 8's FastAMM form, a rho a row and the
+whole padded minibatch one block; kernel 10, the union-slot fixed point
+on the top-W state; kernel 11's held-out scores and edge assignments, the
+latter on stretch's 20M links), drives `-preprocess`, `-infset` and
+`-infset -k 100 -fastqueue 8` on planted-20k held to the CPU port's rows
+(`python3 chip_smoke.py --record-cpu famm`), cuts the dense run and
+resumes it, and times both steps on stretch-shaped states (`--phase6`
+runs it alone and prints no result).
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -1472,35 +1481,42 @@ def _run_cli(workdir, net, gt, label, extra):
                  f"linksampling")
 
 
-def _wrappers():
-    """The nine kernel wrappers by name; each counts its launches."""
+def _wrappers(fastamm=False):
+    """The kernel wrappers by name, each counting its launches: the nine
+    of phases 1-5, and with `fastamm` kernels 10 and 11 (phase 6)."""
     from svinet_torch.evals.likelihood import heldout_sums
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.ops.phicomp import phi_fixed_point
+    from svinet_torch.ops.sparse_gamma import (sparse_fastamm_stats,
+                                               union_scores)
     from svinet_torch.svi.communities import edge_assignments
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
         sparse_union_pass)
-    return {"dirichlet_expectation": dirichlet_expectation,
-            "phi_fixed_point": phi_fixed_point,
-            "edge_assignments": edge_assignments,
-            "phi_pass": phi_pass,
-            "mean_indicator_update": mean_indicator_update,
-            "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
-            "heldout_sums": heldout_sums,
-            "sparse_union_pass": sparse_union_pass}
+    wrappers = {"dirichlet_expectation": dirichlet_expectation,
+                "phi_fixed_point": phi_fixed_point,
+                "edge_assignments": edge_assignments,
+                "phi_pass": phi_pass,
+                "mean_indicator_update": mean_indicator_update,
+                "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
+                "heldout_sums": heldout_sums,
+                "sparse_union_pass": sparse_union_pass}
+    if fastamm:
+        wrappers.update(sparse_fastamm_stats=sparse_fastamm_stats,
+                        union_scores=union_scores)
+    return wrappers
 
 
-def _zero_counts():
+def _zero_counts(fastamm=False):
     """Set every wrapper's launch counts to 0, in all and by form."""
-    for fn in _wrappers().values():
+    for fn in _wrappers(fastamm).values():
         fn.launches = 0
         fn.forms = {}
 
 
-def _read_counts():
+def _read_counts(fastamm=False):
     """(launches by wrapper, launches by "wrapper:form")."""
-    wrappers = _wrappers()
+    wrappers = _wrappers(fastamm)
     return ({name: fn.launches for name, fn in wrappers.items()},
             {f"{name}:{form}": count for name, fn in wrappers.items()
              for form, count in fn.forms.items()})
@@ -2705,10 +2721,11 @@ def _mmsb_runs(workdir, record):
     return rows, info
 
 
-def record_cpu(which=("mmsb", "fa")) -> int:
-    """--record-cpu [mmsb|fa]: run phase 2's MMSBInfer runs and phase 5's
-    FastAMM2 run on the CPU (the plain versions) and print the rows
-    MMSB_CPU_ROWS and FA_CPU_ROWS hold."""
+def record_cpu(which=("mmsb", "fa", "famm")) -> int:
+    """--record-cpu [mmsb|fa|famm]: run phase 2's MMSBInfer runs, phase 5's
+    FastAMM2 run and phase 6's FastAMM runs on the CPU (the plain
+    versions) and print the rows MMSB_CPU_ROWS, FA_CPU_ROWS and
+    FAMM_CPU_ROWS hold."""
     os.environ["SVINET_TORCH_DEVICE"] = "cpu"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2720,6 +2737,10 @@ def record_cpu(which=("mmsb", "fa")) -> int:
                 net, gt, _ = _planted_graphs(workdir)["planted"]
                 out = _fa_cli(workdir, net, gt, "fa-cpu", FA_FLAGS)
                 print("FA_CPU_ROWS = " + json.dumps({"fa": _fa_rows(out)}))
+            if "famm" in which:
+                rows, _ = _famm_runs(workdir, record=True)
+                print("FAMM_CPU_ROWS = " + json.dumps(
+                    {k: v for k, v in rows.items() if "before" not in k}))
         finally:
             os.chdir(cwd)
     return 0
@@ -4062,9 +4083,607 @@ def phase5(dev, workdir, stretch_eng):
     return launched, fp_report, fa_launches
 
 
+# ---------------------------------------------------------------------
+# Phase 6: FastAMM (-infset), dense and under -fastqueue W.
+
+# FastAMM on planted-20k through the CLI, after -preprocess: the dense
+# engine at K=20 and the sparse top-W one at K=100, W=8, each held to the
+# CPU port's rows (`python3 chip_smoke.py --record-cpu famm` prints
+# FAMM_CPU_ROWS): heldout.txt's columns as MMSB_CPU_ROWS holds them. The
+# dense run is also cut after the report of FAMM_CUT and -resume'd: the
+# cut run's rows are the uninterrupted run's bit for bit, and the resumed
+# rows are held to the CPU port's resumed run (neither package keeps the
+# host Generator in a checkpoint, so a resumed run draws its minibatches
+# anew; the per-node counters are restored).
+FAMM_STEPS = 3000
+FAMM_FLAGS = ["-infset", "-max-iterations", str(FAMM_STEPS), "-rfreq",
+              "500", "-no-stop"]
+FAMM_K_SPARSE = 100
+FAMM_W_SPARSE = 8
+FAMM_CUT = 1500
+FAMM_CPU_ROWS = {
+    "famm": {
+        "heldout": [
+            [500, -1.909123404, -0.030885301, -3.787361168, -0.030854725,
+             -0.003749486, -0.03460421],
+            [1000, -3.196554186, -0.002748702, -6.39036037, -0.002745981,
+             -0.006326454, -0.009072434],
+            [1500, -2.904057425, -0.004954945, -5.803160449, -0.00495004,
+             -0.005745126, -0.010695166],
+            [2000, -2.697002476, -0.007230987, -5.386774046, -0.007223829,
+             -0.005332904, -0.012556732],
+            [2500, -2.539267884, -0.009641396, -5.068894559, -0.009631851,
+             -0.005018203, -0.014650054],
+            [3000, -2.411420894, -0.012098675, -4.810742879, -0.012086697,
+             -0.004762633, -0.01684933],
+        ],
+    },
+    "famm-fq": {
+        "heldout": [
+            [500, -6.039504051, -1.5202e-05, -12.07899189, -1.5187e-05,
+             -0.011958196, -0.011973383],
+            [1000, -5.704670429, -5.778e-05, -11.409282684, -5.7723e-05,
+             -0.011295184, -0.011352907],
+            [1500, -5.457840919, -9.4147e-05, -10.915587425, -9.4053e-05,
+             -0.010806426, -0.010900479],
+            [2000, -5.227002621, -0.000148205, -10.453856468, -0.000148059,
+             -0.010349313, -0.010497371],
+            [2500, -5.031366348, -0.000214441, -10.06251812, -0.000214229,
+             -0.009961888, -0.010176117],
+            [3000, -4.835501671, -0.000299466, -9.670703888, -0.00029917,
+             -0.009573992, -0.009873162],
+        ],
+    },
+    "famm-cut": {
+        "heldout": [
+            [500, -1.909123404, -0.030885301, -3.787361168, -0.030854725,
+             -0.003749486, -0.03460421],
+            [1000, -3.196554186, -0.002748702, -6.39036037, -0.002745981,
+             -0.006326454, -0.009072434],
+            [1500, -2.904057425, -0.004954945, -5.803160449, -0.00495004,
+             -0.005745126, -0.010695166],
+            [2000, -2.626859813, -0.008923151, -5.244796275, -0.008914317,
+             -0.005192346, -0.014106662],
+            [2500, -3.009341773, -0.004190067, -6.014494399, -0.004185919,
+             -0.005954346, -0.010140265],
+            [3000, -2.875694406, -0.005560121, -5.745828133, -0.005554616,
+             -0.005688367, -0.011242983],
+        ],
+    },
+}
+# kernel 8's FastAMM form: (n, K, pairs, padded length) of one minibatch:
+# a node's links and informative zeros, no pairs at all, a hub's
+FAMM_FP_SHAPES = ((20_000, 20, 121, 256), (1_000_000, 500, 141, 256),
+                  (1_000_000, 500, 0, 256), (1_000_000, 500, 16_000, 16_384))
+# kernel 10: (n, K, W, pairs, padded length)
+SPARSE_FP_SHAPES = ((20_000, 20, 8, 121, 256), (1_000_000, 500, 16, 141, 256),
+                    (1_000_000, 8_000, 16, 141, 256),
+                    (1_000_000, 8_000, 64, 141, 256),
+                    (1_000_000, 8_000, 16, 16_000, 16_384),
+                    (1_000_000, 8_000, 64, 16_000, 16_384),
+                    (1_000_000, 8_000, 16, 0, 256))
+# kernel 11's scores form: (n, K, W, held-out pairs); its assignments form
+# runs on stretch's links at (n, K, W) of SPARSE_STRETCH
+SCORE_SHAPES = ((20_000, 100, 8, 4_000), (1_000_000, 8_000, 16, 400_000),
+                (1_000_000, 8_000, 64, 100_000))
+SPARSE_STRETCH = (1_000_000, 500, 16)
+# an assignment on the card may name another community than the plain
+# version only where the plain phi of its slot is this close to the
+# largest (the card's digamma and exp differ from torch's in the last
+# bits)
+ASSIGN_TIE = 1e-5
+
+
+def _famm_cli(workdir, net, gt, label, flags):
+    return _run_engine_cli(workdir, net, gt, PLANTED["n"], PLANTED["k"],
+                           label, flags)
+
+
+def _famm_runs(workdir, record):
+    """-preprocess, then FastAMM's CLI runs on planted-20k: dense, sparse,
+    and the dense run cut after FAMM_CUT and resumed. Returns ({label:
+    rows}, {label: (out, seconds, launches, forms)})."""
+    from svinet_torch.synth import write_planted
+    net, gt = write_planted(workdir, PLANTED["n"], PLANTED["k"],
+                            PLANTED["avg_deg"], PLANTED["seed"])
+    suffix = "-cpu" if record else ""
+    t0 = time.perf_counter()
+    pre = _famm_cli(workdir, net, gt, "famm-pre" + suffix, ["-preprocess"])
+    secs = time.perf_counter() - t0
+    nb = os.path.join(pre, "neighbors.bin")
+    assert os.path.getsize(nb) > 0
+    os.chdir(workdir)
+    if os.path.exists("neighbors.bin"):
+        os.remove("neighbors.bin")
+    os.symlink(nb, "neighbors.bin")
+    log(f"phase 6: -preprocess on planted-20k: {secs:.1f} s, "
+        f"{os.path.getsize(nb)} bytes of informative zeros")
+    runs = (("famm", PLANTED["k"], FAMM_FLAGS),
+            ("famm-fq", FAMM_K_SPARSE,
+             ["-fastqueue", str(FAMM_W_SPARSE), *FAMM_FLAGS]))
+    rows, info = {}, {}
+    for label, k, flags in runs:
+        if not record:
+            _zero_counts(fastamm=True)
+        t0 = time.perf_counter()
+        out = _run_engine_cli(workdir, net, gt, PLANTED["n"], k,
+                              label + suffix, flags)
+        info[label] = (out, time.perf_counter() - t0,
+                       *_read_counts(fastamm=True))
+        rows[label] = _mmsb_rows(out)
+    Cut, undo = _crash_after(FAMM_CUT)
+    label = "famm-cut" + suffix
+    try:
+        try:
+            _famm_cli(workdir, net, gt, label,
+                      FAMM_FLAGS + ["-checkpoint-freq", "1e-9"])
+            raise AssertionError("the cut did not happen")
+        except Cut:
+            pass
+    finally:
+        undo()
+    cut_rows = _mmsb_rows(_outdir(workdir, label))
+    out = _famm_cli(workdir, net, gt, label, FAMM_FLAGS + ["-resume"])
+    rows["famm-cut"] = _mmsb_rows(out)
+    info["famm-cut"] = (out, 0.0, {}, {})
+    rows["famm-cut-before"] = cut_rows
+    return rows, info
+
+
+def phase6_cli(workdir):
+    """FastAMM through the CLI on the card: every run's rows held to the
+    CPU port's, kernel 8's FastAMM form launched once a dense step, kernel
+    10 once a sparse step, kernel 11 every report (scores) and once a
+    report and at the stop (assignments). Returns launches by name and
+    "name:form"."""
+    rows, info = _famm_runs(workdir, record=False)
+    launches = {}
+    steps = FAMM_STEPS + 1
+    for label in ("famm", "famm-fq"):
+        out, secs, counted, forms = info[label]
+        want = {"heldout": FAMM_CPU_ROWS[label]["heldout"]}
+        _rows_close({"heldout": rows[label]["heldout"]}, want, label)
+        reports = len(rows[label]["heldout"])
+        assert reports == FAMM_STEPS // 500, (label, reports)
+        if label == "famm":
+            assert forms["phi_fixed_point:fastamm"] == steps, forms
+            assert counted["heldout_sums"] >= reports, counted
+            assert counted["edge_assignments"] == reports + 1, counted
+        else:
+            assert forms["sparse_fastamm_stats:f32"] == steps, forms
+            assert forms["union_scores:assign"] == reports + 1, forms
+            assert forms["union_scores:scores"] >= reports, forms
+            assert not counted["phi_fixed_point"], counted
+        assert counted["dirichlet_expectation"] >= steps, counted
+        for name, v in {**counted, **forms}.items():
+            launches[name] = launches.get(name, 0) + v
+        g = np.loadtxt(os.path.join(out, "gamma.txt"))
+        assert np.isfinite(g).all() and g.shape[0] == PLANTED["n"]
+        nmi = float(open(os.path.join(out, "mutual.txt")).read().split()[-1])
+        log(f"phase 6: FastAMM {label} ({' '.join(FAMM_FLAGS[1:])}"
+            + (f" -k {FAMM_K_SPARSE} -fastqueue {FAMM_W_SPARSE}"
+               if label == "famm-fq" else "")
+            + f") on planted-20k: {secs:.1f} s, {steps} steps = "
+            f"{secs / steps * 1e3:.3f} ms a step with the reports, heldout "
+            f"rows {_rows_gap(rows[label], want):.3e} "
+            f"from the CPU port's (limit {MMSB_ROW_RTOL:g}), NMI {nmi:.6f}; "
+            f"launches {forms}")
+    # the cut run: its rows are the uninterrupted run's, bit for bit; the
+    # resumed rows are held to the CPU port's resumed run
+    whole = rows["famm"]["heldout"]
+    before = rows["famm-cut-before"]["heldout"]
+    assert before == whole[:len(before)] and before[-1][0] == FAMM_CUT, (
+        before, whole)
+    after = rows["famm-cut"]["heldout"]
+    assert after[:len(before)] == before, (after, before)
+    _rows_close({"heldout": after[len(before):]},
+                {"heldout": FAMM_CPU_ROWS["famm-cut"]["heldout"][
+                    len(before):]}, "famm-cut")
+    log(f"phase 6: the dense run cut after iteration {FAMM_CUT} and "
+        f"-resume'd: rows to the cut the uninterrupted run's bit for bit, "
+        f"the resumed rows {len(after) - len(before)} within "
+        f"{MMSB_ROW_RTOL:g} of the CPU port's resumed run")
+    return launches
+
+
+def _sparse_state(dev, gen, n, k, w):
+    """A top-W state: each row W distinct communities (a + j s mod K, s
+    prime to K), values descending from about 50 to 0.5, and a rest of
+    about 0.01 a tail community."""
+    a = torch.randint(0, k, (n, 1), generator=gen, device=dev)
+    strides = torch.tensor([s for s in range(1, 4 * w + 64, 2)
+                            if np.gcd(s, k) == 1][:64], device=dev)
+    s = strides[torch.randint(0, len(strides), (n, 1), generator=gen,
+                              device=dev)]
+    ids = ((a + torch.arange(w, device=dev) * s) % k).to(torch.int32)
+    vals = torch.sort(0.5 + 50.0 * torch.rand((n, w), generator=gen,
+                                               device=dev) ** 3,
+                      dim=1, descending=True).values
+    rest = 0.01 * (k - w) * (0.5 + torch.rand(n, generator=gen, device=dev))
+    return ids.contiguous(), vals.contiguous(), rest.contiguous()
+
+
+def _minibatch(dev, gen, n, m, n_links):
+    """Node n // 3 with m distinct others, the first n_links of them
+    links: (pairs (m, 2) int32 global ids, y, w, the touched nodes (r
+    first))."""
+    r = n // 3
+    other = torch.randperm(n - 1, generator=gen, device=dev)[:m]
+    other = other + (other >= r).to(other.dtype)
+    pairs = torch.stack([other.clamp(max=r), other.clamp(min=r)], 1)
+    y = (torch.arange(m, device=dev) < n_links).to(torch.int32)
+    w = torch.ones(m, dtype=torch.float32, device=dev)
+    nodes = torch.cat([torch.tensor([r], device=dev), other])
+    return pairs.to(torch.int32).contiguous(), y, w, nodes
+
+
+def _local(pairs, nodes, lead_zero):
+    """The rows of a step (sorted nodes, node 0 first when lead_zero) and
+    the pairs as indices into them."""
+    rows = torch.unique(nodes)
+    local = torch.searchsorted(rows, pairs.long())
+    if lead_zero:
+        rows = torch.cat([rows.new_zeros(1), rows])
+        local = local + 1
+    return rows, local.to(torch.int32).contiguous()
+
+
+def sparse_fp_bound(t, k, w, m, rounds_sum):
+    """Kernel 10's bound from this run's rounds: each pair's two rows of W
+    ids and values and a rest, its label and weight, Elogbeta, the (t, K)
+    gamma_hat written and lambda_hat; about 20 f32 operations a slot a
+    round and 4W exponentials a round at the special-function rate."""
+    n_bytes = m * (2 * (8.0 * w + 4) + 16.0) + 8.0 * k + 4.0 * t * k + 8.0 * k
+    ops = 20.0 * 2 * w * rounds_sum + 4.0 * t * k
+    sfu = 4.0 * w * rounds_sum
+    t_ = {"bytes": n_bytes / PEAK_BYTES_S * 1e3,
+          "operations": max(ops / PEAK_F32_S, sfu / PEAK_SFU_S) * 1e3}
+    by = max(t_, key=t_.get)
+    return t_[by], by
+
+
+def phase6_fp(dev):
+    """Kernel 8's FastAMM form (block = the padded length, a rho a row)
+    against its plain version on the same rows, with the same rounds, two
+    launches bitwise equal. Returns the report at n=1M, K=500, one node's
+    minibatch."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.phicomp import (
+        NodeUpdate, node_update_plain, pair_block_stats_plain,
+        phi_fixed_point)
+    log_eps = float(np.float32(np.log(1e-30)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    report = None
+    for n, k, m, pad in FAMM_FP_SHAPES:
+        gamma = 0.05 + torch.rand((n, k), generator=gen, device=dev) ** 4 * 10
+        lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+        pairs_g, y, w, nodes = _minibatch(dev, gen, n, m, min(m, 21))
+        rows, pairs = _local(pairs_g, nodes, True)
+        g = gamma[rows]
+        rho = torch.rand(rows.shape[0], generator=gen, device=dev)
+        scale = torch.tensor(n / 2.0, dtype=torch.float32, device=dev)
+        elogpi = dirichlet_expectation(g)
+        elogbeta = dirichlet_expectation(lam)
+        upd = NodeUpdate(g, 0.05, scale, rho)
+
+        def run():
+            return phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps,
+                                   50, 1e-5, block=pad, update=upd)
+
+        def plain():
+            gacc, lacc, r = pair_block_stats_plain(
+                elogpi, elogbeta, pairs, y, w, log_eps, 50, 1e-5, block=pad)
+            return node_update_plain(gacc, upd), lacc, r
+
+        o_k, l_k, r_k = run()
+        o_2, l_2, r_2 = run()
+        torch.cuda.synchronize()
+        assert (torch.equal(o_k, o_2) and torch.equal(l_k, l_2)
+                and torch.equal(r_k, r_2)), (n, k, m)
+        o_p, l_p, r_p = plain()
+        assert torch.equal(r_k, r_p), (n, k, m, r_k[:1], r_p[:1])
+        err = max(_close_to_max(o_k, o_p),
+                  _close_to_max(l_k, l_p) if m else 0.0)
+        assert err <= FP_TOL, (n, k, m, err)
+        # a row with no pairs decays toward alpha; node 0's row is read only
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 5)
+        rounds = int(r_k[0]) if m else 0
+        bnd = fp_bound(rows.shape[0], k, m, m, float(m * rounds),
+                       update=True)
+        log(f"phase 6: phi_fixed_point FastAMM form at n={n} K={k}, {m} "
+            f"pairs padded to {pad}, {rows.shape[0]} rows: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}); R {rounds} as the plain version's; err (of the "
+            f"largest entry) {err:.3e}; two launches bitwise equal")
+        if (n, k, m) == (1_000_000, 500, 141):
+            report = _report(err, ms, plain_ms, bnd)
+        del gamma
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase6_sparse(dev):
+    """Kernel 10 against its plain version at every shape of
+    SPARSE_FP_SHAPES (the same R, sums at 1e-4 of the largest entry, two
+    launches bitwise equal). Returns the report at n=1M, K=8,000, W=16 and
+    one node's minibatch."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.sparse_gamma import (
+        sparse_fastamm_stats, sparse_fastamm_stats_plain)
+    log_eps = float(np.float32(np.log(1e-30)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    report = None
+    for n, k, wt, m, pad in SPARSE_FP_SHAPES:
+        ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
+        lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+        elogbeta = dirichlet_expectation(lam)
+        pairs, y, w, nodes = _minibatch(dev, gen, n, m, min(m, 21))
+        rows, local = _local(pairs, nodes, False)
+        lp, lq = local[:, 0].contiguous(), local[:, 1].contiguous()
+        t = rows.shape[0]
+        args = (ids, vals, rest, elogbeta, pairs, y, w, lp, lq, t, log_eps,
+                50, 1e-5, pad)
+
+        def run():
+            return sparse_fastamm_stats(*args)
+
+        g_k, l_k, r_k = run()
+        g_2, l_2, r_2 = run()
+        torch.cuda.synchronize()
+        assert (torch.equal(g_k, g_2) and torch.equal(l_k, l_2)
+                and torch.equal(r_k, r_2)), (n, k, wt, m)
+        g_p, l_p, r_p = sparse_fastamm_stats_plain(*args)
+        assert torch.equal(r_k, r_p), (n, k, wt, m, r_k[:1], r_p[:1])
+        err = (max(_close_to_max(g_k, g_p), _close_to_max(l_k, l_p))
+               if m else float(g_k.abs().max() + l_k.abs().max()))
+        assert err <= FP_TOL, (n, k, wt, m, err)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(lambda: sparse_fastamm_stats_plain(*args), 3)
+        rounds = int(r_k[0]) if m else 0
+        bnd = sparse_fp_bound(t, k, wt, m, float(m * rounds))
+        log(f"phase 6: sparse_fastamm_stats at n={n} K={k} W={wt}, {m} "
+            f"pairs padded to {pad}, {t} touched rows: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+            f"R {rounds} as the plain version's; err {err:.3e}; two "
+            f"launches bitwise equal")
+        if (n, k, wt, m) == (1_000_000, 8_000, 16, 141):
+            report = _report(err, ms, plain_ms, bnd)
+        del ids, vals, rest, g_k, g_2, g_p
+        torch.cuda.empty_cache()
+    return report
+
+
+def score_bound(n_pairs, w, out_bytes):
+    """Kernel 11's bound: each pair's two rows of W ids and values and a
+    rest, the pair, and its outputs, at the memory rate."""
+    n_bytes = n_pairs * (2 * (8.0 * w + 4) + 8.0 + out_bytes)
+    return n_bytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def score_floor_ms(n_pairs, w, out_bytes):
+    """Kernel 11's floor: each end's ids, values and rest gathered from
+    device memory in whole 32-byte sectors, as random pairs of rows find
+    them, the pairs read and the outputs written once."""
+    sec = 2 * (-(-4 * w // 32) * 32) + 32
+    return n_pairs * (2 * sec + 8.0 + out_bytes) / PEAK_BYTES_S * 1e3
+
+
+def _assign_ties(ids, vals, rest, lam, edges, k, cid_k, cid_p, mx_p):
+    """Links whose community differs between the card and the plain
+    version: the plain phi of the card's community must lie within
+    ASSIGN_TIE of the plain largest. Returns how many differ."""
+    from svinet_torch.ops.digamma import dirichlet_expectation_plain
+    from svinet_torch.ops.sparse_gamma import DEAD, _dup_mask, _value_at_slots
+    bad = torch.nonzero(cid_k != cid_p).flatten()
+    if not bad.numel():
+        return 0
+    e = edges[bad].long()
+    p, q = e[:, 0], e[:, 1]
+    wt = ids.shape[1]
+    slots = torch.cat([ids[p], ids[q]], 1)
+    first = _dup_mask(slots)
+    gp = _value_at_slots(ids[p], vals[p], rest[p] / max(k - wt, 1), slots)
+    gq = _value_at_slots(ids[q], vals[q], rest[q] / max(k - wt, 1), slots)
+    tp, tq = vals[p].sum(-1) + rest[p], vals[q].sum(-1) + rest[q]
+    eb = dirichlet_expectation_plain(lam)
+    d = torch.special.digamma
+    x = d(gp) - d(tp)[:, None] + d(gq) - d(tq)[:, None] + eb[slots.long(), 0]
+    phi = torch.softmax(torch.where(first, x, DEAD), -1)
+    at = ((slots == cid_k[bad][:, None]) & first).float().argmax(-1)
+    got = phi.gather(1, at[:, None])[:, 0]
+    assert bool(((mx_p[bad] - got) <= ASSIGN_TIE).all()), (
+        float((mx_p[bad] - got).max()))
+    return int(bad.numel())
+
+
+def phase6_scores(dev):
+    """Kernel 11 in both forms against its plain version: the scores of
+    held-out pairs at SCORE_SHAPES, the assignments of stretch's links at
+    SPARSE_STRETCH (1e-4; a community apart only within ASSIGN_TIE), two
+    launches bitwise equal. Returns the reports of the scores at n=1M,
+    K=8,000, W=16 and of the assignments."""
+    from svinet_torch.ops.sparse_gamma import (
+        _union_scores_plain, sparse_edge_assignments, sparse_pair_scores)
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.synth import random_edges
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    reports = {}
+    for n, k, wt, m in SCORE_SHAPES:
+        ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
+        lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+        pairs = torch.randint(0, n, (m, 2), generator=gen,
+                              device=dev).to(torch.int32)
+        beta = (lam[:, 0] / (lam[:, 0] + lam[:, 1])).contiguous()
+
+        def run():
+            return sparse_pair_scores(ids, vals, rest, lam, pairs, k)
+
+        def plain():
+            return _union_scores_plain(ids, vals, rest, beta, pairs, k,
+                                       False)
+
+        a_k, b_k = run()
+        a_2, b_2 = run()
+        torch.cuda.synchronize()
+        assert torch.equal(a_k, a_2) and torch.equal(b_k, b_2)
+        a_p, b_p = plain()
+        err = max(_rel_err(a_k, a_p), _rel_err(b_k, b_p),
+                  float(((a_k - a_p).abs() / a_p.abs()).max()),
+                  float(((b_k - b_p).abs() / b_p.abs()).max()))
+        assert err <= FP_TOL, (n, k, wt, m, err)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 3)
+        bnd = score_bound(m, wt, 8)
+        floor = score_floor_ms(m, wt, 8)
+        log(f"phase 6: union_scores (scores) at n={n} K={k} W={wt}, {m} "
+            f"pairs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms, floor {floor:.4f} ms; relative err "
+            f"{err:.3e}; two launches bitwise equal")
+        if (n, k, wt) == (1_000_000, 8_000, 16):
+            reports["scores"] = dict(_report(err, ms, plain_ms, bnd),
+                                     floor_ms=floor)
+        del ids, vals, rest
+        torch.cuda.empty_cache()
+    n, k, wt = SPARSE_STRETCH
+    ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
+    lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+    edges = torch.as_tensor(random_edges(n, STRETCH["n_edges"], 0),
+                            device=dev)
+    e = edges.shape[0]
+
+    def run():
+        return sparse_edge_assignments(ids, vals, rest, lam, edges, k)
+
+    def plain():
+        eb = dirichlet_expectation(lam)
+        cs, ms_ = [], []
+        for lo in range(0, e, 1 << 20):
+            c, v = _union_scores_plain(ids, vals, rest, eb,
+                                       edges[lo:lo + (1 << 20)], k, True)
+            cs.append(c)
+            ms_.append(v)
+        return torch.cat(cs), torch.cat(ms_)
+
+    c_k, m_k = run()
+    c_2, m_2 = run()
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_2) and torch.equal(m_k, m_2)
+    c_p, m_p = plain()
+    differ = _assign_ties(ids, vals, rest, lam, edges, k, c_k, c_p, m_p)
+    same = c_k == c_p
+    err = float(((m_k - m_p).abs() / m_p.abs())[same].max())
+    assert err <= FP_TOL, err
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(plain, 1)
+    bnd = score_bound(e, wt, 8)
+    floor = score_floor_ms(e, wt, 8)
+    log(f"phase 6: union_scores (assignments) on stretch's {e} links at "
+        f"n={n} K={k} W={wt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(in chunks of 2^20 links), bound {bnd[0]:.3f} ms, floor "
+        f"{floor:.3f} ms ({floor / ms:.0%} of it); largest phi within "
+        f"{err:.3e}, {differ} links on another community within a tie of "
+        f"{ASSIGN_TIE:g}; two launches bitwise equal")
+    reports["assign"] = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
+    return reports
+
+
+def phase6_steps(dev):
+    """Wall and device times of a FastAMM step of each kind on a stretch-
+    shaped state: the dense step at n=1M, K=500, and the -fastqueue step
+    at n=1M, K=8,000, W=16; an informative step (21 links and 100 zeros of
+    one node, padded to 256) and a non-informative one (200 nonlinks)."""
+    from svinet_torch.ops.sparse_gamma import sparse_fastamm_step
+    from svinet_torch.svi.fastamm import Batch, fastamm_step, to_device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    log_eps = float(np.float32(np.log(1e-30)))
+    n = STRETCH["n"]
+    for kind, kk in (("dense", STRETCH["k"]), ("fastqueue", 8_000)):
+        state = (0.05 + torch.rand((n, kk), generator=gen, device=dev) ** 4
+                 * 10 if kind == "dense" else
+                 _sparse_state(dev, gen, n, kk, 16))
+        lam = 1.0 + 19.0 * torch.rand((kk, 2), generator=gen, device=dev)
+        eta = torch.ones((kk, 2), device=dev)
+        for step_kind, m, links, scale in (
+                ("informative", 121, 21, n / 2.0),
+                ("non-informative", 200, 0,
+                 float(n) * n / (2.0 * 1e-4 * 200))):
+            pairs_g, y, w, nodes = _minibatch(dev, gen, n, m, links)
+            dense = kind == "dense"
+            rows, local = _local(pairs_g, nodes, dense)
+            rho = torch.rand(rows.shape[0], generator=gen, device=dev)
+            host = [a.cpu().numpy() for a in (
+                rows, local if dense else pairs_g, y, w,
+                local.reshape(-1).long(), rho)]
+            # a report interval of steps, copied to the card at once as
+            # the engine copies them
+            reps = 100
+            t0 = time.perf_counter()
+            steps = to_device([Batch(*host, scale, 0.01)] * reps, dev)
+            torch.cuda.synchronize()
+            copy = (time.perf_counter() - t0) * 1e3
+
+            def step(st):
+                if dense:
+                    return fastamm_step(
+                        state, lam, st.rows, st.pairs, st.y, st.w, st.rho,
+                        0.002, eta, st.scale, st.rhot, 1.0, log_eps, 50,
+                        1e-5, 256, st.csr)
+                return sparse_fastamm_step(
+                    *state, lam, st.pairs, st.y, st.w, st.lp, st.lq,
+                    st.rows, st.rho, 0.002, eta, st.scale, st.rhot, 1.0,
+                    log_eps, kk, 50, 1e-5, 256, st.csr)
+
+            step(steps[0])
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for st in steps:
+                step(st)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+            dev_ms = start.elapsed_time(end) / reps
+            log(f"phase 6: FastAMM {kind} step, {step_kind} ({m} pairs, "
+                f"{rows.shape[0]} rows) at n={n} K={kk}"
+                + (" W=16" if not dense else "")
+                + f": {wall:.3f} ms wall a step over {reps} steps "
+                f"({dev_ms:.3f} ms between events on the card), their copy "
+                f"to the card {copy:.1f} ms")
+        if kind == "dense":
+            assert torch.isfinite(state).all()
+        else:
+            assert torch.isfinite(state[1]).all()
+        del state
+        torch.cuda.empty_cache()
+
+
+def phase6(dev, workdir):
+    """FastAMM: kernel 8's FastAMM form, kernels 10 and 11 against their
+    plain versions, the CLI runs on planted-20k, the step's times on a
+    stretch-shaped state. Returns (launches by name and form, {row name:
+    report})."""
+    t0 = time.perf_counter()
+    reports = {"phi_fixed_point:fastamm": phase6_fp(dev),
+               "sparse_fastamm_stats": phase6_sparse(dev)}
+    scores = phase6_scores(dev)
+    reports["union_scores:scores"] = scores["scores"]
+    reports["union_scores:assign"] = scores["assign"]
+    launches = phase6_cli(workdir)
+    phase6_steps(dev)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    return launches, reports
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--record-cpu"]:
-        return record_cpu(sys.argv[2:] or ("mmsb", "fa"))
+        return record_cpu(sys.argv[2:] or ("mmsb", "fa", "famm"))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4088,6 +4707,14 @@ def main() -> int:
             finally:
                 os.chdir(cwd)
         return 4
+    if sys.argv[1:] == ["--phase6"]:
+        # phase 6 alone, for work on it; prints no result
+        with tempfile.TemporaryDirectory() as workdir:
+            try:
+                phase6(dev, workdir)
+            finally:
+                os.chdir(cwd)
+        return 4
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
@@ -4105,6 +4732,8 @@ def main() -> int:
             p5_launches, fa_fp_report, fa_launches = phase5(dev, workdir,
                                                             stretch)
             del stretch
+            torch.cuda.empty_cache()
+            p6_launches, p6_reports = phase6(dev, workdir)
         finally:
             os.chdir(cwd)
     # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
@@ -4117,6 +4746,13 @@ def main() -> int:
     # one launch a step
     launches["phi_fixed_point:b512"] = fa_launches
     per_sweep["phi_fixed_point:b512"] = 1.0
+    # FastAMM from phase 6's CLI runs: kernel 8's FastAMM form a dense
+    # step, kernel 10 a -fastqueue step, kernel 11's scores a held-out set
+    # of a report and its assignments a report (and at the stop)
+    for name in ("phi_fixed_point:fastamm", "sparse_fastamm_stats",
+                 "union_scores:scores", "union_scores:assign"):
+        launches[name] = p6_launches.get(name, 0)
+        per_sweep[name] = 1.0
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
     # kernel 5 from its -fuse-s3 run, kernel 7 and the top-W form from its
@@ -4162,6 +4798,20 @@ def main() -> int:
          "svinet_tpu/ops/phicomp.py:33", fa_fp_report),
         ("edge_assignments", "svinet_torch/csrc/edge_assign.cu",
          "svinet_tpu/svi/communities.py:24", assign_report),
+        # FastAMM's dense step (the whole minibatch one block, a rho a
+        # row) and its sparse top-W state, parts of XLA programs
+        ("phi_fixed_point:fastamm", "svinet_torch/csrc/phi_fixed_point.cu",
+         "svinet_tpu/svi/fastamm.py:51",
+         p6_reports["phi_fixed_point:fastamm"]),
+        ("sparse_fastamm_stats", "svinet_torch/csrc/sparse_fastamm.cu",
+         "svinet_tpu/ops/sparse_gamma.py:74",
+         p6_reports["sparse_fastamm_stats"]),
+        ("union_scores:scores", "svinet_torch/csrc/sparse_scores.cu",
+         "svinet_tpu/ops/sparse_gamma.py:213",
+         p6_reports["union_scores:scores"]),
+        ("union_scores:assign", "svinet_torch/csrc/sparse_scores.cu",
+         "svinet_tpu/ops/sparse_gamma.py:247",
+         p6_reports["union_scores:assign"]),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

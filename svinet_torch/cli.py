@@ -299,9 +299,9 @@ _LATER_ENGINE_FLAGS = (("single", "-single"),)
 def check_slice(cfg: Config) -> None:
     """Raise SystemExit naming the first flag the port does not run. The
     ported engines, in svinet_tpu/cli.py's dispatch order: -link-sampling,
-    -batch (MMSBInfer.batch_infer), -preprocess, FastAMM2 (-stratified
-    -rnode) and MMSBInfer.infer (no engine flag, -rpair, -rnode,
-    -stratified -rpair)."""
+    -batch (MMSBInfer.batch_infer), -preprocess, FastAMM (-infset, dense
+    or -fastqueue W), FastAMM2 (-stratified -rnode) and MMSBInfer.infer
+    (no engine flag, -rpair, -rnode, -stratified -rpair)."""
     for field, flag in _ENGINE_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
@@ -309,8 +309,6 @@ def check_slice(cfg: Config) -> None:
         for field, flag in _LATER_ENGINE_FLAGS:
             if getattr(cfg, field):
                 raise SystemExit(f"svinet_torch: {flag} is not ported")
-        if not (cfg.batch or cfg.preprocess) and cfg.informative_sampling:
-            raise SystemExit("svinet_torch: -infset is not ported")
 
 
 def main(argv: Optional[List[str]] = None, group=None) -> int:
@@ -419,6 +417,10 @@ def _build_engine(cfg: Config, group):
     if cfg.preprocess:
         network.set_neighborhood_sets(cfg)
         return None, None
+    if cfg.informative_sampling:
+        from svinet_torch.svi.fastamm import FastAMM
+        engine = FastAMM(cfg, network, device)
+        return engine, engine.infer
     if cfg.stratified and cfg.randomnode:
         from svinet_torch.svi.fastamm2 import FastAMM2
         engine = FastAMM2(cfg, network, device, group)

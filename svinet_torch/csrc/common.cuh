@@ -74,6 +74,51 @@ __device__ __forceinline__ float group_max(float v, unsigned mask) {
   return v;
 }
 
+// digamma(x), x > 0: psi(x) = psi(x+5) - sum_{i<5} 1/(x+i), then the
+// asymptotic series at y = x + 5 >= 5, whose first omitted term is
+// 1/(240 y^8) < 1.1e-8. The lift's terms are paired,
+//   1/(x+1) + 1/(x+2) = (2x+3) / (x^2+3x+2),
+//   1/(x+3) + 1/(x+4) = (2x+7) / (x^2+7x+12),
+// so four reciprocals become two; each pair is at most 1.5, so the
+// approximate reciprocal's one ulp of relative error is far below the
+// bar. 1/x itself is unbounded as x -> 0 (200 at x = 5e-3) and takes the
+// correctly rounded reciprocal, subtracted last. Quadratic denominators stay finite up to
+// x ~ 1e19; beyond that they reach inf, the reciprocal is 0 and the pair
+// (then below 1e-18) drops out without a NaN. Absolute error against
+// float64 stays below 5e-5 over [5e-3, 1e6].
+
+// rcp.approx.ftz.f32: at most one ulp of relative error, one instruction
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// psi(x) + 1/x: every term of digamma but the unbounded one.
+__device__ __forceinline__ float digamma_bounded(float x) {
+  const float p12 = fmaf(2.0f, x, 3.0f) *
+                    rcp_approx(fmaf(x, x + 3.0f, 2.0f));
+  const float p34 = fmaf(2.0f, x, 7.0f) *
+                    rcp_approx(fmaf(x, x + 7.0f, 12.0f));
+  const float y = x + 5.0f;
+  const float inv = rcp_approx(y);
+  const float inv2 = inv * inv;
+  const float series =
+      logf(y) - 0.5f * inv -
+      inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
+  return series - (p12 + p34);
+}
+
+__device__ __forceinline__ float digamma_f(float x) {
+  return digamma_bounded(x) - __frcp_rn(x);
+}
+
+// psi(x) - ds with the bounded terms first and 1/x last, so that only one
+// rounding happens at the magnitude of the result (217 at x = 5e-3).
+__device__ __forceinline__ float expectation_f(float x, float ds) {
+  return (digamma_bounded(x) - ds) - __frcp_rn(x);
+}
+
 // NC: load through the read-only path (__ldg). A kernel that writes the
 // buffer it reads (an update in place) asks for NC = false.
 template <int VEC, bool NC = true>
@@ -431,6 +476,45 @@ __device__ __forceinline__ bool adj_item(const AdjItems& a, int64_t item,
   *begin = a.rowptr[item];
   *end = a.rowptr[item + 1];
   return *end - *begin <= a.seg_len;
+}
+
+// The block exit rule of the phi fixed points (svinet_tpu/ops/phicomp.py:
+// 33-67, svinet_tpu/ops/sparse_gamma.py:123-129): R_b of every block of
+// `block` slots, a warp a block: the AND of its slots' masks (bit r - 1 of
+// a slot set when its round r changed by less than thresh; the virtual
+// slot at n_pairs too where the last block is partial), whose first set
+// bit is the first round every slot changed by less than thresh;
+// max_iters where there is none within it.
+static __global__ void __launch_bounds__(kBlockThreads)
+block_rounds_kernel(const uint64_t* __restrict__ masks, int words,
+                    int64_t n_pairs, int block, int pad, int max_iters,
+                    int32_t* __restrict__ out, int64_t n_blocks) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) /
+      kWarp;
+  if (b >= n_blocks) return;
+  const int64_t lo = b * block;
+  const int64_t hi = lo + block < n_pairs ? lo + block : n_pairs;
+  const bool with_pad = pad && hi == n_pairs;
+  int r = max_iters;
+  for (int j = 0; j < words; ++j) {
+    uint64_t v = ~uint64_t{0};
+    for (int64_t s = lo + lane; s < hi; s += kWarp)
+      v &= masks[s * words + j];
+    if (with_pad && lane == 0) v &= masks[n_pairs * words + j];
+    const unsigned vl =
+        __reduce_and_sync(kFull, static_cast<unsigned>(v));
+    const unsigned vh =
+        __reduce_and_sync(kFull, static_cast<unsigned>(v >> 32));
+    v = (static_cast<uint64_t>(vh) << 32) | vl;
+    if (v != 0) {
+      const int first = 64 * j + __ffsll(static_cast<long long>(v));
+      r = first < max_iters ? first : max_iters;
+      break;
+    }
+  }
+  if (lane == 0) out[b] = r;
 }
 
 // The lane of its group and the register of that lane that hold column c

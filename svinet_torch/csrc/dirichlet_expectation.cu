@@ -60,18 +60,8 @@
 // and K = 500, most rows). Above 512 columns one warp per row takes them,
 // scanning its row from the L1.
 //
-// digamma(x), x > 0: psi(x) = psi(x+5) - sum_{i<5} 1/(x+i), then the
-// asymptotic series at y = x + 5 >= 5, whose first omitted term is
-// 1/(240 y^8) < 1.1e-8. The lift's terms are paired,
-//   1/(x+1) + 1/(x+2) = (2x+3) / (x^2+3x+2),
-//   1/(x+3) + 1/(x+4) = (2x+7) / (x^2+7x+12),
-// so four reciprocals become two; each pair is at most 1.5, so the
-// approximate reciprocal's one ulp of relative error is far below the
-// bar. 1/x itself is unbounded as x -> 0 (200 at x = 5e-3) and takes the
-// correctly rounded reciprocal, subtracted last. Quadratic denominators stay finite up to
-// x ~ 1e19; beyond that they reach inf, the reciprocal is 0 and the pair
-// (then below 1e-18) drops out without a NaN. Absolute error against
-// float64 stays below 5e-5 over [5e-3, 1e6].
+// The digamma it takes is svt::digamma_f (common.cuh), shared with the
+// kernels of the sparse top-W state.
 
 #include <climits>
 
@@ -79,37 +69,9 @@
 
 namespace {
 
-// rcp.approx.ftz.f32: at most one ulp of relative error, one instruction
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// psi(x) + 1/x: every term of digamma but the unbounded one.
-__device__ __forceinline__ float digamma_bounded(float x) {
-  const float p12 = fmaf(2.0f, x, 3.0f) *
-                    rcp_approx(fmaf(x, x + 3.0f, 2.0f));
-  const float p34 = fmaf(2.0f, x, 7.0f) *
-                    rcp_approx(fmaf(x, x + 7.0f, 12.0f));
-  const float y = x + 5.0f;
-  const float inv = rcp_approx(y);
-  const float inv2 = inv * inv;
-  const float series =
-      logf(y) - 0.5f * inv -
-      inv2 * (1.0f / 12.0f - inv2 * (1.0f / 120.0f - inv2 * (1.0f / 252.0f)));
-  return series - (p12 + p34);
-}
-
-__device__ __forceinline__ float digamma_f(float x) {
-  return digamma_bounded(x) - __frcp_rn(x);
-}
-
-// psi(x) - ds with the bounded terms first and 1/x last, so that only one
-// rounding happens at the magnitude of the result (217 at x = 5e-3).
-__device__ __forceinline__ float expectation_f(float x, float ds) {
-  return (digamma_bounded(x) - ds) - __frcp_rn(x);
-}
+using svt::digamma_bounded;
+using svt::digamma_f;
+using svt::expectation_f;
 
 // OutT: Elogpi leaves as f32, or straight as bf16 (-bf16 gathers it at
 // half the bytes), rounded to nearest even in the store: one pass, not an

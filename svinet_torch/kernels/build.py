@@ -98,6 +98,15 @@ SIGNATURES = {
     # elogpi, elb0, edges, rowptr, nbr, seg_node, seg_begin, seg_end,
     # argmax, maxval, n, n_segs, k, seg_len
     "svt_edge_assign": (_P,) * 10 + (_I64, _I64, _I32, _I32, _P),
+    # ids, vals, rest, elogbeta, pairs, y, w, staged, slots, masks, stop,
+    # block_rounds, rounds, the seven endpoint-CSR arrays, seg_partial,
+    # lam_partial, lam_sums, gacc, pairs, rows, n_hubs, n_segs, k, w,
+    # seg_len, max_iters, log_eps, thresh, block, chunk
+    "svt_sparse_fastamm": (_P,) * 24 + (_I64,) * 4 + (_I32,) * 4 + (
+        _F32, _F32, _I32, _I32, _P),
+    # ids, vals, rest, table, beta_sum, pairs, out0, out1, cid, pairs, k,
+    # w, form
+    "svt_sparse_scores": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

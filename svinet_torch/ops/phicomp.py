@@ -225,7 +225,9 @@ class NodeUpdate(NamedTuple):
     """How the node pass writes a node's row from its gamma_hat row g:
     with `gamma` set, the SVI step's (1 - rho) gamma + rho (alpha + gscale
     g) (svinet_tpu/svi/mmsb.py:159-160); without, -batch's alpha + g
-    (svinet_tpu/svi/mmsb.py:240). gscale and rho are () f32 tensors."""
+    (svinet_tpu/svi/mmsb.py:240). gscale is a () f32 tensor, rho a () f32
+    tensor or, for FastAMM's step, an (n,) one, a rho a node
+    (svinet_tpu/svi/fastamm.py:62-66)."""
     gamma: Optional[torch.Tensor]
     alpha: float
     gscale: Optional[torch.Tensor] = None
@@ -237,8 +239,9 @@ def node_update_plain(gacc, upd: NodeUpdate) -> torch.Tensor:
     in its order."""
     if upd.gamma is None:
         return upd.alpha + gacc
+    rho = upd.rho[:, None] if upd.rho.dim() == 1 else upd.rho
     gammat = upd.alpha + upd.gscale * gacc
-    return (1.0 - upd.rho) * upd.gamma + upd.rho * gammat
+    return (1.0 - rho) * upd.gamma + rho * gammat
 
 
 def _pair_checks(elogpi, elogbeta, pairs, y, w):
@@ -283,9 +286,9 @@ def phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps: float,
 
     Training form: returns (rows (n,K), lacc (K,2), rounds (B,) int32,
     each pair's R_b), rows gamma_hat, or with `update` each node's row as
-    NodeUpdate says (the next gamma of an SVI or -batch step; gamma is
-    read, not written). On the card pass 1 runs every pair, a group of 8
-    to 32 lanes to a pair with its rows in shared memory, to its
+    NodeUpdate says (the next gamma of an SVI, FastAMM or -batch step;
+    gamma is read, not written). On the card pass 1 runs every pair, a
+    group of 8 to 32 lanes to a pair with its rows in shared memory, to its
     bit-stable round, recording a mask of its rounds below the threshold,
     and writes phi1 and phi2 into a staging buffer (2B, K); a warp a block
     ANDs the masks into R_b; pass 2 runs again the pairs whose phis came
@@ -372,8 +375,13 @@ def phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps: float,
                 gamma = update.gamma
                 build.check_cuda(gamma, "gamma", torch.float32, (n, k), dev)
                 gs = _scalar(update.gscale, dev)
-                rho = _scalar(update.rho, dev)
-                mode = 1
+                if torch.as_tensor(update.rho).dim() == 1:
+                    rho = update.rho
+                    build.check_cuda(rho, "rho", torch.float32, (n,), dev)
+                    mode = 3
+                else:
+                    rho = _scalar(update.rho, dev)
+                    mode = 1
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -387,7 +395,8 @@ def phi_fixed_point(elogpi, elogbeta, pairs, y, w, log_eps: float,
                  n, m, n_hubs, n_segs, k, seg_len, int(max_iters),
                  float(log_eps), float(thresh), alpha, mode, int(elbo),
                  plan["blocks"], int(block))
-    build.count_launch(phi_fixed_point, "elbo" if elbo else "f32")
+    build.count_launch(phi_fixed_point, "elbo" if elbo else (
+        "fastamm" if mode == 3 else "f32"))
     if elbo:
         return (sums[0], rounds, terms, stop[:m]) if keep_staged else (
             sums[0], rounds)

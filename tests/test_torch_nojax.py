@@ -47,6 +47,12 @@ _BLOCKED_RUN = textwrap.dedent("""
                    "-seed", "3", "-max-iterations", "4", "-label", "nojax",
                    "-checkpoint-freq", "1e-9", *flags])
         assert rc == 0
+    for flags in (["-preprocess"], ["-infset"],
+                  ["-infset", "-fastqueue", "2"]):
+        rc = main(["-file", net, "-n", "200", "-k", "4", "-nmi", gt,
+                   "-seed", "3", "-max-iterations", "4", "-label",
+                   "fastamm", *flags])
+        assert rc == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "svinet_tpu"))
     assert not loaded, loaded
@@ -71,6 +77,9 @@ def test_cli_runs_with_jax_blocked(tmp_path):
         assert (out / "gamma.txt").exists()
         assert (out / "modularity.txt").exists()
         assert (out / "ckpt" / "latest").exists()
+    out = tmp_path / "n200-k4-fastamm-seed3-infset"
+    for name in ("neighbors.bin", "gamma.txt", "cmap.txt", "heldout.txt"):
+        assert (out / name).exists(), name
 
 
 # Installed as sitecustomize.py for a subprocess and every rank it spawns:
@@ -247,10 +256,11 @@ def test_cuda_without_a_card_raises(monkeypatch):
       "-checkpoint-freq", "5", "-ppc"], "-ppc"),
     (["-link-sampling", "-mesh-locality", "-lcstats"], "-lcstats"),
     (["-link-sampling", "-dist-procid", "1", "-gml"], "-gml"),
-    (["-mesh", "2", "-dist-nprocs", "2", "-infset"], "-infset"),
-    (["-infset"], "-infset"),
+    (["-mesh", "2", "-dist-nprocs", "2", "-infset", "-findk"], "-findk"),
+    (["-infset", "-single"], "-single"),
     (["-checkpoint-freq", "5", "-mesh-locality", "-single"], "-single"),
-    (["-rnode", "-resume", "-infset", "-fastqueue", "4"], "-infset"),
+    (["-rnode", "-resume", "-infset", "-fastqueue", "4", "-orig"],
+     "-orig"),
     (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2",
       "-orig"], "-orig"),
     (["-stratified", "-rnode", "-findk"], "-findk"),
@@ -270,11 +280,14 @@ def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
     ["-logl"], ["-batch", "-logl"], ["-rnode", "-nonuniform", "-inf", "0.1"],
     ["-link-sampling", "-checkpoint-freq", "5"],
     ["-link-sampling", "-resume"], ["-rnode", "-resume"],
-    ["-link-sampling", "-batch"],
+    ["-link-sampling", "-batch"], ["-infset"],
+    ["-infset", "-fastqueue", "4", "-resume"],
+    ["-infset", "-mesh", "2", "-checkpoint-freq", "5"],
 ])
 def test_cli_takes_mmsb_and_checkpoint_flags(flags, monkeypatch):
-    """MMSBInfer's modes, -checkpoint-freq and -resume pass the slice
-    check; the run then fails on the missing input file."""
+    """MMSBInfer's modes, FastAMM's (-infset, -fastqueue), -checkpoint-freq
+    and -resume pass the slice check; the run then fails on the missing
+    input file."""
     from svinet_torch.cli import check_slice, parse_args
     argv = ["-file", "absent.txt", "-n", "10", "-k", "2", *flags]
     check_slice(parse_args(argv))
