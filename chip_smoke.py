@@ -1481,9 +1481,8 @@ def _run_cli(workdir, net, gt, label, extra):
                  f"linksampling")
 
 
-def _wrappers(fastamm=False):
-    """The kernel wrappers by name, each counting its launches: the nine
-    of phases 1-5, and with `fastamm` kernels 10 and 11 (phase 6)."""
+def _wrappers():
+    """The kernel wrappers by name, each counting its launches."""
     from svinet_torch.evals.likelihood import heldout_sums
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.ops.phicomp import phi_fixed_point
@@ -1493,30 +1492,28 @@ def _wrappers(fastamm=False):
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
         sparse_union_pass)
-    wrappers = {"dirichlet_expectation": dirichlet_expectation,
-                "phi_fixed_point": phi_fixed_point,
-                "edge_assignments": edge_assignments,
-                "phi_pass": phi_pass,
-                "mean_indicator_update": mean_indicator_update,
-                "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
-                "heldout_sums": heldout_sums,
-                "sparse_union_pass": sparse_union_pass}
-    if fastamm:
-        wrappers.update(sparse_fastamm_stats=sparse_fastamm_stats,
-                        union_scores=union_scores)
-    return wrappers
+    return {"dirichlet_expectation": dirichlet_expectation,
+            "phi_fixed_point": phi_fixed_point,
+            "edge_assignments": edge_assignments,
+            "phi_pass": phi_pass,
+            "mean_indicator_update": mean_indicator_update,
+            "s3_pass": s3_pass, "fused_phi_s3_pass": fused_phi_s3_pass,
+            "heldout_sums": heldout_sums,
+            "sparse_union_pass": sparse_union_pass,
+            "sparse_fastamm_stats": sparse_fastamm_stats,
+            "union_scores": union_scores}
 
 
-def _zero_counts(fastamm=False):
+def _zero_counts():
     """Set every wrapper's launch counts to 0, in all and by form."""
-    for fn in _wrappers(fastamm).values():
+    for fn in _wrappers().values():
         fn.launches = 0
         fn.forms = {}
 
 
-def _read_counts(fastamm=False):
+def _read_counts():
     """(launches by wrapper, launches by "wrapper:form")."""
-    wrappers = _wrappers(fastamm)
+    wrappers = _wrappers()
     return ({name: fn.launches for name, fn in wrappers.items()},
             {f"{name}:{form}": count for name, fn in wrappers.items()
              for form, count in fn.forms.items()})
@@ -1573,14 +1570,13 @@ def phase2(workdir):
                                               ["-max-iterations", "400"])
     # default flags launch the f32 forms only
     assert all(name.endswith(":f32") for name in forms), forms
-    # the default sweep is kernels 1, 2, 3 and 4; a report's communities
-    # kernel 9
-    assert all(v > 0 for name, v in launches.items()
-               if name not in ("fused_phi_s3_pass", "sparse_union_pass",
-                               "phi_fixed_point")), launches
-    assert launches["phi_fixed_point"] == 0, launches
-    assert launches["fused_phi_s3_pass"] == 0, launches
-    assert launches["sparse_union_pass"] == 0, launches
+    # the default sweep is kernels 1, 2, 3, 4 and 6; a report's
+    # communities kernel 9; no other kernel
+    path = ("dirichlet_expectation", "phi_pass", "mean_indicator_update",
+            "s3_pass", "heldout_sums", "edge_assignments")
+    assert all(launches[name] > 0 for name in path), launches
+    assert not any(v for name, v in launches.items()
+                   if name not in path), launches
     ho, mx, nmi = _check_outputs(out)
     assert abs(int(mx[0]) - STOP_ITER_CPU) <= 1, mx
     assert abs(nmi - NMI_CPU) <= NMI_TOL, nmi
@@ -1947,7 +1943,8 @@ def phase3(dev, workdir):
                     "mean_indicator_update": 3, "s3_pass": 3,
                     "fused_phi_s3_pass": 0, "heldout_sums": 1,
                     "sparse_union_pass": 0, "phi_fixed_point": 0,
-                    "edge_assignments": 0}
+                    "edge_assignments": 0, "sparse_fastamm_stats": 0,
+                    "union_scores": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     _zero_counts()
@@ -4155,18 +4152,26 @@ FAMM_CPU_ROWS = {
 # a node's links and informative zeros, no pairs at all, a hub's
 FAMM_FP_SHAPES = ((20_000, 20, 121, 256), (1_000_000, 500, 141, 256),
                   (1_000_000, 500, 0, 256), (1_000_000, 500, 16_000, 16_384))
-# kernel 10: (n, K, W, pairs, padded length)
+# kernel 10: (n, K, W, pairs, padded length); K=30,000 takes four column
+# tiles of its sum passes, the last one partial
 SPARSE_FP_SHAPES = ((20_000, 20, 8, 121, 256), (1_000_000, 500, 16, 141, 256),
                     (1_000_000, 8_000, 16, 141, 256),
                     (1_000_000, 8_000, 64, 141, 256),
                     (1_000_000, 8_000, 16, 16_000, 16_384),
                     (1_000_000, 8_000, 64, 16_000, 16_384),
-                    (1_000_000, 8_000, 16, 0, 256))
+                    (1_000_000, 8_000, 16, 0, 256),
+                    (1_000_000, 30_000, 16, 141, 256))
 # kernel 11's scores form: (n, K, W, held-out pairs); its assignments form
-# runs on stretch's links at (n, K, W) of SPARSE_STRETCH
-SCORE_SHAPES = ((20_000, 100, 8, 4_000), (1_000_000, 8_000, 16, 400_000),
+# on stretch's links: (n, K, W, links), all of them at SPARSE_STRETCH (the
+# kernels line's row), the first 2M at K=8,000 (the main path's shape,
+# planted-20k's links at K=100, W=8, is the -fastqueue CLI run's own)
+SCORE_SHAPES = ((20_000, 100, 8, 4_000), (1_000_000, 500, 16, 400_000),
+                (1_000_000, 8_000, 16, 400_000),
                 (1_000_000, 8_000, 64, 100_000))
 SPARSE_STRETCH = (1_000_000, 500, 16)
+ASSIGN_SHAPES = ((*SPARSE_STRETCH, STRETCH["n_edges"]),
+                 (1_000_000, 8_000, 16, 1 << 21),
+                 (1_000_000, 8_000, 64, 1 << 21))
 # an assignment on the card may name another community than the plain
 # version only where the plain phi of its slot is this close to the
 # largest (the card's digamma and exp differ from torch's in the last
@@ -4204,12 +4209,12 @@ def _famm_runs(workdir, record):
     rows, info = {}, {}
     for label, k, flags in runs:
         if not record:
-            _zero_counts(fastamm=True)
+            _zero_counts()
         t0 = time.perf_counter()
         out = _run_engine_cli(workdir, net, gt, PLANTED["n"], k,
                               label + suffix, flags)
         info[label] = (out, time.perf_counter() - t0,
-                       *_read_counts(fastamm=True))
+                       *_read_counts())
         rows[label] = _mmsb_rows(out)
     Cut, undo = _crash_after(FAMM_CUT)
     label = "famm-cut" + suffix
@@ -4230,14 +4235,102 @@ def _famm_runs(workdir, record):
     return rows, info
 
 
+def _keep_assignments():
+    """Make FastAMM keep copies of the last edge assignments it asks for:
+    the state, the links and kernel 11's answer. Returns (that record,
+    undo)."""
+    import svinet_torch.svi.fastamm as famm
+    orig = famm.sparse_edge_assignments
+    last = {}
+
+    def kept(ids, vals, rest, lam, edges, k):
+        cid, mx = orig(ids, vals, rest, lam, edges, k)
+        last.update(args=tuple(a.clone() for a in (ids, vals, rest, lam,
+                                                   edges)),
+                    k=k, got=(cid.clone(), mx.clone()))
+        return cid, mx
+
+    famm.sparse_edge_assignments = kept
+
+    def undo():
+        famm.sparse_edge_assignments = orig
+    return last, undo
+
+
+def phase6_link_communities(out, last):
+    """Kernel 11's assignment form at the main path's shape: the last call
+    of the -fastqueue run (planted-20k's training links, K=100, W=8, the
+    final state) held to the plain version on the same inputs (1e-4; a
+    community apart only within ASSIGN_TIE) and launched again bitwise
+    equal; then the run's communities.txt, mcount.txt and aggregate.txt
+    held byte for byte, and its last mutual3 to the digit, to what
+    link_communities makes of the plain assignments (at a tie the card's
+    community, and the card's side of link_thresh where the two phis lie
+    within FP_TOL of it)."""
+    from svinet_torch.evals.nmi import overlapping_nmi, read_cover_file
+    from svinet_torch.ops.sparse_gamma import sparse_edge_assignments
+    from svinet_torch.svi.fastamm import link_communities
+    args, k = last["args"], last["k"]
+    c_k, m_k = last["got"]
+    c_2, m_2 = sparse_edge_assignments(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_2) and torch.equal(m_k, m_2)
+    ids, vals, rest, lam, edges = (a.cpu() for a in args)
+    c_k, m_k = c_k.cpu(), m_k.cpu()
+    c_p, m_p = sparse_edge_assignments(ids, vals, rest, lam, edges, k)
+    differ = _assign_ties(ids, vals, rest, lam, edges, k, c_k, c_p, m_p)
+    same = c_k == c_p
+    err = float(((m_k - m_p).abs() / m_p.abs())[same].max())
+    assert err <= FP_TOL, err
+    params = dict(line.split(": ", 1) for line in
+                  open(os.path.join(out, "param.txt")).read().splitlines()
+                  if ": " in line)
+    thr, min_deg = float(params["link_thresh"]), int(params["lt_min_deg"])
+    flip = (m_k > thr) != (m_p > thr)
+    assert bool(((m_p[flip] - thr).abs() <= FP_TOL * thr).all())
+    seq = np.loadtxt(os.path.join(out, "gamma.txt"), usecols=(0, 1),
+                     dtype=np.int64)
+    seq2id = np.empty(len(seq), np.int64)
+    seq2id[seq[:, 0]] = seq[:, 1]
+    with tempfile.TemporaryDirectory() as tmp:
+        comms = link_communities(
+            lambda name: os.path.join(tmp, name), edges.numpy(),
+            torch.where(same, c_p, c_k).numpy(),
+            torch.where(flip, m_k, m_p).numpy(), k, thr, min_deg, seq2id)
+        for name in ("communities.txt", "mcount.txt", "aggregate.txt"):
+            assert (open(os.path.join(tmp, name)).read()
+                    == open(os.path.join(out, name)).read()), name
+        nmi = overlapping_nmi(
+            read_cover_file(os.path.join(out, "ground_truth.txt")),
+            read_cover_file(os.path.join(tmp, "communities.txt")))
+    m3 = [line.split()[-1] for line in open(os.path.join(out, "mutual.txt"))
+          if line.startswith("mutual3")]
+    assert m3 and m3[-1] == f"{nmi:g}", (m3[-1:], nmi)
+    log(f"phase 6: union_scores (assignments) at the main path's shape, "
+        f"the -fastqueue run's last call ({edges.shape[0]} links, K={k}, "
+        f"W={ids.shape[1]}): largest phi within {err:.3e} of the plain "
+        f"version's, {differ} links on another community within a tie of "
+        f"{ASSIGN_TIE:g}, {int(flip.sum())} on the other side of "
+        f"link_thresh within {FP_TOL:g}; launched again bitwise equal; "
+        f"communities.txt ({len(comms)} communities), mcount.txt and "
+        f"aggregate.txt as the plain assignments make them, mutual3 "
+        f"{m3[-1]}")
+
+
 def phase6_cli(workdir):
     """FastAMM through the CLI on the card: every run's rows held to the
     CPU port's, kernel 8's FastAMM form launched once a dense step, kernel
     10 once a sparse step, kernel 11 every report (scores) and once a
-    report and at the stop (assignments). Returns launches by name and
-    "name:form"."""
-    rows, info = _famm_runs(workdir, record=False)
-    launches = {}
+    report and at the stop (assignments), the -fastqueue run's last
+    assignments and community files held to the plain version's. Returns
+    (launches by name and "name:form", {row name: (launches a unit, the
+    unit)})."""
+    last, undo = _keep_assignments()
+    try:
+        rows, info = _famm_runs(workdir, record=False)
+    finally:
+        undo()
+    launches, per_unit = {}, {}
     steps = FAMM_STEPS + 1
     for label in ("famm", "famm-fq"):
         out, secs, counted, forms = info[label]
@@ -4249,11 +4342,21 @@ def phase6_cli(workdir):
             assert forms["phi_fixed_point:fastamm"] == steps, forms
             assert counted["heldout_sums"] >= reports, counted
             assert counted["edge_assignments"] == reports + 1, counted
+            assert not counted["sparse_fastamm_stats"], counted
+            assert not counted["union_scores"], counted
+            per_unit["phi_fixed_point:fastamm"] = (
+                forms["phi_fixed_point:fastamm"] / steps, "FastAMM step")
         else:
             assert forms["sparse_fastamm_stats:f32"] == steps, forms
             assert forms["union_scores:assign"] == reports + 1, forms
             assert forms["union_scores:scores"] >= reports, forms
             assert not counted["phi_fixed_point"], counted
+            per_unit["sparse_fastamm_stats"] = (
+                counted["sparse_fastamm_stats"] / steps, "FastAMM step")
+            for form in ("scores", "assign"):
+                per_unit[f"union_scores:{form}"] = (
+                    forms[f"union_scores:{form}"] / reports,
+                    "FastAMM report")
         assert counted["dirichlet_expectation"] >= steps, counted
         for name, v in {**counted, **forms}.items():
             launches[name] = launches.get(name, 0) + v
@@ -4283,7 +4386,8 @@ def phase6_cli(workdir):
         f"-resume'd: rows to the cut the uninterrupted run's bit for bit, "
         f"the resumed rows {len(after) - len(before)} within "
         f"{MMSB_ROW_RTOL:g} of the CPU port's resumed run")
-    return launches
+    phase6_link_communities(info["famm-fq"][0], last)
+    return launches, per_unit
 
 
 def _sparse_state(dev, gen, n, k, w):
@@ -4502,7 +4606,7 @@ def _assign_ties(ids, vals, rest, lam, edges, k, cid_k, cid_p, mx_p):
 def phase6_scores(dev):
     """Kernel 11 in both forms against its plain version: the scores of
     held-out pairs at SCORE_SHAPES, the assignments of stretch's links at
-    SPARSE_STRETCH (1e-4; a community apart only within ASSIGN_TIE), two
+    ASSIGN_SHAPES (1e-4; a community apart only within ASSIGN_TIE), two
     launches bitwise equal. Returns the reports of the scores at n=1M,
     K=8,000, W=16 and of the assignments."""
     from svinet_torch.ops.sparse_gamma import (
@@ -4546,48 +4650,65 @@ def phase6_scores(dev):
         if (n, k, wt) == (1_000_000, 8_000, 16):
             reports["scores"] = dict(_report(err, ms, plain_ms, bnd),
                                      floor_ms=floor)
+        if k == 100:
+            # no pair at all: both forms return empty outputs
+            none = pairs[:0]
+            for got in (sparse_pair_scores(ids, vals, rest, lam, none, k),
+                        sparse_edge_assignments(ids, vals, rest, lam, none,
+                                                k)):
+                assert all(t.shape == (0,) for t in got), got
         del ids, vals, rest
         torch.cuda.empty_cache()
-    n, k, wt = SPARSE_STRETCH
-    ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
-    lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
-    edges = torch.as_tensor(random_edges(n, STRETCH["n_edges"], 0),
-                            device=dev)
-    e = edges.shape[0]
+    all_edges = torch.as_tensor(random_edges(STRETCH["n"],
+                                             STRETCH["n_edges"], 0),
+                                device=dev)
+    for n, k, wt, n_links in ASSIGN_SHAPES:
+        ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
+        lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
+        edges = all_edges[:n_links]
+        e = edges.shape[0]
+        # the plain version's chunk: its (links, 2W, W) match tensors
+        # within a few GB
+        chunk = (1 << 28) // (2 * wt * wt)
 
-    def run():
-        return sparse_edge_assignments(ids, vals, rest, lam, edges, k)
+        def run():
+            return sparse_edge_assignments(ids, vals, rest, lam, edges, k)
 
-    def plain():
-        eb = dirichlet_expectation(lam)
-        cs, ms_ = [], []
-        for lo in range(0, e, 1 << 20):
-            c, v = _union_scores_plain(ids, vals, rest, eb,
-                                       edges[lo:lo + (1 << 20)], k, True)
-            cs.append(c)
-            ms_.append(v)
-        return torch.cat(cs), torch.cat(ms_)
+        def plain():
+            eb = dirichlet_expectation(lam)
+            cs, ms_ = [], []
+            for lo in range(0, e, chunk):
+                c, v = _union_scores_plain(ids, vals, rest, eb,
+                                           edges[lo:lo + chunk], k, True)
+                cs.append(c)
+                ms_.append(v)
+            return torch.cat(cs), torch.cat(ms_)
 
-    c_k, m_k = run()
-    c_2, m_2 = run()
-    torch.cuda.synchronize()
-    assert torch.equal(c_k, c_2) and torch.equal(m_k, m_2)
-    c_p, m_p = plain()
-    differ = _assign_ties(ids, vals, rest, lam, edges, k, c_k, c_p, m_p)
-    same = c_k == c_p
-    err = float(((m_k - m_p).abs() / m_p.abs())[same].max())
-    assert err <= FP_TOL, err
-    ms = cuda_ms(run, 5)
-    plain_ms = cuda_ms(plain, 1)
-    bnd = score_bound(e, wt, 8)
-    floor = score_floor_ms(e, wt, 8)
-    log(f"phase 6: union_scores (assignments) on stretch's {e} links at "
-        f"n={n} K={k} W={wt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(in chunks of 2^20 links), bound {bnd[0]:.3f} ms, floor "
-        f"{floor:.3f} ms ({floor / ms:.0%} of it); largest phi within "
-        f"{err:.3e}, {differ} links on another community within a tie of "
-        f"{ASSIGN_TIE:g}; two launches bitwise equal")
-    reports["assign"] = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
+        c_k, m_k = run()
+        c_2, m_2 = run()
+        torch.cuda.synchronize()
+        assert torch.equal(c_k, c_2) and torch.equal(m_k, m_2)
+        c_p, m_p = plain()
+        differ = _assign_ties(ids, vals, rest, lam, edges, k, c_k, c_p, m_p)
+        same = c_k == c_p
+        err = float(((m_k - m_p).abs() / m_p.abs())[same].max())
+        assert err <= FP_TOL, (n, k, wt, err)
+        ms = cuda_ms(run, 5)
+        plain_ms = cuda_ms(plain, 1)
+        bnd = score_bound(e, wt, 8)
+        floor = score_floor_ms(e, wt, 8)
+        log(f"phase 6: union_scores (assignments) on {e} of stretch's links "
+            f"at n={n} K={k} W={wt}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms (in chunks of {chunk} links), bound "
+            f"{bnd[0]:.3f} ms, floor {floor:.3f} ms ({floor / ms:.0%} of "
+            f"it); largest phi within {err:.3e}, {differ} links on another "
+            f"community within a tie of {ASSIGN_TIE:g}; two launches "
+            f"bitwise equal")
+        if (n, k, wt) == SPARSE_STRETCH:
+            reports["assign"] = dict(_report(err, ms, plain_ms, bnd),
+                                     floor_ms=floor)
+        del ids, vals, rest, c_k, c_2, c_p, m_k, m_2, m_p
+        torch.cuda.empty_cache()
     return reports
 
 
@@ -4668,17 +4789,17 @@ def phase6(dev, workdir):
     """FastAMM: kernel 8's FastAMM form, kernels 10 and 11 against their
     plain versions, the CLI runs on planted-20k, the step's times on a
     stretch-shaped state. Returns (launches by name and form, {row name:
-    report})."""
+    (launches a unit, the unit)}, {row name: report})."""
     t0 = time.perf_counter()
     reports = {"phi_fixed_point:fastamm": phase6_fp(dev),
                "sparse_fastamm_stats": phase6_sparse(dev)}
     scores = phase6_scores(dev)
     reports["union_scores:scores"] = scores["scores"]
     reports["union_scores:assign"] = scores["assign"]
-    launches = phase6_cli(workdir)
+    launches, per_unit = phase6_cli(workdir)
     phase6_steps(dev)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
-    return launches, reports
+    return launches, per_unit, reports
 
 
 def main() -> int:
@@ -4733,26 +4854,31 @@ def main() -> int:
                                                             stretch)
             del stretch
             torch.cuda.empty_cache()
-            p6_launches, p6_reports = phase6(dev, workdir)
+            p6_launches, p6_per_unit, p6_reports = phase6(dev, workdir)
         finally:
             os.chdir(cwd)
     # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
     # ELBO form one a -logl report
     launches["phi_fixed_point"] = mmsb["phi_fixed_point"]
     launches["phi_fixed_point:elbo"] = mmsb["phi_fixed_point:elbo"]
+    # what launches_per_sweep counts over: a link-sampling sweep unless
+    # named here
+    unit = {"phi_fixed_point": "MMSBInfer step",
+            "phi_fixed_point:elbo": "MMSBInfer step",
+            "phi_fixed_point:b512": "FastAMM2 step"}
     per_sweep["phi_fixed_point"] = 1.0
     per_sweep["phi_fixed_point:elbo"] = 1.0     # -batch -logl: a report a step
     # kernel 8 at FastAMM2's block of 512 pairs: phase 5's single-card run,
     # one launch a step
     launches["phi_fixed_point:b512"] = fa_launches
     per_sweep["phi_fixed_point:b512"] = 1.0
-    # FastAMM from phase 6's CLI runs: kernel 8's FastAMM form a dense
-    # step, kernel 10 a -fastqueue step, kernel 11's scores a held-out set
-    # of a report and its assignments a report (and at the stop)
-    for name in ("phi_fixed_point:fastamm", "sparse_fastamm_stats",
-                 "union_scores:scores", "union_scores:assign"):
+    # FastAMM from phase 6's CLI runs, counted over their steps (kernel 8's
+    # FastAMM form, kernel 10) or their reports (kernel 11's held-out sets
+    # and its assignments, the stop's among them)
+    for name, (per, what) in p6_per_unit.items():
         launches[name] = p6_launches.get(name, 0)
-        per_sweep[name] = 1.0
+        per_sweep[name] = per
+        unit[name] = what
     # launches, and launches_per_sweep (the count over the sweeps that run
     # made): kernels 1 to 4 from the default-flags CLI run of phase 2,
     # kernel 5 from its -fuse-s3 run, kernel 7 and the top-W form from its
@@ -4847,6 +4973,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          "launches_per_sweep": per_sweep[name],
+         "launches_per": unit.get(name, "link-sampling sweep"),
          "mesh_launches": mesh_launches.get(name, 0),
          "phase5_launches": p5_launches.get(name, 0), **report,
          "library_ms": None}

@@ -26,10 +26,11 @@
 // runs again, for exactly R rounds, the pairs whose phis came after more
 // than R. Then two passes without atomics: gamma_hat's rows, a block a
 // touched row (or a segment of a hub's list), each adding w phi of the
-// row's pair ends in slot order into a K-wide row in shared memory; and
+// row's pair ends in slot order into a row in shared memory; and
 // lambda_hat, a block a chunk of pairs adding w phi1 phi2 into its own
-// (2, K) rows in pair order, the chunks added in chunk order. Two launches
-// give the same bits.
+// (2, K) rows in pair order, the chunks added in chunk order. Both hold
+// at most kTileCols columns a block, a wider K taking a grid row a tile,
+// so that any K runs. Two launches give the same bits.
 //
 // What bounds it on an H100: a pair reads 2W ids and values of each end
 // and runs a few rounds of 4W exponentials; at B = 256 pairs the step is
@@ -49,6 +50,10 @@ namespace {
 
 constexpr int kPairThreads = 128;
 constexpr int kRowThreads = 128;
+// columns of gamma_hat and lambda_hat a block of the sum passes holds in
+// shared memory (32 KB and 64 KB): a wider K takes more tiles, a grid row
+// each, so that K has no limit
+constexpr int kTileCols = 8192;
 
 struct SparseArgs {
   const int32_t* ids;      // (n, W)
@@ -280,9 +285,11 @@ sparse_pair_kernel(const SparseArgs a) {
 
 // gamma_hat's rows: work item `item` (a touched row, or a segment of a
 // hub row's list) adds w phi of each of its pair ends, in slot order, into
-// a K-wide row in shared memory and writes it to out[p] (or to its
-// segment's scratch row); a pair's live slots are distinct communities,
-// so the block's threads add a pair's slots at once.
+// a row of columns [c0, c0 + kt) in shared memory (c0 = blockIdx.y
+// kTileCols) and writes it to out[p] (or to its segment's scratch row); a
+// pair's live slots are distinct communities, so the block's threads add
+// a pair's slots at once. Each column takes its adds in the same order
+// whatever the tiling, so the bits do not depend on it.
 __global__ void __launch_bounds__(kRowThreads)
 gacc_rows_kernel(const svt::AdjItems items, const float* __restrict__ staged,
                  const int32_t* __restrict__ slots,
@@ -290,11 +297,13 @@ gacc_rows_kernel(const svt::AdjItems items, const float* __restrict__ staged,
                  float* __restrict__ out) {
   extern __shared__ float acc[];
   const bool seg = items.seg_node != nullptr;
+  const int c0 = blockIdx.y * kTileCols;
+  const int kt = k - c0 < kTileCols ? k - c0 : kTileCols;
   for (int64_t item = blockIdx.x; item < items.n_items; item += gridDim.x) {
     int64_t p;
     int begin, end;
     if (!svt::adj_item(items, item, &p, &begin, &end)) continue;
-    for (int c = threadIdx.x; c < k; c += blockDim.x) acc[c] = 0.0f;
+    for (int c = threadIdx.x; c < kt; c += blockDim.x) acc[c] = 0.0f;
     __syncthreads();
     for (int j = begin; j < end; ++j) {
       const int64_t slot = items.nbr[j];
@@ -303,20 +312,21 @@ gacc_rows_kernel(const svt::AdjItems items, const float* __restrict__ staged,
       if (ws == 0.0f) continue;
       const float* phi = staged + slot * slots_n;
       for (int l = threadIdx.x; l < slots_n; l += blockDim.x) {
-        const int c = slots[i * slots_n + l];
-        if (c >= 0) acc[c] += __fmul_rn(ws, phi[l]);
+        const int c = slots[i * slots_n + l] - c0;
+        if (c >= 0 && c < kt) acc[c] += __fmul_rn(ws, phi[l]);
       }
       __syncthreads();
     }
-    float* dst = out + (seg ? item : p) * k;
-    for (int c = threadIdx.x; c < k; c += blockDim.x) dst[c] = acc[c];
+    float* dst = out + (seg ? item : p) * k + c0;
+    for (int c = threadIdx.x; c < kt; c += blockDim.x) dst[c] = acc[c];
     __syncthreads();
   }
 }
 
 // lambda_hat's partial rows: block b adds w phi1 phi2 of pairs [b chunk,
-// (b + 1) chunk), in pair order, into its (2, K) rows (links, then
-// nonlinks) in shared memory, written to partial row b (2K values).
+// (b + 1) chunk), in pair order, into its rows of links and of nonlinks
+// over columns [c0, c0 + kt) in shared memory, written to partial row b
+// (2K values: the link row, then the nonlink row).
 __global__ void __launch_bounds__(kRowThreads)
 lam_chunks_kernel(const float* __restrict__ staged,
                   const int32_t* __restrict__ slots,
@@ -324,24 +334,30 @@ lam_chunks_kernel(const float* __restrict__ staged,
                   int64_t n_pairs, int chunk, int slots_n, int k,
                   float* __restrict__ partial) {
   extern __shared__ float acc[];
-  for (int c = threadIdx.x; c < 2 * k; c += blockDim.x) acc[c] = 0.0f;
+  const int c0 = blockIdx.y * kTileCols;
+  const int kt = k - c0 < kTileCols ? k - c0 : kTileCols;
+  for (int c = threadIdx.x; c < 2 * kt; c += blockDim.x) acc[c] = 0.0f;
   __syncthreads();
   const int64_t lo = static_cast<int64_t>(blockIdx.x) * chunk;
   const int64_t hi = lo + chunk < n_pairs ? lo + chunk : n_pairs;
   for (int64_t i = lo; i < hi; ++i) {
     const float ws = w[i];
     if (ws == 0.0f) continue;
-    float* row = acc + (y[i] == 1 ? 0 : k);
+    float* row = acc + (y[i] == 1 ? 0 : kt);
     const float* p1 = staged + 2 * i * slots_n;
     const float* p2 = p1 + slots_n;
     for (int l = threadIdx.x; l < slots_n; l += blockDim.x) {
-      const int c = slots[i * slots_n + l];
-      if (c >= 0) row[c] += __fmul_rn(__fmul_rn(p1[l], p2[l]), ws);
+      const int c = slots[i * slots_n + l] - c0;
+      if (c >= 0 && c < kt)
+        row[c] += __fmul_rn(__fmul_rn(p1[l], p2[l]), ws);
     }
     __syncthreads();
   }
-  float* dst = partial + static_cast<int64_t>(blockIdx.x) * 2 * k;
-  for (int c = threadIdx.x; c < 2 * k; c += blockDim.x) dst[c] = acc[c];
+  float* dst = partial + static_cast<int64_t>(blockIdx.x) * 2 * k + c0;
+  for (int c = threadIdx.x; c < kt; c += blockDim.x) {
+    dst[c] = acc[c];
+    dst[k + c] = acc[kt + c];
+  }
 }
 
 using PairKernel = void (*)(SparseArgs);
@@ -418,7 +434,8 @@ extern "C" int svt_sparse_fastamm(
                      stop,       block_rounds,   rounds,    n_pairs,
                      k,          w_top, max_iters, words,   pad,
                      log_eps,    thresh};
-  const size_t row_bytes = sizeof(float) * k;
+  const int tiles = (k + kTileCols - 1) / kTileCols;
+  const size_t row_bytes = sizeof(float) * (k < kTileCols ? k : kTileCols);
   cudaError_t err = allow_smem(
       reinterpret_cast<const void*>(gacc_rows_kernel), row_bytes);
   if (err == cudaSuccess)
@@ -439,14 +456,13 @@ extern "C" int svt_sparse_fastamm(
         masks, words, n_pairs, block, pad, max_iters, block_rounds, 1);
     pair_kernel(g, ns, true)<<<static_cast<unsigned>(blocks), kPairThreads,
                                staged_bytes, stream>>>(a);
-    lam_chunks_kernel<<<static_cast<unsigned>(chunks), kRowThreads,
-                        2 * row_bytes, stream>>>(staged, slots, y, w,
-                                                 n_pairs, chunk, slots_n, k,
-                                                 lam_partial);
+    const dim3 grid(static_cast<unsigned>(chunks), tiles);
+    lam_chunks_kernel<<<grid, kRowThreads, 2 * row_bytes, stream>>>(
+        staged, slots, y, w, n_pairs, chunk, slots_n, k, lam_partial);
     svt::launch_colsum_partials(lam_partial, static_cast<int>(chunks),
                                 2 * k, 2 * k, lam_sums, stream);
   } else {
-    cudaMemsetAsync(lam_sums, 0, 2 * row_bytes, stream);
+    cudaMemsetAsync(lam_sums, 0, sizeof(float) * 2 * k, stream);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -455,15 +471,18 @@ extern "C" int svt_sparse_fastamm(
   const int64_t cap = int64_t{8} * svt::sm_count();
   const svt::AdjItems nodes{rowptr, nbr, nullptr, nullptr, nullptr, n_rows,
                             seg_len};
-  if (n_rows > 0)
-    gacc_rows_kernel<<<static_cast<unsigned>(n_rows < cap ? n_rows : cap),
-                       kRowThreads, row_bytes, stream>>>(
+  if (n_rows > 0) {
+    const dim3 grid(static_cast<unsigned>(n_rows < cap ? n_rows : cap),
+                    tiles);
+    gacc_rows_kernel<<<grid, kRowThreads, row_bytes, stream>>>(
         nodes, staged, slots, w, slots_n, k, gacc);
+  }
   if (n_segs > 0) {
     const svt::AdjItems segs{rowptr,  nbr,    seg_node, seg_begin,
                              seg_end, n_segs, seg_len};
-    gacc_rows_kernel<<<static_cast<unsigned>(n_segs < cap ? n_segs : cap),
-                       kRowThreads, row_bytes, stream>>>(
+    const dim3 grid(static_cast<unsigned>(n_segs < cap ? n_segs : cap),
+                    tiles);
+    gacc_rows_kernel<<<grid, kRowThreads, row_bytes, stream>>>(
         segs, staged, slots, w, slots_n, k, seg_partial);
     svt::launch_combine_segments(seg_partial, hub_node, hub_segptr, gacc,
                                  n_hubs, k, stream);

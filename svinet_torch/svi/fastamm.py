@@ -42,7 +42,7 @@ from svinet_torch.ops.edges import Adjacency, owner_csr
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.phicomp import NodeUpdate, phi_fixed_point
 from svinet_torch.ops.sparse_gamma import (
-    densify, sparse_edge_assignments, sparse_fastamm_step,
+    MAX_W, densify, sparse_edge_assignments, sparse_fastamm_step,
     sparse_pair_scores)
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.mmsb import init_gamma_random
@@ -175,6 +175,34 @@ def fastamm_step(gamma, lam, rows, pairs, y, w, rho, alpha: float, eta,
     return lam
 
 
+def link_communities(path, tl: np.ndarray, cids: np.ndarray,
+                     mx: np.ndarray, k: int, link_thresh: float,
+                     lt_min_deg: int, seq2id: np.ndarray) -> dict:
+    """The sparse state's communities from each training link's community
+    `cids` and its phi `mx`: a link above link_thresh counts for both
+    ends, a (node, community) key counted more than lt_min_deg times is a
+    membership. Writes communities.txt, mcount.txt and aggregate.txt at
+    path(name); returns {community: [nodes]}."""
+    sel = mx > link_thresh
+    nodes = np.concatenate([tl[sel, 0], tl[sel, 1]]).astype(np.int64)
+    cs = np.concatenate([cids[sel], cids[sel]]).astype(np.int64)
+    keys, counts = np.unique(nodes * k + cs, return_counts=True)
+    keep = counts > lt_min_deg
+    comms: dict = {}
+    for key in keys[keep]:
+        comms.setdefault(int(key % k), []).append(int(key // k))
+    write_communities(path("communities.txt"), comms, seq2id)
+    m_nodes, m_counts = np.unique(keys[keep] // k, return_counts=True)
+    with open(path("mcount.txt"), "w") as f:
+        for node, c in zip(m_nodes, m_counts):
+            f.write(f"{int(node)}\t{int(seq2id[int(node)])}\t{int(c)}\n")
+    with open(path("aggregate.txt"), "w") as f:
+        vs, cc = np.unique(m_counts, return_counts=True)
+        for v, c in zip(vs, cc):
+            f.write(f"{int(v)}\t{int(c)}\n")
+    return comms
+
+
 class FastAMM(EngineBase):
     """The engine on the host (a -preprocess run's neighbors.bin, or the
     sets computed inline)."""
@@ -185,6 +213,11 @@ class FastAMM(EngineBase):
     defer_report_hooks = True
 
     def __init__(self, cfg: Config, network: Network, device: torch.device):
+        if device.type == "cuda" and cfg.fastqueue_width > MAX_W:
+            # before anything is built: the card's kernels hold a pair's 2W
+            # slots at most 4 a lane of a warp
+            raise SystemExit(f"-fastqueue {cfg.fastqueue_width}: on the GPU "
+                             f"the width must be <= {MAX_W}")
         super().__init__(cfg, network, device)
         n, k = self.n, self.k
         if network.sparse_zeros_ptr is None:
@@ -362,8 +395,8 @@ class FastAMM(EngineBase):
 
     def log_communities(self) -> None:
         """On the sparse state: each training link's community from
-        kernel 11, the memberships counted by sorted (node, community)
-        keys (svinet_tpu/svi/fastamm.py:357-404)."""
+        kernel 11, then the files of link_communities
+        (svinet_tpu/svi/fastamm.py:357-404)."""
         if not self._W:
             return super().log_communities()
         cfg = self.cfg
@@ -371,29 +404,9 @@ class FastAMM(EngineBase):
         cids, mx = sparse_edge_assignments(
             self.ids, self.vals, self.rest, self.lam,
             self._device_pairs(tl.astype(np.int32)), self.k)
-        cids, mx = cids.cpu().numpy(), mx.cpu().numpy()
-        sel = mx > cfg.link_thresh
-        nodes = np.concatenate([tl[sel, 0], tl[sel, 1]]).astype(np.int64)
-        cs = np.concatenate([cids[sel], cids[sel]]).astype(np.int64)
-        keys, counts = np.unique(nodes * self.k + cs, return_counts=True)
-        keep = counts > cfg.lt_min_deg
-        comms: dict = {}
-        for key in keys[keep]:
-            comms.setdefault(int(key % self.k), []).append(
-                int(key // self.k))
-        self._communities = comms
-        write_communities(cfg.file_str("communities.txt"), comms,
-                          self.network.seq2id)
-        m_nodes, m_counts = np.unique(keys[keep] // self.k,
-                                      return_counts=True)
-        with open(cfg.file_str("mcount.txt"), "w") as f:
-            for node, c in zip(m_nodes, m_counts):
-                f.write(f"{int(node)}\t"
-                        f"{int(self.network.seq2id[int(node)])}\t{int(c)}\n")
-        with open(cfg.file_str("aggregate.txt"), "w") as f:
-            vs, cc = np.unique(m_counts, return_counts=True)
-            for v, c in zip(vs, cc):
-                f.write(f"{int(v)}\t{int(c)}\n")
+        self._communities = link_communities(
+            cfg.file_str, tl, cids.cpu().numpy(), mx.cpu().numpy(), self.k,
+            cfg.link_thresh, cfg.lt_min_deg, self.network.seq2id)
         if self._mutual is not None:
             from svinet_torch.evals.nmi import (overlapping_nmi,
                                                 read_cover_file)

@@ -354,6 +354,15 @@ def test_cli_fastamm_resume_continues_the_counters(planted, tmp_path,
     _held_to_jax(out["torch"], out["jax"])
 
 
+def test_gpu_width_refused_before_the_engine_is_built():
+    """-fastqueue W above the card kernels' widest exits on a CUDA device
+    naming the limit, before any state is drawn or copied."""
+    cfg = parse_args(["-file", "x", "-n", "10", "-k", "100", "-infset",
+                      "-fastqueue", str(sg.MAX_W + 1)])
+    with pytest.raises(SystemExit, match=f"<= {sg.MAX_W}"):
+        fastamm.FastAMM(cfg, None, torch.device("cuda"))
+
+
 def test_cli_infset_mesh_runs_one_process(planted, tmp_path, monkeypatch):
     """-infset -mesh 2 runs FastAMM on one device in one process, as the
     JAX CLI does (svinet_tpu/cli.py:403-408): no ranks, the files of the
