@@ -1489,6 +1489,8 @@ def _wrappers():
     from svinet_torch.ops.sparse_gamma import (sparse_fastamm_stats,
                                                union_scores)
     from svinet_torch.svi.communities import edge_assignments
+    from svinet_torch.svi.fastinit import overlap_stats, vote_topk
+    from svinet_torch.svi.sbm import estep_chunk
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
         sparse_union_pass)
@@ -1501,7 +1503,9 @@ def _wrappers():
             "heldout_sums": heldout_sums,
             "sparse_union_pass": sparse_union_pass,
             "sparse_fastamm_stats": sparse_fastamm_stats,
-            "union_scores": union_scores}
+            "union_scores": union_scores,
+            "vote_topk": vote_topk, "overlap_stats": overlap_stats,
+            "estep_chunk": estep_chunk}
 
 
 def _zero_counts():
@@ -1944,7 +1948,8 @@ def phase3(dev, workdir):
                     "fused_phi_s3_pass": 0, "heldout_sums": 1,
                     "sparse_union_pass": 0, "phi_fixed_point": 0,
                     "edge_assignments": 0, "sparse_fastamm_stats": 0,
-                    "union_scores": 0}
+                    "union_scores": 0, "vote_topk": 0, "overlap_stats": 0,
+                    "estep_chunk": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     _zero_counts()
@@ -2718,11 +2723,12 @@ def _mmsb_runs(workdir, record):
     return rows, info
 
 
-def record_cpu(which=("mmsb", "fa", "famm")) -> int:
-    """--record-cpu [mmsb|fa|famm]: run phase 2's MMSBInfer runs, phase 5's
-    FastAMM2 run and phase 6's FastAMM runs on the CPU (the plain
-    versions) and print the rows MMSB_CPU_ROWS, FA_CPU_ROWS and
-    FAMM_CPU_ROWS hold."""
+def record_cpu(which=("mmsb", "fa", "famm", "fk", "sbm")) -> int:
+    """--record-cpu [mmsb|fa|famm|fk|sbm]: run phase 2's MMSBInfer runs,
+    phase 5's FastAMM2 run, phase 6's FastAMM runs and phase 7's FastInit
+    and SBM runs on the CPU (the plain versions) and print the rows
+    MMSB_CPU_ROWS, FA_CPU_ROWS, FAMM_CPU_ROWS, FK_CPU and SBM_CPU_ROWS
+    hold."""
     os.environ["SVINET_TORCH_DEVICE"] = "cpu"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2738,6 +2744,11 @@ def record_cpu(which=("mmsb", "fa", "famm")) -> int:
                 rows, _ = _famm_runs(workdir, record=True)
                 print("FAMM_CPU_ROWS = " + json.dumps(
                     {k: v for k, v in rows.items() if "before" not in k}))
+            if "fk" in which or "sbm" in which:
+                rows, _ = _p7_runs(workdir, record=True)
+                print("FK_CPU = " + json.dumps(rows["fk"]))
+                print("SBM_CPU_ROWS = " + json.dumps(
+                    {k: rows[k] for k in ("sbm", "sbmi")}))
         finally:
             os.chdir(cwd)
     return 0
@@ -4802,9 +4813,802 @@ def phase6(dev, workdir):
     return launches, per_unit, reports
 
 
+# ---------------------------------------------------------------------
+# Phase 7: FastInit (-findk) and SBM (-single, batch and -infset).
+
+# The CLI runs on planted-20k, each held to the CPU port's
+# (`python3 chip_smoke.py --record-cpu fk sbm` prints FK_CPU and
+# SBM_CPU_ROWS): -findk's heldout.txt rows at FK_ROW_RTOL and its files
+# (sha256 of each) byte for byte, unless a link's normalized overlap lies
+# within FK_THRESH_TIE of link_thresh on the card's final state (a pair
+# sharing two ids of equal products sits at 0.5 exactly, and the sums'
+# order moves such links across it), where kernel 13 and the plain version
+# may select only such links apart; the SBM
+# runs' rows at MMSB_ROW_RTOL. The batch run is also cut after the report
+# of SBM_CUT and -resume'd: no draw follows the init, so the resumed run
+# writes the uninterrupted run's rows bit for bit.
+FK_FLAGS = ["-findk"]
+SBM_FLAGS = ["-single", "-max-iterations", "60", "-no-stop"]
+SBMI_STEPS = 3000
+SBMI_FLAGS = ["-single", "-infset", "-max-iterations", str(SBMI_STEPS),
+              "-rfreq", "500", "-no-stop"]
+SBM_CUT = 30
+FK_ROW_RTOL = 1e-5
+FK_THRESH_TIE = 1e-5
+FK_FILES = ("communities.txt", "communities_size.txt", "groups.txt",
+            "mutual.txt")
+FK_CPU = {'heldout': [[1, -25.562826157, -5.9815e-05, -51.125591278, -5.9755e-05,
+                       -0.05061431, -0.050674065],
+                      [2, -6.074268818, -0.000638128, -12.147899628, -0.000637496,
+                       -0.012026415, -0.012663911],
+                      [3, -3.644290447, -0.002591767, -7.285989761, -0.002589201,
+                       -0.007213126, -0.009802327],
+                      [4, -2.725623846, -0.011001419, -5.440246105, -0.010990528,
+                       -0.005385841, -0.016376369],
+                      [5, -2.028622627, -0.050470371, -4.006774902, -0.050420405,
+                       -0.003966705, -0.05438711]],
+          'validation': [[1, -25.10943, -5e-05, -50.21882],
+                         [2, -5.98505, -0.00057, -11.96953],
+                         [3, -3.41126, -0.00239, -6.82013]],
+          'files': {'communities.txt': '5c81bbc8de484cf596392a85030619fa1b35c2bcf652e966f259a42c01a9ee76',
+                    'communities_size.txt': 'fedc24dc4560e730abfff1ec3ffd26da19e86538b0485cc0fd5a0eee5731b0f1',
+                    'groups.txt': '4e07b6e021605b4630d958f99f68fc8f270c2d69cb7c19788a7d26bb7bd4a138',
+                    'mutual.txt': '45e6b680cb10fe00f8b450a9183a2ad641386e033c89d3e201f614143544a8e3'}}
+SBM_CPU_ROWS = {'sbm': {'heldout': [[1, -3.462412959, -0.000984786, -6.923840962,
+                                     -0.000983811, -0.006854599, -0.00783841],
+                                    [2, -3.461848399, -0.000985663, -6.922711348,
+                                     -0.000984688, -0.006853481, -0.007838168],
+                                    [3, -3.461846424, -0.000985641, -6.922707399,
+                                     -0.000984665, -0.006853477, -0.007838142],
+                                    [4, -3.461846424, -0.00098565, -6.922707399,
+                                     -0.000984674, -0.006853477, -0.007838151],
+                                    [5, -3.461846424, -0.000985659, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816],
+                                    [6, -3.461846424, -0.000985661, -6.922707399,
+                                     -0.000984685, -0.006853477, -0.007838162],
+                                    [7, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984682, -0.006853477, -0.007838159],
+                                    [8, -3.461846424, -0.000985661, -6.922707399,
+                                     -0.000984685, -0.006853477, -0.007838162],
+                                    [9, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984682, -0.006853477, -0.007838159],
+                                    [10, -3.461846424, -0.000985655, -6.922707399,
+                                     -0.000984679, -0.006853477, -0.007838156],
+                                    [11, -3.461846424, -0.000985661, -6.922707399,
+                                     -0.000984685, -0.006853477, -0.007838162],
+                                    [12, -3.461846424, -0.000985663, -6.922707399,
+                                     -0.000984687, -0.006853477, -0.007838164],
+                                    [13, -3.461846424, -0.00098566, -6.922707399,
+                                     -0.000984684, -0.006853477, -0.007838161],
+                                    [14, -3.461846424, -0.000985664, -6.922707399,
+                                     -0.000984689, -0.006853477, -0.007838166],
+                                    [15, -3.461846424, -0.000985661, -6.922707399,
+                                     -0.000984685, -0.006853477, -0.007838162],
+                                    [16, -3.461846424, -0.000985659, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816],
+                                    [17, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.007838159],
+                                    [18, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984682, -0.006853477, -0.007838159],
+                                    [19, -3.461846424, -0.00098566, -6.922707399,
+                                     -0.000984684, -0.006853477, -0.007838161],
+                                    [20, -3.461846424, -0.000985662, -6.922707399,
+                                     -0.000984686, -0.006853477, -0.007838163],
+                                    [21, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.007838159],
+                                    [22, -3.461846424, -0.000985655, -6.922707399,
+                                     -0.000984679, -0.006853477, -0.007838156],
+                                    [23, -3.461846424, -0.000985664, -6.922707399,
+                                     -0.000984688, -0.006853477, -0.007838165],
+                                    [24, -3.461846424, -0.000985664, -6.922707399,
+                                     -0.000984688, -0.006853477, -0.007838165],
+                                    [25, -3.461846424, -0.000985662, -6.922707399,
+                                     -0.000984686, -0.006853477, -0.007838163],
+                                    [26, -3.461846424, -0.000985666, -6.922707399,
+                                     -0.00098469, -0.006853477, -0.007838167],
+                                    [27, -3.461846424, -0.000985683, -6.922707399,
+                                     -0.000984707, -0.006853477, -0.007838184],
+                                    [28, -3.461846424, -0.000985688, -6.922707399,
+                                     -0.000984712, -0.006853477, -0.007838189],
+                                    [29, -3.461846424, -0.000985645, -6.922707399,
+                                     -0.000984669, -0.006853477, -0.007838146],
+                                    [30, -3.461846424, -0.000985646, -6.922707399,
+                                     -0.00098467, -0.006853477, -0.007838147],
+                                    [31, -3.461846424, -0.000985643, -6.922707399,
+                                     -0.000984667, -0.006853477, -0.007838144],
+                                    [32, -3.461846424, -0.000985647, -6.922707399,
+                                     -0.000984671, -0.006853477, -0.007838148],
+                                    [33, -3.461846424, -0.000985642, -6.922707399,
+                                     -0.000984666, -0.006853477, -0.007838143],
+                                    [34, -3.461846424, -0.000985646, -6.922707399,
+                                     -0.00098467, -0.006853477, -0.007838147],
+                                    [35, -3.461846424, -0.000985654, -6.922707399,
+                                     -0.000984678, -0.006853477, -0.007838155],
+                                    [36, -3.461846424, -0.000985668, -6.922707399,
+                                     -0.000984692, -0.006853477, -0.007838169],
+                                    [37, -3.461846424, -0.000985681, -6.922707399,
+                                     -0.000984705, -0.006853477, -0.007838182],
+                                    [38, -3.461846424, -0.000985679, -6.922707399,
+                                     -0.000984704, -0.006853477, -0.007838181],
+                                    [39, -3.461846424, -0.000985674, -6.922707399,
+                                     -0.000984698, -0.006853477, -0.007838175],
+                                    [40, -3.461846424, -0.000985684, -6.922707399,
+                                     -0.000984708, -0.006853477, -0.007838185],
+                                    [41, -3.461846424, -0.000985681, -6.922707399,
+                                     -0.000984705, -0.006853477, -0.007838182],
+                                    [42, -3.461846424, -0.00098568, -6.922707399,
+                                     -0.000984704, -0.006853477, -0.007838181],
+                                    [43, -3.461846424, -0.000985682, -6.922707399,
+                                     -0.000984706, -0.006853477, -0.007838183],
+                                    [44, -3.461846424, -0.000985694, -6.922707399,
+                                     -0.000984718, -0.006853477, -0.007838195],
+                                    [45, -3.461846424, -0.000985643, -6.922707399,
+                                     -0.000984668, -0.006853477, -0.007838144],
+                                    [46, -3.461846424, -0.000985655, -6.922707399,
+                                     -0.00098468, -0.006853477, -0.007838156],
+                                    [47, -3.461846424, -0.000985655, -6.922707399,
+                                     -0.000984679, -0.006853477, -0.007838156],
+                                    [48, -3.461846424, -0.000985657, -6.922707399,
+                                     -0.000984681, -0.006853477, -0.007838158],
+                                    [49, -3.461846424, -0.000985656, -6.922707399,
+                                     -0.00098468, -0.006853477, -0.007838157],
+                                    [50, -3.461846424, -0.000985654, -6.922707399,
+                                     -0.000984678, -0.006853477, -0.007838155],
+                                    [51, -3.461846424, -0.000985654, -6.922707399,
+                                     -0.000984678, -0.006853477, -0.007838155],
+                                    [52, -3.461846424, -0.000985659, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816],
+                                    [53, -3.461846424, -0.000985657, -6.922707399,
+                                     -0.000984681, -0.006853477, -0.007838158],
+                                    [54, -3.461846424, -0.000985656, -6.922707399,
+                                     -0.00098468, -0.006853477, -0.007838157],
+                                    [55, -3.461846424, -0.000985657, -6.922707399,
+                                     -0.000984682, -0.006853477, -0.007838158],
+                                    [56, -3.461846424, -0.000985655, -6.922707399,
+                                     -0.000984679, -0.006853477, -0.007838156],
+                                    [57, -3.461846424, -0.000985657, -6.922707399,
+                                     -0.000984681, -0.006853477, -0.007838158],
+                                    [58, -3.461846424, -0.000985657, -6.922707399,
+                                     -0.000984681, -0.006853477, -0.007838158],
+                                    [59, -3.461846424, -0.000985659, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816],
+                                    [60, -3.461846424, -0.000985659, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816],
+                                    [61, -3.461846424, -0.000985658, -6.922707399,
+                                     -0.000984683, -0.006853477, -0.00783816]]},
+                'sbmi': {'heldout': [[500, -0.596862316, -0.128023639, -1.065701008,
+                                      -0.127896896, -0.001055043, -0.128951939],
+                                     [1000, -2.123086214, -0.002914519, -4.243257999,
+                                      -0.002911634, -0.004200823, -0.007112457],
+                                     [1500, -1.937261701, -0.004191671, -3.870331526,
+                                      -0.004187521, -0.003831626, -0.008019147],
+                                     [2000, -1.82224071, -0.005622388, -3.638859034,
+                                      -0.005616822, -0.003602469, -0.009219291],
+                                     [2500, -2.565008402, -0.001433278, -5.128583431,
+                                      -0.001431859, -0.005077295, -0.006509154],
+                                     [3000, -2.862601757, -0.000857372, -5.724346161,
+                                      -0.000856523, -0.0056671, -0.006523623]]}}
+# kernel 12 on planted-20k's links, stretch's and a graph with a hub of
+# VOTE_HUB links; the labels come from a few values, so counts tie
+VOTE_HUB = 50_000
+# kernel 13 at these widths on made rows, beside stretch's links at 64
+OVERLAP_WIDTHS = (8, 130)
+# kernel 14 on chunk 3 and on a whole E-step: (n, K, held-out pairs)
+ESTEP_SHAPES = ((20_000, 20, 4_000), (1_000_000, 500, 400_000))
+ESTEP_TOL = 1e-4
+
+
+def _clean_links(edges):
+    """A raw edge list as the network keeps it: (lo, hi), no self loop, no
+    repeat."""
+    e = np.sort(np.asarray(edges, np.int64), 1)
+    e = e[e[:, 0] != e[:, 1]]
+    return np.unique(e, axis=0).astype(np.int32)
+
+
+def _planted_links():
+    from svinet_torch.synth import planted_blocks
+    edges, _ = planted_blocks(PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
+                              PLANTED["seed"])
+    return _clean_links(edges)
+
+
+def _hub_links(gen_np):
+    """A random graph of 100,000 nodes and 200,000 links, with node 0
+    linked to VOTE_HUB others."""
+    n = 100_000
+    e = gen_np.integers(0, n, size=(200_000, 2))
+    hub = np.stack([np.zeros(VOTE_HUB, np.int64),
+                    gen_np.choice(np.arange(1, n), VOTE_HUB, replace=False)],
+                   1)
+    return n, _clean_links(np.concatenate([e, hub]))
+
+
+def vote_bound(n, n_entries, width):
+    """Kernel 12's bound (labels, rowptr and the neighbour ids read once,
+    ids and counts written once) and its floor (each label gathered as a
+    32-byte sector)."""
+    base = 4 * n + 4 * (n + 1) + 4 * n_entries + 8 * n * width
+    return (bound(base, 0.0),
+            (base - 4 * n + 32 * n_entries) / PEAK_BYTES_S * 1e3)
+
+
+def phase7_vote(dev, stretch_links):
+    """Kernel 12 bit for bit against its plain version and across two
+    launches: planted-20k's links at width 64 and 8, stretch's at 64, a
+    hub of VOTE_HUB links at 64. Returns stretch's report."""
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.svi.fastinit import vote_plan, vote_topk, vote_topk_plain
+    gen_np = np.random.default_rng(17)
+    hub_n, hub = _hub_links(gen_np)
+    cases = (("planted-20k", PLANTED["n"], _planted_links(), (64, 8), 10),
+             ("stretch", STRETCH["n"], stretch_links, (64,), 1000),
+             (f"a {VOTE_HUB}-link hub", hub_n, hub, (64,), 300))
+    report = None
+    for label, n, links, widths, values in cases:
+        adj = build_adjacency(links, n, dev)
+        plan = vote_plan(adj)
+        labels = torch.as_tensor(gen_np.integers(0, values, n),
+                                 dtype=torch.int32, device=dev)
+        for w in widths:
+            def run():
+                return vote_topk(labels, adj, n, w, plan)
+
+            def plain():
+                return vote_topk_plain(labels, adj, n, w)
+
+            ids_k, cnt_k = run()
+            ids_2, cnt_2 = run()
+            torch.cuda.synchronize()
+            assert torch.equal(ids_k, ids_2) and torch.equal(cnt_k, cnt_2)
+            ids_p, cnt_p = plain()
+            assert torch.equal(ids_k, ids_p), (label, w)
+            assert torch.equal(cnt_k, cnt_p), (label, w)
+            ms = cuda_ms(run, 10)
+            plain_ms = cuda_ms(plain, 2)
+            bnd, floor = vote_bound(n, adj.nbr.shape[0], w)
+            log(f"phase 7: vote_topk on {label} (n={n}, {adj.nbr.shape[0]} "
+                f"votes, {plan.hub_node.shape[0]} hubs) at width {w}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} "
+                f"ms, floor {floor:.4f} ms; bit for bit the plain version's "
+                f"and across two launches")
+            if label == "stretch":
+                report = dict(_report(0.0, ms, plain_ms, bnd), floor_ms=floor)
+        del adj, plan
+        torch.cuda.empty_cache()
+    return report
+
+
+def _made_rows(gen_np, n, w, universe):
+    """(ids, cnt) of n rows of width w: each a random number of real slots
+    (a tenth of the rows none), distinct ids a + j s mod universe (s prime
+    to it), counts descending; the sentinel n and 0 past them."""
+    real = gen_np.integers(0, w + 1, n)
+    real[gen_np.random(n) < 0.1] = 0
+    a = gen_np.integers(0, universe, (n, 1))
+    s = gen_np.choice([x for x in range(1, 64) if np.gcd(x, universe) == 1],
+                      (n, 1))
+    j = np.arange(w)[None, :]
+    ids = ((a + j * s) % universe).astype(np.int32)
+    cnt = -np.sort(-gen_np.integers(1, 50, (n, w)), 1).astype(np.float32)
+    past = j >= real[:, None]
+    ids[past] = n
+    cnt[past] = 0.0
+    return ids, cnt
+
+
+def _overlap_ties(ids, pi, pairs, mid_k, mid_p, mx_p):
+    """The pairs whose card id differs from the plain version's; each must
+    have, at the card's id, a product within 1e-6 of the largest."""
+    bad = torch.nonzero(mid_k != mid_p).flatten()
+    for i in bad.tolist():
+        p, q = (int(v) for v in pairs[i])
+        at_p = torch.nonzero(ids[p] == mid_k[i]).flatten()
+        at_q = torch.nonzero(ids[q] == mid_k[i]).flatten()
+        assert len(at_p) == 1 and len(at_q) == 1, (i, p, q)
+        prod = float(pi[p, at_p[0]] * pi[q, at_q[0]])
+        assert abs(prod - float(mx_p[i])) <= 1e-6 * float(mx_p[i]), (
+            i, prod, float(mx_p[i]))
+    return len(bad)
+
+
+def overlap_bound(n, w, m):
+    """Kernel 13's bound (ids and pi read once, the pairs read and three
+    outputs written) and its floor (each pair's two rows gathered)."""
+    return (bound(8 * n * w + 8 * m + 12 * m, 0.0),
+            (16 * w + 20) * m / PEAK_BYTES_S * 1e3)
+
+
+def phase7_overlap(dev, stretch_links):
+    """Kernel 13 against its plain version (sums and largest products at
+    ESTEP_TOL, ids equal up to ties) and across two launches: stretch's
+    links on a width-64 vote of stretch, made rows at OVERLAP_WIDTHS over
+    planted-20k's links and random pairs. Returns stretch's report."""
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.svi.fastinit import (
+        overlap_stats, overlap_stats_plain, sparse_pi, vote_topk)
+    gen_np = np.random.default_rng(18)
+    n = STRETCH["n"]
+    adj = build_adjacency(stretch_links, n, dev)
+    labels = torch.as_tensor(gen_np.integers(0, 1000, n), dtype=torch.int32,
+                             device=dev)
+    ids, cnt = vote_topk(labels, adj, n, 64)
+    del adj
+    cases = [("stretch's links", ids, cnt,
+              torch.as_tensor(stretch_links, device=dev))]
+    planted = _planted_links()
+    for w in OVERLAP_WIDTHS:
+        m_ids, m_cnt = _made_rows(gen_np, PLANTED["n"], w, 4 * w)
+        rand = gen_np.integers(0, PLANTED["n"], (200_000, 2)).astype(np.int32)
+        cases.append((f"made rows of width {w}",
+                      torch.as_tensor(m_ids, device=dev),
+                      torch.as_tensor(m_cnt, device=dev),
+                      torch.as_tensor(np.concatenate([planted, rand]),
+                                      device=dev)))
+    report = None
+    for label, ids, cnt, pairs in cases:
+        nn, w = ids.shape
+        m = pairs.shape[0]
+        pi = sparse_pi(ids, cnt, 0.01)
+
+        def run():
+            return overlap_stats(ids, pi, pairs)
+
+        def plain():
+            # the plain version's blocks at about 1 GB of (B, w, w) floats
+            return overlap_stats_plain(ids, pi, pairs,
+                                       block=max(64, (1 << 28) // (w * w)))
+
+        s_k, mx_k, mid_k = run()
+        s_2, mx_2, mid_2 = run()
+        torch.cuda.synchronize()
+        assert (torch.equal(s_k, s_2) and torch.equal(mx_k, mx_2)
+                and torch.equal(mid_k, mid_2))
+        s_p, mx_p, mid_p = plain()
+        err = max(_rel_err(s_k, s_p), _rel_err(mx_k, mx_p))
+        assert err <= ESTEP_TOL, (label, err)
+        ties = _overlap_ties(ids, pi, pairs, mid_k, mid_p, mx_p)
+        shared = float((s_p > 0).float().mean())
+        ms = cuda_ms(run, 5)
+        plain_ms = cuda_ms(plain, 1)
+        bnd, floor = overlap_bound(nn, w, m)
+        log(f"phase 7: overlap_stats on {label} (n={nn}, width {w}, {m} "
+            f"pairs, {shared:.1%} sharing an id): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms, floor {floor:.4f} "
+            f"ms; sums within {err:.3e}, {ties} ids apart on a tie within "
+            f"1e-6; two launches bitwise equal")
+        if label == "stretch's links":
+            report = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
+    del cases
+    torch.cuda.empty_cache()
+    return report
+
+
+def _estep_state(dev, gen, n, k, links, m_held):
+    """A random phi (rows near a planted assignment), gamma and an
+    assortative lambda, the CSRs of the links and of m_held random
+    pairs, and what the E-step takes."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.edges import build_adjacency
+    phi = torch.softmax(3.0 * torch.rand((n, k), generator=gen, device=dev),
+                        -1)
+    gamma = 1.0 + 99.0 * torch.rand(k, generator=gen, device=dev)
+    lam = torch.cat([torch.tensor([[9.0, 1.0]], device=dev).repeat(k, 1),
+                     torch.tensor([[1.0, 9.0]], device=dev)])
+    lam = lam * (0.5 + torch.rand((k + 1, 2), generator=gen, device=dev))
+    held = torch.randint(0, n, (m_held, 2), generator=gen, device=dev)
+    held = held[held[:, 0] != held[:, 1]]
+    la = build_adjacency(links, n, dev)
+    ha = build_adjacency(held.cpu().numpy(), n, dev)
+    elogpi = dirichlet_expectation(gamma.reshape(1, k))[0].contiguous()
+    eb = dirichlet_expectation(lam)
+    da = (eb[:k, 0] - eb[k, 0]).contiguous()
+    db = (eb[:k, 1] - eb[k, 1]).contiguous()
+    return phi, elogpi, da, db, la, ha, held.to(torch.int32)
+
+
+def estep_bound(n, k, la, ha):
+    """A chunk's bound (phi read once, the chunk's CSR entries read, its
+    rows written twice: staged, then phi) and floor (each of its rows'
+    neighbours and held-out partners gathered, 4K bytes each)."""
+    entries = (la.nbr.shape[0] + ha.nbr.shape[0]) / 16
+    rows = n / 16
+    base = 4 * n * k + 4 * entries + 2 * 4 * rows * k + 16 * rows
+    return (bound(base, 0.0),
+            (4 * k * entries + 4 * entries + 8 * rows * k) / PEAK_BYTES_S
+            * 1e3)
+
+
+def phase7_estep(dev, stretch_links):
+    """Kernel 14 against its plain version at ESTEP_SHAPES: chunk 3 (the
+    new rows and their changes at ESTEP_TOL, the other rows untouched,
+    two launches bitwise equal) and a whole E-step (the same rounds, phi
+    at ESTEP_TOL). Returns stretch's report."""
+    from svinet_torch.svi.sbm import (
+        N_CHUNKS, chunk_sums, estep_buffers, estep_chunk, estep_chunk_plain,
+        sbm_estep, sbm_estep_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    report = None
+    for n, k, m_held in ESTEP_SHAPES:
+        links = _planted_links() if n == PLANTED["n"] else stretch_links
+        phi, elogpi, da, db, la, ha, _ = _estep_state(dev, gen, n, k,
+                                                      links, m_held)
+        bufs = estep_buffers(n, k, dev)
+        c = 3
+        rows = torch.arange(c, n, N_CHUNKS, device=dev)
+
+        def one(phi_in):
+            chunk_sums(phi_in, bufs)
+            tot = bufs.tot.clone()
+            estep_chunk(phi_in, elogpi, da, db, la, ha, c, bufs)
+            return tot, bufs.staged[:rows.shape[0]].clone(), \
+                bufs.change[rows].clone()
+
+        phi_k = phi.clone()
+        tot, new_k, ch_k = one(phi_k)
+        phi_2 = phi.clone()
+        _, new_2, ch_2 = one(phi_2)
+        torch.cuda.synchronize()
+        assert torch.equal(new_k, new_2) and torch.equal(ch_k, ch_2)
+        assert torch.equal(phi_k, phi_2)
+        new_p, ch_p = estep_chunk_plain(phi, elogpi, da, db, tot, la, ha, c)
+        err = max(float((new_k - new_p).abs().max()), _rel_err(ch_k, ch_p))
+        assert err <= ESTEP_TOL, (n, k, err)
+        assert torch.equal(phi_k[rows], new_k)
+        others = torch.ones(n, dtype=torch.bool, device=dev)
+        others[rows] = False
+        assert torch.equal(phi_k[others], phi[others])
+        err_tot = _rel_err(bufs.tot, phi_k.sum(0))
+        assert err_tot <= ESTEP_TOL, err_tot
+        phi_t = phi.clone()
+        ms = cuda_ms(lambda: estep_chunk(phi_t, elogpi, da, db, la, ha, c,
+                                         bufs), 10)
+        plain_ms = cuda_ms(lambda: estep_chunk_plain(
+            phi_t, elogpi, da, db, bufs.tot, la, ha, c), 2)
+        bnd, floor = estep_bound(n, k, la, ha)
+        # the whole E-step
+        phi_k = phi.clone()
+        t0 = time.perf_counter()
+        _, r_k = sbm_estep(phi_k, elogpi, da, db, la, ha, bufs=bufs)
+        torch.cuda.synchronize()
+        secs_k = time.perf_counter() - t0
+        phi_p = phi.clone()
+        t0 = time.perf_counter()
+        _, r_p = sbm_estep_plain(phi_p, elogpi, da, db, la, ha)
+        torch.cuda.synchronize()
+        secs_p = time.perf_counter() - t0
+        assert r_k == r_p, (n, k, r_k, r_p)
+        err_full = float((phi_k - phi_p).abs().max())
+        assert err_full <= ESTEP_TOL, (n, k, err_full)
+        log(f"phase 7: estep_chunk at n={n} K={k} ({la.nbr.shape[0]} link "
+            f"and {ha.nbr.shape[0]} held-out entries), chunk {c}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms, "
+            f"floor {floor:.4f} ms; rows within {err:.3e}, tot within "
+            f"{err_tot:.3e}, two launches bitwise equal; a whole E-step "
+            f"{r_k} rounds (the plain version's {r_p}) in {secs_k * 1e3:.1f} "
+            f"ms (plain {secs_p * 1e3:.1f} ms), phi within {err_full:.3e}")
+        if n == STRETCH["n"]:
+            report = dict(_report(max(err, err_full), ms, plain_ms, bnd),
+                          floor_ms=floor)
+        del phi, phi_k, phi_2, phi_p, phi_t, la, ha, bufs
+        torch.cuda.empty_cache()
+    return report
+
+
+def _p7_cli(workdir, net, gt, label, flags):
+    return _run_engine_cli(workdir, net, gt, PLANTED["n"], PLANTED["k"],
+                           label, flags)
+
+
+def _sha(path):
+    import hashlib
+    return hashlib.sha256(open(path, "rb").read()).hexdigest()
+
+
+def _fk_record(out):
+    rows = _mmsb_rows(out)
+    return {"heldout": rows["heldout"], "validation": rows["validation"],
+            "files": {name: _sha(os.path.join(out, name))
+                      for name in FK_FILES}}
+
+
+def _p7_runs(workdir, record):
+    """-findk, -single (batch) and -single -infset on planted-20k, and the
+    batch run cut after SBM_CUT and resumed. Returns ({label: rows},
+    {label: (out, seconds, launches, forms)})."""
+    from svinet_torch.synth import write_planted
+    # a directory of its own: -single -infset would read a neighbors.bin
+    # that an earlier phase left in the working directory
+    workdir = os.path.join(workdir, "phase7")
+    os.makedirs(workdir, exist_ok=True)
+    net, gt = write_planted(workdir, PLANTED["n"], PLANTED["k"],
+                            PLANTED["avg_deg"], PLANTED["seed"])
+    suffix = "-cpu" if record else ""
+    rows, info = {}, {}
+    for label, flags in (("fk", FK_FLAGS), ("sbm", SBM_FLAGS),
+                         ("sbmi", SBMI_FLAGS)):
+        if not record:
+            _zero_counts()
+        t0 = time.perf_counter()
+        out = _p7_cli(workdir, net, gt, label + suffix, flags)
+        info[label] = (out, time.perf_counter() - t0, *_read_counts())
+        rows[label] = (_fk_record(out) if label == "fk"
+                       else {"heldout": _mmsb_rows(out)["heldout"]})
+    if record:
+        return rows, info
+    Cut, undo = _crash_after(SBM_CUT)
+    label = "sbm-cut"
+    try:
+        try:
+            _p7_cli(workdir, net, gt, label,
+                    SBM_FLAGS + ["-checkpoint-freq", "1e-9"])
+            raise AssertionError("the cut did not happen")
+        except Cut:
+            pass
+    finally:
+        undo()
+    rows["sbm-cut-before"] = _mmsb_rows(_outdir(workdir, label))
+    out = _p7_cli(workdir, net, gt, label, SBM_FLAGS + ["-resume"])
+    rows["sbm-cut"] = _mmsb_rows(out)
+    info["sbm-cut"] = (out, 0.0, {}, {})
+    return rows, info
+
+
+def _keep_fastinit_state():
+    """Make FastInit keep copies of the state its last community
+    extraction saw. Returns (that record, undo)."""
+    from svinet_torch.svi.fastinit import FastInit
+    orig = FastInit.log_communities
+    last = {}
+
+    def kept(self):
+        if self.ids is not None:
+            last.update(ids=self.ids.clone(), cnt=self.cnt.clone(),
+                        links=self._links.clone(),
+                        thresh=self.cfg.link_thresh, alpha=self.cfg.alpha,
+                        seq2id=self.network.seq2id.copy())
+        return orig(self)
+
+    FastInit.log_communities = kept
+    return last, lambda: setattr(FastInit, "log_communities", orig)
+
+
+def _fk_check(last, out):
+    """On the -findk run's final state: the links that kernel 13 and the
+    plain version select apart (normalized overlap >= link_thresh) all lie
+    within FK_THRESH_TIE of link_thresh, and communities.txt is what
+    link_groups makes of the kernel's outputs. Returns (links within the
+    tie, links selected apart)."""
+    from svinet_torch.io.writers import write_communities
+    from svinet_torch.svi.fastinit import (
+        link_groups, overlap_stats, overlap_stats_plain, sparse_pi)
+    ids, links, t = last["ids"], last["links"], last["thresh"]
+    pi = sparse_pi(ids, last["cnt"], last["alpha"])
+    w = ids.shape[1]
+    got = [a.cpu().numpy() for a in overlap_stats(ids, pi, links)]
+    want = [a.cpu().numpy() for a in overlap_stats_plain(
+        ids, pi, links, block=max(64, (1 << 28) // (w * w)))]
+
+    def norm(s, mx):
+        return np.where(s > 0, mx / np.maximum(s, 1e-30), 0.0)
+
+    n_k, n_p = norm(*got[:2]), norm(*want[:2])
+    apart = (n_k >= t) != (n_p >= t)
+    near = np.abs(n_p - t) <= FK_THRESH_TIE
+    assert not (apart & ~near).any(), int((apart & ~near).sum())
+    path = os.path.join(out, "communities-check.txt")
+    write_communities(path, link_groups(links.cpu().numpy(), *got,
+                                        ids.shape[0], t), last["seq2id"])
+    same = open(path, "rb").read() == open(
+        os.path.join(out, "communities.txt"), "rb").read()
+    os.remove(path)
+    assert same, "communities.txt is not the kernel's grouping"
+    return int(near.sum()), int(apart.sum())
+
+
+def phase7_cli(workdir):
+    """The three engines' CLI runs on the card: rows held to the CPU
+    port's, -findk's files byte for byte, the resumed batch run bit for bit
+    the uninterrupted one's; kernel 12 launched every FastInit sweep and
+    SBM init sweep, kernel 13 at every FastInit report, kernel 14 sixteen
+    times an E-step round. Returns (launches by name and form, {name:
+    (launches a unit, the unit)})."""
+    last, undo = _keep_fastinit_state()
+    try:
+        rows, info = _p7_runs(workdir, record=False)
+    finally:
+        undo()
+    launches, per_unit = {}, {}
+    # -findk: int(log10(20000)) + 1 = 5 sweeps, a report each
+    out, secs, counted, forms = info["fk"]
+    sweeps = int(np.log10(PLANTED["n"])) + 1
+    assert counted["vote_topk"] == sweeps, counted
+    # a report: the stopping split, the validation split at a new maximum,
+    # the training links; do_on_stop's communities once more
+    assert sweeps * 2 + 1 <= counted["overlap_stats"] <= sweeps * 3 + 1, (
+        counted)
+    assert not counted["estep_chunk"], counted
+    got = rows["fk"]
+    _rows_close({"heldout": got["heldout"]},
+                {"heldout": FK_CPU["heldout"]}, "fk")
+    for a, b in zip(got["heldout"], FK_CPU["heldout"]):
+        np.testing.assert_allclose(a[1:], b[1:], rtol=FK_ROW_RTOL)
+    differ = [name for name in FK_FILES
+              if got["files"][name] != FK_CPU["files"][name]]
+    ties, apart = _fk_check(last, out)
+    assert not differ or ties, f"-findk files differ: {differ}, no tie"
+    nmi = float(open(os.path.join(out, "mutual.txt")).read().split()[-1])
+    k_est = sum(1 for _ in open(os.path.join(out, "communities.txt")))
+    log(f"phase 7: FastInit (-findk) on planted-20k: {secs:.1f} s, {sweeps} "
+        f"sweeps, estimated K {k_est}, NMI {nmi:.6f}; heldout rows within "
+        f"{_rows_gap({'heldout': got['heldout']}, {'heldout': FK_CPU['heldout']}):.3e} of the CPU "
+        f"port's (limit {FK_ROW_RTOL:g}); {', '.join(FK_FILES)} byte for "
+        f"byte but {differ} ({ties} links within {FK_THRESH_TIE:g} of "
+        f"link_thresh, {apart} of them selected apart by the kernel and the "
+        f"plain version on the final state); launches {forms}")
+    per_unit["vote_topk"] = (counted["vote_topk"] / sweeps, "FastInit sweep")
+    per_unit["overlap_stats"] = (counted["overlap_stats"] / sweeps,
+                                 "FastInit report")
+    for name, v in {**counted, **forms}.items():
+        launches[name] = launches.get(name, 0) + v
+    init_sweeps = int(np.log10(PLANTED["n"])) + 2
+    for label, steps in (("sbm", 61), ("sbmi", SBMI_STEPS + 1)):
+        out, secs, counted, forms = info[label]
+        _rows_close(rows[label], SBM_CPU_ROWS[label], label)
+        assert counted["vote_topk"] == init_sweeps, counted
+        assert not counted["overlap_stats"], counted
+        if label == "sbm":
+            # at least one round an iteration, at most ten
+            assert 16 * steps <= counted["estep_chunk"] <= 160 * steps, (
+                counted)
+            per_unit["estep_chunk"] = (counted["estep_chunk"] / steps,
+                                       "SBM batch iteration")
+        else:
+            assert not counted["estep_chunk"], counted
+        # Elogpi and Elogbeta a batch iteration or a step with partners
+        assert counted["dirichlet_expectation"] >= (
+            2 * steps if label == "sbm" else steps), counted
+        for name, v in {**counted, **forms}.items():
+            launches[name] = launches.get(name, 0) + v
+        g = np.loadtxt(os.path.join(out, "gamma.txt"))
+        assert np.isfinite(g).all() and g.shape == (PLANTED["n"],
+                                                    PLANTED["k"] + 2)
+        lam = np.loadtxt(os.path.join(out, "lambda.txt"))
+        assert lam.shape == (PLANTED["k"] + 1, 3) and (lam[:, 1:] > 0).all()
+        log(f"phase 7: SBM {label} ({' '.join(SBM_FLAGS if label == 'sbm' else SBMI_FLAGS)}) "
+            f"on planted-20k: {secs:.1f} s, {steps} iterations = "
+            f"{secs / steps * 1e3:.3f} ms an iteration with the reports, "
+            f"heldout rows {_rows_gap(rows[label], SBM_CPU_ROWS[label]):.3e} "
+            f"from the CPU port's (limit {MMSB_ROW_RTOL:g}); launches "
+            f"{forms}")
+    whole = rows["sbm"]["heldout"]
+    before = rows["sbm-cut-before"]["heldout"]
+    after = rows["sbm-cut"]["heldout"]
+    assert before == whole[:len(before)] and before[-1][0] == SBM_CUT, (
+        before[-1:], whole[:1])
+    assert after == whole, (after[-1:], whole[-1:])
+    log(f"phase 7: the SBM batch run cut after iteration {SBM_CUT} and "
+        f"-resume'd: its {len(after)} rows the uninterrupted run's bit for "
+        f"bit")
+    return launches, per_unit
+
+
+def phase7_times(dev, stretch_links):
+    """On stretch: one FastInit sweep with its report's overlap over every
+    training link and the host's community grouping; one SBM batch
+    iteration and one stochastic step on a stretch-shaped state."""
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.svi.fastinit import (
+        link_groups, overlap_stats, sparse_pi, vote_plan, vote_topk)
+    from svinet_torch.svi.sbm import (
+        StochStep, estep_buffers, sbm_batch_step, sbm_stoch_step)
+    n, k = STRETCH["n"], STRETCH["k"]
+    gen_np = np.random.default_rng(20)
+    adj = build_adjacency(stretch_links, n, dev)
+    plan = vote_plan(adj)
+    links = torch.as_tensor(stretch_links, device=dev)
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    for sweep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, cnt = vote_topk(labels, adj, n, 64, plan)
+        labels = torch.where(ids[:, 0] < n, ids[:, 0], labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, mx, mid = overlap_stats(ids, sparse_pi(ids, cnt, 0.01), links)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        groups = link_groups(stretch_links, s.cpu().numpy(),
+                             mx.cpu().numpy(), mid.cpu().numpy(), n, 0.5)
+        t3 = time.perf_counter()
+        log(f"phase 7: FastInit sweep {sweep + 1} on stretch (n={n}, "
+            f"{stretch_links.shape[0]} links, width 64): the vote "
+            f"{(t1 - t0) * 1e3:.1f} ms, the overlap of every link "
+            f"{(t2 - t1) * 1e3:.1f} ms, grouping on the host "
+            f"{(t3 - t2):.2f} s ({len(groups)} communities)")
+    del ids, cnt, s, mx, mid, plan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    phi, _, _, _, la, ha, held = _estep_state(dev, gen, n, k,
+                                              stretch_links, 400_000)
+    del adj
+    gamma = 1.0 + 99.0 * torch.rand(k, generator=gen, device=dev)
+    lam = torch.cat([torch.tensor([[9.0, 1.0]], device=dev).repeat(k, 1),
+                     torch.tensor([[1.0, 9.0]], device=dev)])
+    eta = torch.ones((k + 1, 2), device=dev)
+    bufs = estep_buffers(n, k, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for it in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi, gamma, lam, rounds = sbm_batch_step(
+            phi, gamma, lam, la, ha, links, held, 0.5, eta,
+            float(n) * (n - 1) / 2 - held.shape[0], float(links.shape[0]),
+            bufs=bufs)
+        torch.cuda.synchronize()
+        log(f"phase 7: SBM batch iteration {it + 1} on stretch (n={n}, K={k}"
+            f", {links.shape[0]} links): {(time.perf_counter() - t0) * 1e3:.1f}"
+            f" ms wall, {rounds} E-step rounds, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    assert torch.isfinite(phi).all() and torch.isfinite(lam).all()
+    # a stochastic step: a node's 40 links and 100 zeros
+    reps = 100
+    steps = []
+    for _ in range(reps):
+        r = int(gen_np.integers(0, n))
+        others = np.unique(gen_np.integers(0, n, 141))
+        others = others[others != r]
+        rows = np.unique(np.r_[r, others])
+        steps.append(StochStep(
+            r, torch.as_tensor(others, device=dev),
+            torch.as_tensor((np.arange(len(others)) < 40).astype(np.int32),
+                            device=dev),
+            torch.as_tensor(rows, device=dev),
+            torch.as_tensor(gen_np.uniform(0.01, 0.05, len(rows)).astype(
+                np.float32), device=dev),
+            int(np.searchsorted(rows, r)),
+            torch.as_tensor(np.searchsorted(rows, others), device=dev),
+            torch.as_tensor(np.float32([n / 2, 0.5, n / 2, 0.01]),
+                            device=dev)))
+    sbm_stoch_step(phi, gamma, lam, steps[0], 0.5, eta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in steps:
+        gamma, lam = sbm_stoch_step(phi, gamma, lam, st, 0.5, eta)
+    torch.cuda.synchronize()
+    log(f"phase 7: SBM stochastic step on stretch (n={n}, K={k}, 140 "
+        f"partners): {(time.perf_counter() - t0) * 1e3 / reps:.3f} ms wall "
+        f"a step over {reps} steps")
+    assert torch.isfinite(phi).all() and torch.isfinite(gamma).all()
+    del phi, la, ha, bufs
+    torch.cuda.empty_cache()
+
+
+def phase7(dev, workdir):
+    """FastInit and SBM: kernels 12, 13 and 14 against their plain
+    versions, the CLI runs on planted-20k, the times on stretch. Returns
+    (launches by name and form, {name: (launches a unit, the unit)},
+    {name: report})."""
+    from svinet_torch.synth import random_edges
+    t0 = time.perf_counter()
+    stretch_links = random_edges(STRETCH["n"], STRETCH["n_edges"], 0)
+    stretch_links = stretch_links[np.unique(
+        stretch_links[:, 0].astype(np.int64) * STRETCH["n"]
+        + stretch_links[:, 1], return_index=True)[1]]
+    reports = {"vote_topk": phase7_vote(dev, stretch_links),
+               "overlap_stats": phase7_overlap(dev, stretch_links),
+               "estep_chunk": phase7_estep(dev, stretch_links)}
+    launches, per_unit = phase7_cli(workdir)
+    phase7_times(dev, stretch_links)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    return launches, per_unit, reports
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--record-cpu"]:
-        return record_cpu(sys.argv[2:] or ("mmsb", "fa", "famm"))
+        return record_cpu(sys.argv[2:] or ("mmsb", "fa", "famm", "fk",
+                                           "sbm"))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4836,6 +5640,14 @@ def main() -> int:
             finally:
                 os.chdir(cwd)
         return 4
+    if sys.argv[1:] == ["--phase7"]:
+        # phase 7 alone, for work on it; prints no result
+        with tempfile.TemporaryDirectory() as workdir:
+            try:
+                phase7(dev, workdir)
+            finally:
+                os.chdir(cwd)
+        return 4
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
@@ -4855,6 +5667,7 @@ def main() -> int:
             del stretch
             torch.cuda.empty_cache()
             p6_launches, p6_per_unit, p6_reports = phase6(dev, workdir)
+            p7_launches, p7_per_unit, p7_reports = phase7(dev, workdir)
         finally:
             os.chdir(cwd)
     # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
@@ -4877,6 +5690,13 @@ def main() -> int:
     # and its assignments, the stop's among them)
     for name, (per, what) in p6_per_unit.items():
         launches[name] = p6_launches.get(name, 0)
+        per_sweep[name] = per
+        unit[name] = what
+    # FastInit and SBM from phase 7's CLI runs: kernel 12 a FastInit sweep
+    # (and SBM's init sweeps), kernel 13 a FastInit report, kernel 14 an
+    # SBM batch iteration
+    for name, (per, what) in p7_per_unit.items():
+        launches[name] = p7_launches.get(name, 0)
         per_sweep[name] = per
         unit[name] = what
     # launches, and launches_per_sweep (the count over the sweeps that run
@@ -4938,6 +5758,14 @@ def main() -> int:
         ("union_scores:assign", "svinet_torch/csrc/sparse_scores.cu",
          "svinet_tpu/ops/sparse_gamma.py:247",
          p6_reports["union_scores:assign"]),
+        # FastInit's vote and overlap pass, SBM's E-step chunk: XLA
+        # programs on the TPU
+        ("vote_topk", "svinet_torch/csrc/fastinit_vote.cu",
+         "svinet_tpu/svi/fastinit.py:39", p7_reports["vote_topk"]),
+        ("overlap_stats", "svinet_torch/csrc/fastinit_overlap.cu",
+         "svinet_tpu/svi/fastinit.py:105", p7_reports["overlap_stats"]),
+        ("estep_chunk", "svinet_torch/csrc/sbm_estep.cu",
+         "svinet_tpu/svi/sbm.py:97", p7_reports["estep_chunk"]),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

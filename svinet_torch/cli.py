@@ -5,12 +5,14 @@
 USAGE and parse_args are the port's own copy of svinet_tpu/cli.py:21-278
 (every flag parses to the same Config there and here; the tests hold the
 two equal); the network set-up is that of svinet_tpu/cli.py:314-333. The
-port runs -link-sampling, MMSBInfer and FastAMM2 (-stratified -rnode), on
-one device or under -mesh N (-mesh-rowshard and -mesh-locality for
--link-sampling), where the CLI spawns N ranks (parallel/mesh.py:launch),
-or N/P of them in each of the P processes of -dist-nprocs P. Every flag
-outside that slice stops the run with SystemExit naming the flag; none is
-ignored. The device comes from $SVINET_TORCH_DEVICE (default cuda).
+port runs FastInit (-findk), -link-sampling, SBM (-single, batch and
+-infset), MMSBInfer, FastAMM (-infset) and FastAMM2 (-stratified -rnode),
+on one device or, for -link-sampling, MMSBInfer and FastAMM2, under -mesh
+N (-mesh-rowshard and -mesh-locality for -link-sampling), where the CLI
+spawns N ranks (parallel/mesh.py:launch), or N/P of them in each of the P
+processes of -dist-nprocs P. Every flag outside that slice stops the run
+with SystemExit naming the flag; none is ignored. The device comes from
+$SVINET_TORCH_DEVICE (default cuda).
 """
 
 from __future__ import annotations
@@ -287,26 +289,28 @@ def parse_args(argv: List[str]) -> Config:
 
 
 # Config field -> the flag that sets it, for the engines the port refuses:
-# those that svinet_tpu/cli.py dispatches before -link-sampling, and those
-# it dispatches after it
+# those that svinet_tpu/cli.py dispatches before -findk, and -orig, which
+# it dispatches after -findk and before -link-sampling
 _ENGINE_FLAGS = (
     ("gen", "-gen"), ("ppc", "-ppc"), ("lcstats", "-lcstats"),
-    ("gml", "-gml"), ("findk", "-findk"), ("orig", "-orig"),
+    ("gml", "-gml"),
 )
-_LATER_ENGINE_FLAGS = (("single", "-single"),)
+_AFTER_FINDK_FLAGS = (("orig", "-orig"),)
 
 
 def check_slice(cfg: Config) -> None:
     """Raise SystemExit naming the first flag the port does not run. The
-    ported engines, in svinet_tpu/cli.py's dispatch order: -link-sampling,
-    -batch (MMSBInfer.batch_infer), -preprocess, FastAMM (-infset, dense
-    or -fastqueue W), FastAMM2 (-stratified -rnode) and MMSBInfer.infer
-    (no engine flag, -rpair, -rnode, -stratified -rpair)."""
+    ported engines, in svinet_tpu/cli.py's dispatch order: FastInit
+    (-findk), -link-sampling, SBM (-single: batch_infer, or infer under
+    -infset), -batch (MMSBInfer.batch_infer), -preprocess, FastAMM
+    (-infset, dense or -fastqueue W), FastAMM2 (-stratified -rnode) and
+    MMSBInfer.infer (no engine flag, -rpair, -rnode, -stratified
+    -rpair)."""
     for field, flag in _ENGINE_FLAGS:
         if getattr(cfg, field):
             raise SystemExit(f"svinet_torch: {flag} is not ported")
-    if not cfg.link_sampling:
-        for field, flag in _LATER_ENGINE_FLAGS:
+    if not cfg.findk:
+        for field, flag in _AFTER_FINDK_FLAGS:
             if getattr(cfg, field):
                 raise SystemExit(f"svinet_torch: {flag} is not ported")
 
@@ -380,7 +384,7 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
 
 def _build_engine(cfg: Config, group):
     """Read the network and build the engine the flags name, in the
-    dispatch order of svinet_tpu/cli.py:375-418 over the ported engines.
+    dispatch order of svinet_tpu/cli.py:367-418 over the ported engines.
     Returns (engine, its loop), or (None, None) for -preprocess, which
     writes neighbors.bin on the host and runs no engine."""
     network = Network(cfg)
@@ -406,10 +410,19 @@ def _build_engine(cfg: Config, group):
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
     device = resolve_device() if group is None else group.device
+    if cfg.findk:
+        from svinet_torch.svi.fastinit import FastInit
+        engine = FastInit(cfg, network, device)
+        return engine, engine.batch_infer
     if cfg.link_sampling:
         from svinet_torch.svi.linksampling import LinkSampling
         engine = LinkSampling(cfg, network, device, group)
         return engine, engine.infer
+    if cfg.single:
+        from svinet_torch.svi.sbm import SBM
+        engine = SBM(cfg, network, device)
+        return engine, (engine.infer if cfg.informative_sampling
+                        else engine.batch_infer)
     if cfg.batch:
         from svinet_torch.svi.mmsb import MMSBInfer
         engine = MMSBInfer(cfg, network, device, group)

@@ -8,7 +8,9 @@ run conv (n,), its sticky converged flags (0 = free, else the frozen
 column + 1). The JAX engine's arrays come over as numpy arrays, or as the
 gamma.txt/lambda.txt files its runs write (mphi and conv are in no file:
 a loaded run starts from mphi = 0 and no frozen node, as the JAX engine
-does).
+does). FastInit's state (labels, ids, cnt) and SBM's (phi, gamma_k, lam,
+eta) come over by name into an engine of the port (set_engine_state), and
+go back as numpy arrays (engine_state).
 """
 
 from __future__ import annotations
@@ -65,3 +67,42 @@ def load_state(outdir: str, device) -> Tuple[torch.Tensor, torch.Tensor]:
     n, k = len(rows), len(rows[0]) - 2
     gamma, lam = load_model(outdir, n, k)
     return state_from_numpy(gamma, lam, device)
+
+
+# the arrays of each engine's state that cross between the packages, with
+# their dtypes
+ENGINE_STATE = {
+    "FastInit": {"labels": np.int32, "ids": np.int32, "cnt": np.float32},
+    "SBM": {"phi": np.float32, "gamma_k": np.float32, "lam": np.float32,
+            "eta": np.float32},
+}
+
+
+def _state_shapes(engine) -> dict:
+    n, k = engine.n, engine.k
+    if type(engine).__name__ == "FastInit":
+        w = engine.width
+        return {"labels": (n,), "ids": (n, w), "cnt": (n, w)}
+    return {"phi": (n, k), "gamma_k": (k,), "lam": (k + 1, 2),
+            "eta": (k + 1, 2)}
+
+
+def set_engine_state(engine, **arrays) -> None:
+    """Put numpy arrays (a JAX FastInit's or SBM's, by attribute name) into
+    the port's engine of the same kind, on its device."""
+    kind = type(engine).__name__
+    dtypes, shapes = ENGINE_STATE[kind], _state_shapes(engine)
+    for name, a in arrays.items():
+        if name not in dtypes:
+            raise ValueError(f"{kind} has no state array {name!r}")
+        a = np.array(a, dtypes[name])
+        if a.shape != shapes[name]:
+            raise ValueError(f"{name} {a.shape}: expected {shapes[name]}")
+        setattr(engine, name, torch.as_tensor(a, device=engine.device))
+
+
+def engine_state(engine) -> dict:
+    """The engine's state arrays (those set) as numpy arrays, by name."""
+    return {name: getattr(engine, name).detach().cpu().numpy()
+            for name in ENGINE_STATE[type(engine).__name__]
+            if getattr(engine, name, None) is not None}

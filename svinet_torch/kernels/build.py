@@ -107,6 +107,16 @@ SIGNATURES = {
     # ids, vals, rest, table, beta_sum, pairs, out0, out1, cid, pairs, k,
     # w, form
     "svt_sparse_scores": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P),
+    # labels, rowptr, nbr, hub_node, hub_off, lab_scratch, key_scratch,
+    # ids, cnt, n, n_hubs, width
+    "svt_fastinit_vote": (_P,) * 9 + (_I64, _I64, _I32, _P),
+    # ids, pi, pairs, ssum, maxv, maxid, pairs, n, w
+    "svt_fastinit_overlap": (_P,) * 6 + (_I64, _I64, _I32, _P),
+    # phi, block_partial, partial, tot, n, k, n_chunks
+    "svt_sbm_chunk_sums": (_P,) * 4 + (_I64, _I32, _I32, _P),
+    # phi, elogpi, da, db, rowptr, nbr, held rowptr, held nbr, staged,
+    # change, block_partial, partial, tot, n, k, chunk, n_chunks
+    "svt_sbm_estep_chunk": (_P,) * 13 + (_I64, _I32, _I32, _I32, _P),
 }
 
 _lock = threading.Lock()

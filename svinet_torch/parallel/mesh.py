@@ -438,12 +438,17 @@ def wants_mesh(cfg) -> bool:
     implies -mesh-rowshard on at least one device (svinet_tpu/cli.py:
     320-333); MMSBInfer and FastAMM2 under -mesh N > 1
     (svinet_tpu/svi/mmsb.py:314, svinet_tpu/svi/fastamm2.py:76);
-    -preprocess alone runs no engine, and FastAMM (-infset, before
-    -stratified -rnode in svinet_tpu/cli.py:403-414) has no mesh: it runs
-    one process on one device under any -mesh N."""
+    -preprocess alone runs no engine, and FastInit (-findk, dispatched
+    first), SBM (-single, after -link-sampling) and FastAMM (-infset,
+    before -stratified -rnode in svinet_tpu/cli.py:367-414) have no mesh:
+    each runs one process on one device under any -mesh N."""
+    if cfg.findk:
+        return False
     if cfg.link_sampling:
         return (cfg.mesh_devices > 1 or cfg.mesh_locality
                 or (cfg.mesh_devices == 1 and cfg.mesh_rowshard))
+    if cfg.single:
+        return False
     if cfg.preprocess and not cfg.batch:
         return False
     if cfg.informative_sampling and not (cfg.single or cfg.batch):

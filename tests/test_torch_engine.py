@@ -219,7 +219,7 @@ def test_cli_sweep_flags_match_jax(planted, tmp_path, monkeypatch, flags):
     """-freeze, -prune and the three sweep flags together through both
     CLIs: the same stop or one report apart, best nshol within 1e-3
     relative, NMI within 0.02, the same set of output files. The flags
-    of a later slice (-findk) stay refused by name."""
+    of a later slice (-orig) stay refused by name."""
     _, net, gt = planted
     monkeypatch.setenv("SVINET_TORCH_DEVICE", "cpu")
     monkeypatch.chdir(tmp_path)
@@ -234,5 +234,5 @@ def test_cli_sweep_flags_match_jax(planted, tmp_path, monkeypatch, flags):
            for name, path in out.items()}
     assert abs(nmi["torch"] - nmi["jax"]) <= 0.02
     assert sorted(os.listdir(out["torch"])) == sorted(os.listdir(out["jax"]))
-    with pytest.raises(SystemExit, match="-findk"):
-        torch_main([*_args(net, gt, "refused"), *flags, "-findk"])
+    with pytest.raises(SystemExit, match="-orig"):
+        torch_main([*_args(net, gt, "refused"), *flags, "-orig"])

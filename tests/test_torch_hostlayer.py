@@ -3,13 +3,16 @@
 svinet_torch imports nothing of svinet_tpu, so it carries copies of the
 JAX-free host modules (config, graph, io.writers, io.native,
 parallel.locality, svi.sampling, evals.precision, and the flag parser of
-cli). Each copy is held to its original here, on the CPU:
+cli; and numpy functions of modules that import JAX, such as SBM's chunk
+lists). Each copy is held to its original here, on the CPU:
 same flags -> same Config, same file -> same Network and splits, same
 arrays -> the same bytes on disk, and the module texts themselves may
 differ only in the package name."""
 
 import dataclasses
 import filecmp
+import importlib
+import inspect
 import pathlib
 
 import numpy as np
@@ -182,3 +185,28 @@ def test_parse_args_copy_has_not_drifted():
     copy = body((REPO / "svinet_torch" / "cli.py").read_text())
     assert copy.replace("no meaning here, accepted",
                         "N/A on TPU, accepted") == original
+
+
+@pytest.mark.parametrize("module,name", [
+    ("svi.sbm", "chunk_incident_pairs"),
+])
+def test_numpy_function_copies_have_not_drifted(module, name):
+    """A numpy function copied whole out of a module that imports JAX is
+    its original's text."""
+    original = getattr(importlib.import_module(f"svinet_tpu.{module}"), name)
+    copy = getattr(importlib.import_module(f"svinet_torch.{module}"), name)
+    assert inspect.getsource(copy) == inspect.getsource(original)
+
+
+def test_fastinit_and_sbm_engines_are_dispatched_as_the_original():
+    """FastInit before LinkSampling, SBM after it and before MMSBInfer's
+    batch engine, then FastAMM and FastAMM2: the two CLIs build the
+    engines in the same order (svinet_tpu/cli.py:367-418)."""
+    engines = ("FastInit(cfg", "LinkSampling(cfg", "SBM(cfg",
+               "MMSBInfer(cfg", "FastAMM(cfg", "FastAMM2(cfg")
+    for path, start in (("svinet_tpu/cli.py", "def main("),
+                        ("svinet_torch/cli.py", "def _build_engine(")):
+        text = (REPO / path).read_text()
+        text = text[text.index(start):]
+        at = [text.index(e) for e in engines]
+        assert at == sorted(at), (path, at)

@@ -4,7 +4,8 @@ with the GPU has no JAX, and the port imports nothing of svinet_tpu.
 A subprocess blocks every `jax` and `svinet_tpu` import with a
 sys.meta_path finder, imports svinet_torch and runs its CLI on a planted
 graph on the CPU. The
-CLI's refusals of flags outside the ported slice, and of a CUDA device on
+CLI's refusals of flags outside the ported slice (-gen, -ppc, -lcstats,
+-gml and -orig), and of a CUDA device on
 a machine without one, are checked here too."""
 
 import os
@@ -53,6 +54,12 @@ _BLOCKED_RUN = textwrap.dedent("""
                    "-seed", "3", "-max-iterations", "4", "-label",
                    "fastamm", *flags])
         assert rc == 0
+    for label, flags in (("findk", ["-findk"]), ("sbm", ["-single"]),
+                         ("sbmi", ["-single", "-infset"])):
+        rc = main(["-file", net, "-n", "200", "-k", "4", "-nmi", gt,
+                   "-seed", "3", "-max-iterations", "4", "-label", label,
+                   *flags])
+        assert rc == 0
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "svinet_tpu"))
     assert not loaded, loaded
@@ -80,6 +87,14 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     out = tmp_path / "n200-k4-fastamm-seed3-infset"
     for name in ("neighbors.bin", "gamma.txt", "cmap.txt", "heldout.txt"):
         assert (out / name).exists(), name
+    for label, names in (("findk", ("communities.txt", "groups.txt")),
+                         ("sbm", ("gamma.txt", "lambda.txt")),
+                         ("sbmi", ("gamma.txt", "neighbors.bin"))):
+        out = [p for p in tmp_path.iterdir()
+               if p.name.startswith(f"n200-k4-{label}-seed3")]
+        assert len(out) == 1, out
+        for name in names:
+            assert (out[0] / name).exists(), (label, name)
 
 
 # Installed as sitecustomize.py for a subprocess and every rank it spawns:
@@ -249,25 +264,29 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-link-sampling", "-mesh-rowshard", "-findk"], "-findk"),
+    (["-link-sampling", "-mesh-rowshard", "-orig"], "-orig"),
     (["-link-sampling", "-dist-coordinator", "host:1", "-gen"], "-gen"),
     (["-link-sampling", "-sparse-w", "8", "-resume", "-orig"], "-orig"),
     (["-link-sampling", "-bf16", "-freeze", "-prune", "-sparse-w", "8",
       "-checkpoint-freq", "5", "-ppc"], "-ppc"),
     (["-link-sampling", "-mesh-locality", "-lcstats"], "-lcstats"),
     (["-link-sampling", "-dist-procid", "1", "-gml"], "-gml"),
-    (["-mesh", "2", "-dist-nprocs", "2", "-infset", "-findk"], "-findk"),
-    (["-infset", "-single"], "-single"),
-    (["-checkpoint-freq", "5", "-mesh-locality", "-single"], "-single"),
+    (["-mesh", "2", "-dist-nprocs", "2", "-infset", "-findk", "-gml"],
+     "-gml"),
+    (["-infset", "-single", "-lcstats"], "-lcstats"),
+    (["-checkpoint-freq", "5", "-mesh-locality", "-single", "-orig"],
+     "-orig"),
     (["-rnode", "-resume", "-infset", "-fastqueue", "4", "-orig"],
      "-orig"),
     (["-link-sampling", "-init-communities", "c.txt", "-mesh", "2",
       "-orig"], "-orig"),
-    (["-stratified", "-rnode", "-findk"], "-findk"),
-    (["-stratified", "-rnode", "-single"], "-single"),
-    (["-single"], "-single"),
-    (["-link-sampling", "-findk"], "-findk"),
+    (["-stratified", "-rnode", "-findk", "-ppc"], "-ppc"),
+    (["-stratified", "-rnode", "-single", "-orig"], "-orig"),
+    (["-single", "-gen"], "-gen"),
+    (["-link-sampling", "-orig"], "-orig"),
     (["-stratified", "-rnode", "-mesh", "2", "-gen"], "-gen"),
+    (["-findk", "-gml"], "-gml"),
+    (["-single", "-infset", "-ppc"], "-ppc"),
 ])
 def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
@@ -283,11 +302,16 @@ def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
     ["-link-sampling", "-batch"], ["-infset"],
     ["-infset", "-fastqueue", "4", "-resume"],
     ["-infset", "-mesh", "2", "-checkpoint-freq", "5"],
+    ["-findk"], ["-findk", "-findk-width", "130", "-resume"],
+    ["-findk", "-orig"], ["-findk", "-link-sampling", "-mesh", "2"],
+    ["-single"], ["-single", "-infset", "-checkpoint-freq", "5"],
+    ["-single", "-batch", "-mesh", "2"], ["-single", "-link-sampling"],
 ])
 def test_cli_takes_mmsb_and_checkpoint_flags(flags, monkeypatch):
-    """MMSBInfer's modes, FastAMM's (-infset, -fastqueue), -checkpoint-freq
-    and -resume pass the slice check; the run then fails on the missing
-    input file."""
+    """MMSBInfer's modes, FastAMM's (-infset, -fastqueue), FastInit's
+    (-findk, which dispatches before -orig) and SBM's (-single, batch and
+    -infset), -checkpoint-freq and -resume pass the slice check; the run
+    then fails on the missing input file."""
     from svinet_torch.cli import check_slice, parse_args
     argv = ["-file", "absent.txt", "-n", "10", "-k", "2", *flags]
     check_slice(parse_args(argv))
