@@ -62,7 +62,15 @@ latter on stretch's 20M links), drives `-preprocess`, `-infset` and
 `-infset -k 100 -fastqueue 8` on planted-20k held to the CPU port's rows
 (`python3 chip_smoke.py --record-cpu famm`), cuts the dense run and
 resumes it, and times both steps on stretch-shaped states (`--phase6`
-runs it alone and prints no result).
+runs it alone and prints no result). Phase 7 does the same for FastInit
+and SBM (kernels 12-14, `--phase7`). Phase 8 holds kernel 15 (the full
+blockmodel's coupled K x K fixed point, both forms) to its plain version
+in float64 on its rounds and to its f32 rounds block by block, kernel 16
+(the generator's pair draw) to its plain version bit for bit, drives
+`-orig` and `-orig -logl -itype 1` held to the CPU port's rows, cuts and
+resumes an -orig run, drives `-gen`, `-gen -orig`, `-gml`, `-lcstats`
+and `-ppc` on the card and on the CPU with every file byte for byte, and
+times one -orig iteration at n=10,000, K=50 (`--phase8` runs it alone).
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -1490,6 +1498,8 @@ def _wrappers():
                                                union_scores)
     from svinet_torch.svi.communities import edge_assignments
     from svinet_torch.svi.fastinit import overlap_stats, vote_topk
+    from svinet_torch.ops.orig_phi import orig_chunk
+    from svinet_torch.svi.gen import gen_pairs
     from svinet_torch.svi.sbm import estep_chunk
     from svinet_torch.svi.sweep_math import (
         fused_phi_s3_pass, mean_indicator_update, phi_pass, s3_pass,
@@ -1505,7 +1515,8 @@ def _wrappers():
             "sparse_fastamm_stats": sparse_fastamm_stats,
             "union_scores": union_scores,
             "vote_topk": vote_topk, "overlap_stats": overlap_stats,
-            "estep_chunk": estep_chunk}
+            "estep_chunk": estep_chunk, "orig_chunk": orig_chunk,
+            "gen_pairs": gen_pairs}
 
 
 def _zero_counts():
@@ -1949,7 +1960,7 @@ def phase3(dev, workdir):
                     "sparse_union_pass": 0, "phi_fixed_point": 0,
                     "edge_assignments": 0, "sparse_fastamm_stats": 0,
                     "union_scores": 0, "vote_topk": 0, "overlap_stats": 0,
-                    "estep_chunk": 0}
+                    "estep_chunk": 0, "orig_chunk": 0, "gen_pairs": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     _zero_counts()
@@ -2401,6 +2412,7 @@ def phase1_phi_fixed_point(dev):
         # pass 1's rounds to each pair's final phis; those past R_b ran
         # again for R_b in pass 2
         reruns = int(((stop > r_k) & (w != 0)).sum())
+        # each pair (and the padding slot) its block's R_b rounds
         needed = float(torch.minimum(stop, r_k).double().sum())
         big = n * k >= 10**7
         ms = cuda_ms(run, 3 if big else 20)
@@ -2723,12 +2735,12 @@ def _mmsb_runs(workdir, record):
     return rows, info
 
 
-def record_cpu(which=("mmsb", "fa", "famm", "fk", "sbm")) -> int:
-    """--record-cpu [mmsb|fa|famm|fk|sbm]: run phase 2's MMSBInfer runs,
-    phase 5's FastAMM2 run, phase 6's FastAMM runs and phase 7's FastInit
-    and SBM runs on the CPU (the plain versions) and print the rows
-    MMSB_CPU_ROWS, FA_CPU_ROWS, FAMM_CPU_ROWS, FK_CPU and SBM_CPU_ROWS
-    hold."""
+def record_cpu(which=("mmsb", "fa", "famm", "fk", "sbm", "orig")) -> int:
+    """--record-cpu [mmsb|fa|famm|fk|sbm|orig]: run phase 2's MMSBInfer
+    runs, phase 5's FastAMM2 run, phase 6's FastAMM runs, phase 7's
+    FastInit and SBM runs and phase 8's -orig runs on the CPU (the plain
+    versions) and print the rows MMSB_CPU_ROWS, FA_CPU_ROWS,
+    FAMM_CPU_ROWS, FK_CPU, SBM_CPU_ROWS and ORIG_CPU_ROWS hold."""
     os.environ["SVINET_TORCH_DEVICE"] = "cpu"
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2749,6 +2761,9 @@ def record_cpu(which=("mmsb", "fa", "famm", "fk", "sbm")) -> int:
                 print("FK_CPU = " + json.dumps(rows["fk"]))
                 print("SBM_CPU_ROWS = " + json.dumps(
                     {k: rows[k] for k in ("sbm", "sbmi")}))
+            if "orig" in which:
+                rows, _, _, _ = _orig_runs(workdir, record=True)
+                print("ORIG_CPU_ROWS = " + json.dumps(rows))
         finally:
             os.chdir(cwd)
     return 0
@@ -3813,6 +3828,7 @@ def phase5_fp512(dev):
         del g_p
         _, _, r_p = plain()
         differ = int((r_k[::FB] != r_p[::FB]).sum())
+        # each pair (and the padding slot) its block's R_b rounds
         needed = float(torch.minimum(stop, r_k).double().sum())
         big = n * k >= 10**7
         ms = cuda_ms(run, 5 if big else 20)
@@ -5605,10 +5621,568 @@ def phase7(dev, workdir):
     return launches, per_unit, reports
 
 
+# ---------------------------------------------------------------------
+# Phase 8: the full blockmodel (-orig, kernel 15) and the generator
+# family (-gen, -ppc, -gml, -lcstats; kernel 16).
+
+# Kernel 15 over all pairs of a planted graph (BATCH_PLANTED's degree and
+# seed at n nodes): (n, K), the first the -orig runs' shape. K = 100 keeps
+# L_1 and L_0 in shared memory, K = 301 reads them from device memory.
+ORIG_SHAPES = ((2_000, 20), (2_000, 100), (500, 301))
+ORIG_SHARED_MAX_K = 100
+# the -orig CLI runs on planted n=2,000, K=20 (BATCH_PLANTED), held to the
+# CPU port's rows at MMSB_ROW_RTOL (`python3 chip_smoke.py --record-cpu
+# orig` prints ORIG_CPU_ROWS); the run cut after the report of ORIG_CUT
+# and -resume'd must write the uninterrupted run's files bit for bit
+ORIG_RUNS = {"orig": ["-orig", "-max-iterations", "2", "-rfreq", "1"],
+             "origl": ["-orig", "-logl", "-itype", "1", "-max-iterations",
+                       "2", "-rfreq", "1"]}
+ORIG_WHOLE = ["-orig", "-max-iterations", "4", "-rfreq", "1"]
+ORIG_CUT = 2
+ORIG_CPU_ROWS = {'orig': {'heldout': [[1, -2.357075691, -0.009105343, -4.7050457,
+                       -0.009022393, -0.042863225, -0.051885618],
+                      [2, -2.357052326, -0.009105327, -4.704999447,
+                       -0.009022377, -0.042862804, -0.05188518],
+                      [3, -2.357042074, -0.009105093, -4.70497942,
+                       -0.009022145, -0.042862621, -0.051884766]],
+          'logl': []},
+ 'origl': {'heldout': [[1, -2.357945681, -0.009062536, -4.706828594,
+                        -0.008979976, -0.042879467, -0.051859443],
+                       [2, -2.355924845, -0.009102406, -4.702746868,
+                        -0.009019483, -0.042842283, -0.051861765],
+                       [3, -2.355921745, -0.009102408, -4.702741146,
+                        -0.009019484, -0.042842231, -0.051861715]],
+           'logl': [[1, -600716.01716], [2, -393761.09855],
+                    [3, -393752.68267]]}}
+# one iteration timed on all pairs of a planted graph at (n, K)
+ORIG_TIMED = (10_000, 50)
+# gamma_hat and the moments against the float64 plain version on the
+# kernel's rounds, of their largest entry; the ELBO terms relative (or
+# absolute under 1)
+ORIG_TOL = 1e-4
+# kernel 16: (n, K, rows drawn; None: all), bit for bit its plain version;
+# the timed shape is -gen's dense limit
+GEN_SHAPES = ((2_000, 20, None), (65_536, 500, 512))
+GEN_TIMED = (65_536, 20)
+# the generator CLI: -gen and -gen -orig at GEN_SHAPES[0]; -gml, -lcstats
+# and -ppc (100 draws) on a planted graph of GEN_MODEL_N nodes with a
+# random model; every file byte for byte the CPU port's, ppc's z-scores
+# within PPC_TOL (relative, or absolute under 1)
+GEN_MODEL_N = 300
+PPC_TOL = 1e-5
+
+
+def _orig_pairs(dev, n):
+    """All pairs of a planted graph of n nodes (BATCH_PLANTED's degree,
+    blocks and seed) in the engine's order, with their labels."""
+    from svinet_torch.svi.orig import all_pairs
+    from svinet_torch.synth import planted_blocks
+    raw, _ = planted_blocks(n, BATCH_PLANTED["k"], BATCH_PLANTED["avg_deg"],
+                            BATCH_PLANTED["seed"])
+    lo = np.minimum(raw[:, 0], raw[:, 1]).astype(np.int64)
+    hi = np.maximum(raw[:, 0], raw[:, 1]).astype(np.int64)
+    keys = np.unique((lo * n + hi)[lo < hi])
+    return all_pairs(n, None, keys, dev)
+
+
+def _orig_state(dev, gen, n, k):
+    """Elogpi (kernel 1) of gamma rows spread from near-uniform to near one
+    community, and a symmetric beta in [0.01, 0.99]."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    gamma = 0.05 + torch.rand((n, k), generator=gen, device=dev) ** 4 * 10.0
+    b = torch.rand((k, k), generator=gen, device=dev)
+    beta = ((b + b.t()) / 2).clamp(0.01, 0.99)
+    return dirichlet_expectation(gamma), beta
+
+
+def orig_bound(n, k, m, rounds, elbo):
+    """Kernel 15's bound: Elogpi, L, the pairs and labels read, the staged
+    phis and gamma_hat (read and written) or the terms written; 4K^2 + 12K
+    f32 operations and 2K exponentials a pair and round, over the rounds
+    the rule gives these pairs (each its block's R_b)."""
+    n_bytes = 4 * n * k + 8 * k * k + 12 * m
+    n_bytes += (4 * n * k + 8 * k * k + 4 * m) if elbo else (
+        8 * m * k + 8 * n * k)
+    t_sfu = rounds * 2 * k / PEAK_SFU_S * 1e3
+    ms, by = bound(n_bytes, rounds * (4 * k * k + 12 * k))
+    return (t_sfu, "operations") if t_sfu > ms else (ms, by)
+
+
+def phase8_kernel15(dev):
+    """Kernel 15 at ORIG_SHAPES: training and ELBO forms each two launches
+    bitwise equal, every pair of a block on its block's rounds, the two
+    forms on the same rounds and those the plain version's (f32, under the
+    rule itself) block by block; each pair's phis and terms and gamma_hat
+    and the moments held to the plain version in float64 on the kernel's
+    rounds (a pair that went to another attractor in f32 is counted,
+    logged and held under FP_SPLIT_SHARE). Returns the reports of both
+    forms at the first shape."""
+    from svinet_torch.ops.edges import owner_csr
+    from svinet_torch.ops.orig_phi import (
+        BLOCK, elbo_logf_pair, logf_pair, moments, orig_chunk,
+        orig_chunk_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    reports = {}
+    for n, k in ORIG_SHAPES:
+        pairs, y = _orig_pairs(dev, n)
+        m = pairs.shape[0]
+        elogpi, beta = _orig_state(dev, gen, n, k)
+        lf2 = logf_pair(beta).contiguous()
+        csr = owner_csr(pairs.reshape(-1), n)
+        g_k = torch.zeros((n, k), device=dev)
+        staged, r_k = orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5, pad=True,
+                                 gacc=g_k, csr=csr)
+        g_2 = torch.zeros((n, k), device=dev)
+        staged_2, r_2 = orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5, pad=True,
+                                   gacc=g_2, csr=csr)
+        torch.cuda.synchronize()
+        assert (torch.equal(g_k, g_2) and torch.equal(staged, staged_2)
+                and torch.equal(r_k, r_2)), (n, k, "two launches differ")
+        del staged_2, g_2
+        blk = torch.arange(m, device=dev) // BLOCK
+        assert torch.equal(r_k, r_k[::BLOCK][blk]), (n, k)
+        assert int(r_k.min()) >= 1 and int(r_k.max()) <= 50
+        # the plain version in float64 on the kernel's rounds
+        st64, _ = orig_chunk_plain(elogpi.double(), lf2.double(), pairs, y,
+                                   50, 1e-5, BLOCK, True, given=r_k)
+        gap = (staged.double() - st64).abs().amax(1).view(m, 2).amax(1)
+        split = gap > FP_SPLIT_PHI
+        n_split = int(split.sum())
+        assert n_split <= FP_SPLIT_SHARE * m, (n, k, n_split)
+        phi_err = float(gap[~split].max())
+        mixed = torch.where(split.repeat_interleave(2)[:, None],
+                            staged.double(), st64)
+        g64 = torch.zeros((n, k), dtype=torch.float64, device=dev)
+        g64.index_add_(0, pairs.reshape(-1).long(), 2.0 * mixed)
+        a_k, y_k = moments(staged, y)
+        a64, y64 = moments(mixed, y)
+        err = max(_close_to_max(g_k, g64), _close_to_max(a_k, a64),
+                  _close_to_max(y_k, y64))
+        assert err <= ORIG_TOL, (n, k, err)
+        if n_split:
+            i = int(torch.nonzero(split)[0])
+            log(f"phase 8: kernel 15 at n={n} K={k}: pair {i} "
+                f"{pairs[i].tolist()} y={int(y[i])} ended {float(gap[i]):.3e}"
+                f" from the float64 phis after {int(r_k[i])} rounds "
+                f"(another attractor in f32)")
+        del st64, mixed, g64
+        # the plain version under the rule itself, f32: R_b block by block
+        t0 = time.perf_counter()
+        st_p, r_p = orig_chunk_plain(elogpi, lf2, pairs, y, 50, 1e-5, BLOCK,
+                                     True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del st_p
+        n_blocks, n_differ, r_gap = _block_rounds_differ(r_k, r_p)
+        assert n_differ == 0, (n, k, n_differ, r_gap)
+        # the ELBO form on the same fixed point
+        e_new, b_new = _orig_state(dev, gen, n, k)
+        lfe2 = elbo_logf_pair(b_new).contiguous()
+        t_k, re_k = orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5, pad=True,
+                               elbo=(e_new, lfe2))
+        t_2, re_2 = orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5, pad=True,
+                               elbo=(e_new, lfe2))
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_2) and torch.equal(re_k, re_2)
+        assert torch.equal(re_k, r_k)
+        t64, _ = orig_chunk_plain(elogpi.double(), lf2.double(), pairs, y,
+                                  50, 1e-5, BLOCK, True,
+                                  elbo=(e_new.double(), lfe2.double()),
+                                  given=r_k)
+        err_e = _rel_err(t_k.double()[~split], t64[~split])
+        assert err_e <= ORIG_TOL, (n, k, err_e)
+        sum_err = abs(float(t_k.double().sum()) - float(t64.sum())) / abs(
+            float(t64.sum()))
+        del t64
+        # each pair (and the padding slot) its block's R_b rounds
+        needed = float(r_k.double().sum()) + (int(r_k[-1]) if m % BLOCK
+                                              else 0)
+        reps = 3 if m * k * k > 10**9 else 10
+        g_t = torch.zeros((n, k), device=dev)
+        ms = cuda_ms(lambda: orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5,
+                                        pad=True, gacc=g_t, csr=csr), reps)
+        ms_e = cuda_ms(lambda: orig_chunk(elogpi, lf2, pairs, y, 50, 1e-5,
+                                          pad=True, elbo=(e_new, lfe2)),
+                       reps)
+        t0 = time.perf_counter()
+        orig_chunk_plain(elogpi, lf2, pairs, y, 50, 1e-5, BLOCK, True,
+                         elbo=(e_new, lfe2))
+        torch.cuda.synchronize()
+        plain_ms_e = (time.perf_counter() - t0) * 1e3
+        bnd = orig_bound(n, k, m, needed, False)
+        bnd_e = orig_bound(n, k, m, needed, True)
+        plan = _orig_launch(k, dev)
+        assert plan["l_in_shared"] == (k <= ORIG_SHARED_MAX_K), (k, plan)
+        log(f"phase 8: orig_chunk n={n} K={k} pairs={m}: training form "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}); ELBO form {ms_e:.4f} ms, plain {plain_ms_e:.1f} "
+            f"ms, bound {bnd_e[0]:.4f} ms; {plan['groups_per_block']} pairs "
+            f"a block, {plan['lanes']} lanes a pair, L in "
+            f"{'shared' if plan['l_in_shared'] else 'device'} memory "
+            f"({plan['smem_bytes']} bytes a block); {n_blocks} blocks of "
+            f"{BLOCK}, R_b mean {float(r_k[::BLOCK].double().mean()):.2f}, "
+            f"max {int(r_k.max())}, {needed / m:.2f} rounds a pair; R_b the "
+            f"plain version's on all {n_blocks} blocks, both forms; on the "
+            f"kernel's rounds "
+            f"phi within {phi_err:.3e} of float64 on all but {n_split} pairs"
+            f", gamma_hat and moments {err:.3e} of their largest entry, "
+            f"terms {err_e:.3e} (their sum {sum_err:.3e}); two launches of "
+            f"each form bitwise equal")
+        reports[(n, k)] = (dict(_report(err, ms, plain_ms, bnd)),
+                           dict(_report(err_e, ms_e, plain_ms_e, bnd_e)))
+        del staged, pairs, y, csr, g_k, g_t
+        torch.cuda.empty_cache()
+    return reports[ORIG_SHAPES[0]]
+
+
+def _orig_launch(k, dev):
+    """Kernel 15's block at K = k, by the rule of its plan_for
+    (csrc/orig_fixed_point.cu): 8, 16 or 32 lanes a pair, the most groups
+    up to 256 lanes whose six rows of K floats fit in the opt-in shared
+    memory, and L_1, L_0 (8 K^2 bytes) there too where they fit beside
+    them."""
+    props = torch.cuda.get_device_properties(dev)
+    # the H100's opt-in shared memory a block, where this torch has no field
+    optin = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
+    lanes = 8 if k <= 32 else (16 if k <= 64 else 32)
+    row_bytes = 4 * 6 * k
+    gpb = 256 // lanes
+    while gpb > 1 and gpb * row_bytes > optin:
+        gpb //= 2
+    smem = gpb * row_bytes
+    shared = smem + 8 * k * k <= optin
+    return dict(lanes=lanes, groups_per_block=gpb, l_in_shared=shared,
+                smem_bytes=smem + (8 * k * k if shared else 0))
+
+
+def gen_bound(n, k, pairs, n_edges):
+    """Kernel 16's bound: the cumulative rows and beta read once, the
+    edges written; per pair one Philox4x32-10 (10 rounds of 2 wide
+    multiplies, 2 high words, 4 xors and the key's 2 adds), three
+    uniforms and two binary searches of log2 K steps, each instruction an
+    operation at the f32 rate."""
+    ops = pairs * (100 + 9 + 6 * max(1.0, np.log2(k)) + 4)
+    return bound(4 * n * k + 4 * k + 8 * n_edges, ops)
+
+
+def phase8_kernel16(dev):
+    """Kernel 16 at GEN_SHAPES bit for bit its plain version, two launches
+    bitwise equal; timed at GEN_TIMED. Returns its report."""
+    from svinet_torch.config import Config
+    from svinet_torch.svi.gen import cumulative_pi, gen_pairs, gen_pairs_plain
+    cfg = Config()
+    eps = float(np.float32(cfg.epsilon))
+    rng = np.random.default_rng(16)
+
+    def state(n, k):
+        pi = rng.dirichlet(np.full(k, 0.05), size=n)
+        beta = rng.beta(cfg.eta0_gen, cfg.eta1_gen, size=k)
+        return (torch.as_tensor(cumulative_pi(pi), device=dev),
+                torch.as_tensor(beta.astype(np.float32), device=dev))
+
+    for n, k, rows in GEN_SHAPES:
+        cum, beta = state(n, k)
+        e_k = gen_pairs(cum, beta, eps, 11, 0, 0, rows)
+        e_2 = gen_pairs(cum, beta, eps, 11, 0, 0, rows)
+        e_p = gen_pairs_plain(cum, beta, eps, 11, 0, 0, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(e_k, e_2), (n, k, "two launches differ")
+        assert torch.equal(e_k, e_p), (n, k, e_k.shape, e_p.shape)
+        r = rows or n
+        log(f"phase 8: gen_pairs n={n} K={k} rows [0, {r}): "
+            f"{e_k.shape[0]} links, bit for bit the plain version's, two "
+            f"launches bitwise equal")
+        del e_k, e_2, e_p
+    n, k = GEN_TIMED
+    cum, beta = state(n, k)
+    ms = cuda_ms(lambda: gen_pairs(cum, beta, eps, 11, 0), 3)
+    edges = gen_pairs(cum, beta, eps, 11, 0)
+    t0 = time.perf_counter()
+    plain = gen_pairs_plain(cum, beta, eps, 11, 0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(edges, plain)
+    pairs = n * (n - 1) / 2
+    bnd = gen_bound(n, k, pairs, edges.shape[0])
+    log(f"phase 8: gen_pairs n={n} K={k} (-gen's dense limit, "
+        f"{pairs:.0f} pairs): kernel {ms:.3f} ms, {edges.shape[0]} links "
+        f"({pairs / ms / 1e6:.2f} G pairs/s), plain {plain_ms:.1f} ms (bit "
+        f"for bit), bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del edges, plain
+    torch.cuda.empty_cache()
+    return dict(_report(0.0, ms, plain_ms, bnd))
+
+
+def _orig_cli(workdir, net, label, flags):
+    from svinet_torch.cli import main
+    os.chdir(workdir)
+    n, k = BATCH_PLANTED["n"], BATCH_PLANTED["k"]
+    assert main(["-file", net, "-n", str(n), "-k", str(k), "-seed", "1",
+                 "-label", label, *flags]) == 0
+    return _outdir(workdir, label)
+
+
+def _orig_runs(workdir, record):
+    """The -orig runs of ORIG_RUNS on planted n=2,000. Returns ({label:
+    rows}, {label: (out, seconds, launches, forms)})."""
+    from svinet_torch.synth import write_planted
+    workdir = os.path.join(workdir, "phase8")
+    os.makedirs(workdir, exist_ok=True)
+    net, _ = write_planted(workdir, BATCH_PLANTED["n"], BATCH_PLANTED["k"],
+                           BATCH_PLANTED["avg_deg"], BATCH_PLANTED["seed"])
+    rows, info = {}, {}
+    for label, flags in ORIG_RUNS.items():
+        if not record:
+            _zero_counts()
+        t0 = time.perf_counter()
+        out = _orig_cli(workdir, net, label + ("-cpu" if record else ""),
+                        flags)
+        secs = time.perf_counter() - t0
+        r = _mmsb_rows(out)
+        rows[label] = {"heldout": r["heldout"], "logl": r["logl"]}
+        info[label] = (out, secs, *(_read_counts() if not record
+                                    else ({}, {})))
+    return rows, info, workdir, net
+
+
+def phase8_orig_cli(workdir):
+    """-orig and -orig -logl -itype 1 through the CLI on the card, held to
+    the CPU port's rows; kernel 15 once an iteration (one chunk) and its
+    ELBO form once a -logl report; the run cut after the report of
+    ORIG_CUT and resumed bit for bit the uninterrupted one. Returns
+    (launches by name and form, launches an iteration)."""
+    rows, info, wd, net = _orig_runs(workdir, record=False)
+    launches, iterations, reports = {}, 0, 0
+    for label, (out, secs, counted, forms) in info.items():
+        _rows_close(rows[label], ORIG_CPU_ROWS[label], label)
+        # a report every iteration: iterations 1 to max + 1
+        steps = len(rows[label]["heldout"])
+        iterations += steps
+        reports += steps if label == "origl" else 0
+        assert forms["orig_chunk:f32"] == steps, (label, forms)
+        assert forms.get("orig_chunk:elbo", 0) == (
+            steps if label == "origl" else 0), forms
+        assert counted["dirichlet_expectation"] >= steps, counted
+        # kernel 15's row counts its training form, the ELBO form its own
+        counted = {k: v for k, v in counted.items() if k != "orig_chunk"}
+        forms = {("orig_chunk" if k == "orig_chunk:f32" else k): v
+                 for k, v in forms.items()}
+        for name, v in {**counted, **forms}.items():
+            launches[name] = launches.get(name, 0) + v
+        beta = np.loadtxt(os.path.join(out, "beta.txt"), ndmin=2)
+        gamma = np.loadtxt(os.path.join(out, "gamma.txt"), ndmin=2)
+        assert beta.shape == (BATCH_PLANTED["k"],) * 2 and np.isfinite(
+            beta).all() and np.allclose(beta, beta.T, atol=1e-5)
+        assert gamma.shape == (BATCH_PLANTED["n"], BATCH_PLANTED["k"] + 2)
+        assert np.isfinite(gamma).all()
+        log(f"phase 8: MMSBOrig {label} ({' '.join(ORIG_RUNS[label])}) on "
+            f"planted n=2,000, K=20 (1,999,000 pairs less the held-out "
+            f"ones): {secs:.1f} s, {steps} iterations, rows "
+            f"{_rows_gap(rows[label], ORIG_CPU_ROWS[label]):.3e} from the "
+            f"CPU port's (limit {MMSB_ROW_RTOL:g}); launches {forms}")
+    # cut after the report of ORIG_CUT and resumed
+    whole = _orig_cli(wd, net, "origw", ORIG_WHOLE)
+    Cut, undo = _crash_after(ORIG_CUT)
+    try:
+        try:
+            _orig_cli(wd, net, "origc", ORIG_WHOLE + ["-checkpoint-freq",
+                                                      "1e-9"])
+            raise AssertionError("the cut did not happen")
+        except Cut:
+            pass
+    finally:
+        undo()
+    cut = _orig_cli(wd, net, "origc", ORIG_WHOLE + ["-resume"])
+    for name in ("gamma.txt", "beta.txt", "groups.txt"):
+        assert open(os.path.join(whole, name), "rb").read() == open(
+            os.path.join(cut, name), "rb").read(), name
+    for name in ("heldout.txt", "max.txt"):
+        assert _strip(whole, name) == _strip(cut, name), name
+    log(f"phase 8: the -orig run cut after iteration {ORIG_CUT} and "
+        f"-resume'd: gamma.txt, beta.txt, groups.txt, heldout.txt and "
+        f"max.txt the uninterrupted run's bit for bit")
+    per_unit = {"orig_chunk": (launches["orig_chunk"] / iterations,
+                               "MMSBOrig iteration"),
+                "orig_chunk:elbo": (launches["orig_chunk:elbo"] / reports,
+                                    "-orig -logl report")}
+    return launches, per_unit
+
+
+def phase8_orig_timed(dev):
+    """One -orig iteration on all pairs of a planted graph at ORIG_TIMED:
+    the pair set made on the card, then two iterations timed."""
+    from svinet_torch.svi.orig import chunk_pairs, orig_batch_step
+    n, k = ORIG_TIMED
+    t0 = time.perf_counter()
+    pairs, y = _orig_pairs(dev, n)
+    chunks = chunk_pairs(pairs, y, n, k)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    gamma = torch.as_tensor(rng.gamma(100.0, 0.01, size=(n, k)).astype(
+        np.float32), device=dev)
+    beta = torch.as_tensor(np.clip(rng.integers(0, 100, size=(k, k)) / 100.0,
+                                   0.01, 0.99).astype(np.float32),
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for it in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gamma, beta = orig_batch_step(gamma, beta, chunks, 1.0 / k)
+        torch.cuda.synchronize()
+        log(f"phase 8: MMSBOrig iteration {it + 1} at n={n} K={k} "
+            f"({pairs.shape[0]} pairs in {len(chunks)} chunks): "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (the "
+            f"pair set made in {setup:.2f} s)")
+    assert torch.isfinite(gamma).all() and torch.isfinite(beta).all()
+    del pairs, y, chunks
+    torch.cuda.empty_cache()
+
+
+def _gen_model(workdir):
+    """A planted graph of GEN_MODEL_N nodes and a random gamma.txt and
+    lambda.txt for it (K = BATCH_PLANTED's)."""
+    from svinet_torch.synth import write_planted
+    n, k = GEN_MODEL_N, BATCH_PLANTED["k"]
+    net, _ = write_planted(workdir, n, k, 12, 3)
+    rng = np.random.default_rng(6)
+    gamma = rng.gamma(0.5, 4.0, size=(n, k)) + 0.01
+    lam = rng.uniform(0.5, 20.0, size=(k, 2))
+    with open(os.path.join(workdir, "gamma.txt"), "w") as f:
+        for i in range(n):
+            f.write(f"{i}\t{i}\t" + "\t".join(f"{v:.5f}" for v in gamma[i])
+                    + "\n")
+    with open(os.path.join(workdir, "lambda.txt"), "w") as f:
+        for c in range(k):
+            f.write(f"{c}\t{lam[c, 0]:.5f}\t{lam[c, 1]:.5f}\n")
+    return net
+
+
+GEN_RUNS = (("gen", ["-gen", "-seed", "3"]),
+            ("genorig", ["-gen", "-orig", "-seed", "3"]),
+            ("gml", ["-gml"]), ("lcstats", ["-lcstats"]),
+            ("ppc", ["-ppc", "-seed", "5"]))
+
+
+def _gen_files(path):
+    """{relative path: bytes} of every file under path."""
+    out = {}
+    for root, _, files in os.walk(path):
+        for f in files:
+            p = os.path.join(root, f)
+            out[os.path.relpath(p, path)] = open(p, "rb").read()
+    return out
+
+
+def _gen_runs(workdir, device):
+    """GEN_RUNS through the CLI on `device` ("cuda" or "cpu"), each in a
+    directory of its own under workdir/<device>. Returns ({label: files},
+    {label: (seconds, launches, forms)})."""
+    from svinet_torch.cli import main
+    prev = os.environ.get("SVINET_TORCH_DEVICE")
+    os.environ["SVINET_TORCH_DEVICE"] = device
+    files, info = {}, {}
+    try:
+        for label, flags in GEN_RUNS:
+            d = os.path.join(workdir, device, label)
+            os.makedirs(d)
+            if label in ("gen", "genorig"):
+                argv = ["-n", "2000", "-k", str(BATCH_PLANTED["k"]), *flags]
+            else:
+                net = _gen_model(d)
+                argv = ["-file", net, "-n", str(GEN_MODEL_N), "-k",
+                        str(BATCH_PLANTED["k"]), *flags]
+            os.chdir(d)
+            _zero_counts()
+            t0 = time.perf_counter()
+            assert main(argv) == 0
+            info[label] = (time.perf_counter() - t0, *_read_counts())
+            files[label] = _gen_files(d)
+    finally:
+        if prev is None:
+            os.environ.pop("SVINET_TORCH_DEVICE", None)
+        else:
+            os.environ["SVINET_TORCH_DEVICE"] = prev
+    return files, info
+
+
+def _ppc_close(got, want):
+    """Every number of a ppc file within PPC_TOL (relative, or absolute
+    under 1); the labels equal."""
+    g = [line.split("\t") for line in got.decode().splitlines()]
+    w = [line.split("\t") for line in want.decode().splitlines()]
+    assert len(g) == len(w)
+    worst = 0.0
+    for a, b in zip(g, w):
+        assert a[:-1] == b[:-1]
+        x, z = float(a[-1]), float(b[-1])
+        worst = max(worst, abs(x - z) / max(1.0, abs(z)))
+    return worst
+
+
+def phase8_gen_cli(workdir):
+    """GEN_RUNS on the card and on the CPU: every file byte for byte the
+    CPU port's (ppc's z-score files within PPC_TOL); kernel 16 once a
+    generated network (-gen, -gen -orig) and once a ppc draw. Returns
+    (launches by name and form, launches a network)."""
+    wd = os.path.join(workdir, "phase8gen")
+    card, info = _gen_runs(wd, "cuda")
+    cpu, _ = _gen_runs(wd, "cpu")
+    launches, worst, networks = {}, 0.0, 0
+    for label, _ in GEN_RUNS:
+        secs, counted, forms = info[label]
+        want = {"gen": 1, "genorig": 1, "ppc": 100}.get(label, 0)
+        networks += want
+        assert counted["gen_pairs"] == want, (label, counted)
+        assert sorted(card[label]) == sorted(cpu[label]), label
+        apart = []
+        for name, data in card[label].items():
+            if data == cpu[label][name]:
+                continue
+            assert "zscores" in name, (label, name)
+            worst = max(worst, _ppc_close(data, cpu[label][name]))
+            apart.append(name)
+        assert worst <= PPC_TOL, (label, worst)
+        for name, v in {**counted, **forms}.items():
+            launches[name] = launches.get(name, 0) + v
+        made = sorted(n for n in card[label] if n not in ("gamma.txt",
+                                                          "lambda.txt")
+                      and not n.startswith("planted"))
+        log(f"phase 8: {label} ({' '.join(dict(GEN_RUNS)[label])}) on the "
+            f"card: {secs:.1f} s, {len(made)} files byte for byte the CPU "
+            f"port's" + (f" but {apart} (within {worst:.3e})" if apart
+                         else "") + f"; launches {forms}")
+    edges = card["gen"]["gen-n2000-k20-dense/network_gen.dat"].count(b"\n")
+    log(f"phase 8: -gen at n=2,000, K=20 drew {edges} links")
+    return launches, {"gen_pairs": (launches["gen_pairs"] / networks,
+                                    "generated network (-gen, a -ppc draw)")}
+
+
+def phase8(dev, workdir):
+    """The full blockmodel and the generator family: kernels 15 and 16
+    against their plain versions, the CLI runs, the timed shapes. Returns
+    (launches by name and form, {name: (launches a unit, the unit)},
+    {name: report})."""
+    t0 = time.perf_counter()
+    fp, elbo = phase8_kernel15(dev)
+    g = phase8_kernel16(dev)
+    launches, per_unit = phase8_orig_cli(workdir)
+    gl, gu = phase8_gen_cli(workdir)
+    for name, v in gl.items():
+        launches[name] = launches.get(name, 0) + v
+    per_unit.update(gu)
+    phase8_orig_timed(dev)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return launches, per_unit, {"orig_chunk": fp, "orig_chunk:elbo": elbo,
+                                "gen_pairs": g}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--record-cpu"]:
         return record_cpu(sys.argv[2:] or ("mmsb", "fa", "famm", "fk",
-                                           "sbm"))
+                                           "sbm", "orig"))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -5648,6 +6222,14 @@ def main() -> int:
             finally:
                 os.chdir(cwd)
         return 4
+    if sys.argv[1:] == ["--phase8"]:
+        # phase 8 alone, for work on it; prints no result
+        with tempfile.TemporaryDirectory() as workdir:
+            try:
+                phase8(dev, workdir)
+            finally:
+                os.chdir(cwd)
+        return 4
     d_report = phase1_dirichlet(dev)
     reports = phase1_sweep_passes(dev)
     form_reports = phase1_forms(dev)
@@ -5668,6 +6250,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             p6_launches, p6_per_unit, p6_reports = phase6(dev, workdir)
             p7_launches, p7_per_unit, p7_reports = phase7(dev, workdir)
+            p8_launches, p8_per_unit, p8_reports = phase8(dev, workdir)
         finally:
             os.chdir(cwd)
     # kernel 8 from phase 2's MMSBInfer runs: one launch a step, and its
@@ -5697,6 +6280,13 @@ def main() -> int:
     # SBM batch iteration
     for name, (per, what) in p7_per_unit.items():
         launches[name] = p7_launches.get(name, 0)
+        per_sweep[name] = per
+        unit[name] = what
+    # MMSBOrig and the generator from phase 8's CLI runs: kernel 15 a chunk
+    # an -orig iteration (one chunk at n=2,000), its ELBO form a chunk a
+    # -logl report; kernel 16 a generated network
+    for name, (per, what) in p8_per_unit.items():
+        launches[name] = p8_launches.get(name, 0)
         per_sweep[name] = per
         unit[name] = what
     # launches, and launches_per_sweep (the count over the sweeps that run
@@ -5766,6 +6356,15 @@ def main() -> int:
          "svinet_tpu/svi/fastinit.py:105", p7_reports["overlap_stats"]),
         ("estep_chunk", "svinet_torch/csrc/sbm_estep.cu",
          "svinet_tpu/svi/sbm.py:97", p7_reports["estep_chunk"]),
+        # -orig's coupled fixed point (a while loop of K x K products in
+        # XLA) and -logl's pair terms; the generator's pair draw (XLA
+        # categorical slabs)
+        ("orig_chunk", "svinet_torch/csrc/orig_fixed_point.cu",
+         "svinet_tpu/svi/orig.py:39", p8_reports["orig_chunk"]),
+        ("orig_chunk:elbo", "svinet_torch/csrc/orig_fixed_point.cu",
+         "svinet_tpu/svi/orig.py:68", p8_reports["orig_chunk:elbo"]),
+        ("gen_pairs", "svinet_torch/csrc/gen_pairs.cu",
+         "svinet_tpu/svi/gen.py:45", p8_reports["gen_pairs"]),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

@@ -1,6 +1,7 @@
-"""svinet-torch: the a-MMSB link-sampling SVI engine and the MMSBInfer
-engine in PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU
-(sm_90a).
+"""svinet-torch: every engine of svinet_tpu (the a-MMSB link-sampling SVI
+engine, MMSBInfer, FastAMM2, FastAMM, FastInit, SBM, the full blockmodel
+and the generator family) in PyTorch, with hand-written CUDA kernels for
+an NVIDIA Hopper GPU (sm_90a).
 
 The package mirrors svinet_tpu's layout (ops/, svi/, evals/, io/, cli.py)
 and is tested against it, but imports nothing of it and never imports

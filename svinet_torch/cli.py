@@ -5,14 +5,15 @@
 USAGE and parse_args are the port's own copy of svinet_tpu/cli.py:21-278
 (every flag parses to the same Config there and here; the tests hold the
 two equal); the network set-up is that of svinet_tpu/cli.py:314-333. The
-port runs FastInit (-findk), -link-sampling, SBM (-single, batch and
--infset), MMSBInfer, FastAMM (-infset) and FastAMM2 (-stratified -rnode),
-on one device or, for -link-sampling, MMSBInfer and FastAMM2, under -mesh
-N (-mesh-rowshard and -mesh-locality for -link-sampling), where the CLI
-spawns N ranks (parallel/mesh.py:launch), or N/P of them in each of the P
-processes of -dist-nprocs P. Every flag outside that slice stops the run
-with SystemExit naming the flag; none is ignored. The device comes from
-$SVINET_TORCH_DEVICE (default cuda).
+port runs every engine of the JAX CLI, in its dispatch order: the
+generator (-gen, before the network is read), -ppc, -lcstats and -gml,
+FastInit (-findk), the full blockmodel (-orig), -link-sampling, SBM
+(-single, batch and -infset), MMSBInfer, FastAMM (-infset) and FastAMM2
+(-stratified -rnode), on one device or, for -link-sampling, MMSBInfer and
+FastAMM2, under -mesh N (-mesh-rowshard and -mesh-locality for
+-link-sampling), where the CLI spawns N ranks (parallel/mesh.py:launch),
+or N/P of them in each of the P processes of -dist-nprocs P. The device
+comes from $SVINET_TORCH_DEVICE (default cuda).
 """
 
 from __future__ import annotations
@@ -288,33 +289,6 @@ def parse_args(argv: List[str]) -> Config:
     return cfg
 
 
-# Config field -> the flag that sets it, for the engines the port refuses:
-# those that svinet_tpu/cli.py dispatches before -findk, and -orig, which
-# it dispatches after -findk and before -link-sampling
-_ENGINE_FLAGS = (
-    ("gen", "-gen"), ("ppc", "-ppc"), ("lcstats", "-lcstats"),
-    ("gml", "-gml"),
-)
-_AFTER_FINDK_FLAGS = (("orig", "-orig"),)
-
-
-def check_slice(cfg: Config) -> None:
-    """Raise SystemExit naming the first flag the port does not run. The
-    ported engines, in svinet_tpu/cli.py's dispatch order: FastInit
-    (-findk), -link-sampling, SBM (-single: batch_infer, or infer under
-    -infset), -batch (MMSBInfer.batch_infer), -preprocess, FastAMM
-    (-infset, dense or -fastqueue W), FastAMM2 (-stratified -rnode) and
-    MMSBInfer.infer (no engine flag, -rpair, -rnode, -stratified
-    -rpair)."""
-    for field, flag in _ENGINE_FLAGS:
-        if getattr(cfg, field):
-            raise SystemExit(f"svinet_torch: {flag} is not ported")
-    if not cfg.findk:
-        for field, flag in _AFTER_FINDK_FLAGS:
-            if getattr(cfg, field):
-                raise SystemExit(f"svinet_torch: {flag} is not ported")
-
-
 def main(argv: Optional[List[str]] = None, group=None) -> int:
     """The CLI on `argv`. `group` (parallel/mesh.py:Group) is given to a
     rank of a mesh, which runs the engine as that rank; without it a mesh
@@ -324,7 +298,6 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
         print(USAGE)
         return -1
     cfg = parse_args(argv)
-    check_slice(cfg)
     dist = mesh.Dist.of(cfg)
     if group is None and dist is not None:
         print(f"+ distributed: process {dist.procid} of {dist.nprocs}")
@@ -332,6 +305,15 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
         # one rank a device, each running this CLI (parallel/mesh.py);
         # under -dist-nprocs this process's share of them
         return mesh.launch(argv, mesh.mesh_ranks(cfg), dist=dist)
+    if cfg.gen:
+        # the generator reads no network: dispatched first, after a
+        # -dist-nprocs process other than 0 has its directory
+        # (svinet_tpu/cli.py:287-312)
+        if dist is not None:
+            cfg.outdir = dist.outdir(cfg.outdir)
+        from svinet_torch.svi.gen import MMSBGen
+        MMSBGen(cfg, None, resolve_device()).gen()
+        return 0
 
     # SIGTERM: before the engine exists the run ends with status 0; after,
     # it only sets a flag, and the engine saves the model files at the
@@ -384,9 +366,10 @@ def main(argv: Optional[List[str]] = None, group=None) -> int:
 
 def _build_engine(cfg: Config, group):
     """Read the network and build the engine the flags name, in the
-    dispatch order of svinet_tpu/cli.py:367-418 over the ported engines.
-    Returns (engine, its loop), or (None, None) for -preprocess, which
-    writes neighbors.bin on the host and runs no engine."""
+    dispatch order of svinet_tpu/cli.py:355-418. Returns (engine, its
+    loop), or (None, None) for -ppc, -lcstats and -gml, which run here on
+    the model files in the cwd, and for -preprocess, which writes
+    neighbors.bin on the host; none of these builds an engine."""
     network = Network(cfg)
     network.read(cfg.datfname)
     print(f"+ network: n = {network.n}, ones = {network.ones}, "
@@ -410,9 +393,19 @@ def _build_engine(cfg: Config, group):
     if cfg.groups_file:
         network.load_gt_groups(cfg.groups_file)
     device = resolve_device() if group is None else group.device
+    if cfg.ppc or cfg.lcstats or cfg.gml:
+        from svinet_torch.svi.gen import MMSBGen
+        gen = MMSBGen(cfg, network, device)
+        (gen.ppc if cfg.ppc else
+         gen.get_lc_stats if cfg.lcstats else gen.gml)()
+        return None, None
     if cfg.findk:
         from svinet_torch.svi.fastinit import FastInit
         engine = FastInit(cfg, network, device)
+        return engine, engine.batch_infer
+    if cfg.orig:
+        from svinet_torch.svi.orig import MMSBOrig
+        engine = MMSBOrig(cfg, network, device)
         return engine, engine.batch_infer
     if cfg.link_sampling:
         from svinet_torch.svi.linksampling import LinkSampling

@@ -8,9 +8,10 @@ run conv (n,), its sticky converged flags (0 = free, else the frozen
 column + 1). The JAX engine's arrays come over as numpy arrays, or as the
 gamma.txt/lambda.txt files its runs write (mphi and conv are in no file:
 a loaded run starts from mphi = 0 and no frozen node, as the JAX engine
-does). FastInit's state (labels, ids, cnt) and SBM's (phi, gamma_k, lam,
-eta) come over by name into an engine of the port (set_engine_state), and
-go back as numpy arrays (engine_state).
+does). FastInit's state (labels, ids, cnt), SBM's (phi, gamma_k, lam,
+eta) and MMSBOrig's (gamma, and the K x K beta) come over by name into an
+engine of the port (set_engine_state), and go back as numpy arrays
+(engine_state).
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ ENGINE_STATE = {
     "FastInit": {"labels": np.int32, "ids": np.int32, "cnt": np.float32},
     "SBM": {"phi": np.float32, "gamma_k": np.float32, "lam": np.float32,
             "eta": np.float32},
+    "MMSBOrig": {"gamma": np.float32, "beta": np.float32},
 }
 
 
@@ -83,13 +85,16 @@ def _state_shapes(engine) -> dict:
     if type(engine).__name__ == "FastInit":
         w = engine.width
         return {"labels": (n,), "ids": (n, w), "cnt": (n, w)}
+    if type(engine).__name__ == "MMSBOrig":
+        return {"gamma": (n, k), "beta": (k, k)}
     return {"phi": (n, k), "gamma_k": (k,), "lam": (k + 1, 2),
             "eta": (k + 1, 2)}
 
 
 def set_engine_state(engine, **arrays) -> None:
-    """Put numpy arrays (a JAX FastInit's or SBM's, by attribute name) into
-    the port's engine of the same kind, on its device."""
+    """Put numpy arrays (a JAX FastInit's, SBM's or MMSBOrig's, by
+    attribute name) into the port's engine of the same kind, on its
+    device."""
     kind = type(engine).__name__
     dtypes, shapes = ENGINE_STATE[kind], _state_shapes(engine)
     for name, a in arrays.items():

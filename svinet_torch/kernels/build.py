@@ -117,6 +117,16 @@ SIGNATURES = {
     # phi, elogpi, da, db, rowptr, nbr, held rowptr, held nbr, staged,
     # change, block_partial, partial, tot, n, k, chunk, n_chunks
     "svt_sbm_estep_chunk": (_P,) * 13 + (_I64, _I32, _I32, _I32, _P),
+    # elogpi, lt, pairs, y, elogpi_e, lte, phi, change, done,
+    # block_rounds, remaining, terms, rowptr, nbr, gacc, n, pairs, k,
+    # max_iters, thresh, block, pad, elbo
+    "svt_orig_fixed_point": (_P,) * 15 + (_I64, _I64, _I32, _I32, _F32,
+                                          _I32, _I32, _I32, _P),
+    # k, info (5 ints out): no launch, no stream
+    # cum, beta, counts, offsets, edges, n, k, row0, row1, eps, seed,
+    # stream id, write
+    "svt_gen_pairs": (_P,) * 5 + (_I64, _I32, _I64, _I64, _F32, _I64, _I64,
+                                  _I32, _P),
 }
 
 _lock = threading.Lock()

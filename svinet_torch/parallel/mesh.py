@@ -437,12 +437,18 @@ def wants_mesh(cfg) -> bool:
     (svinet_tpu/svi/linksampling.py:545-546) or -mesh-locality, which
     implies -mesh-rowshard on at least one device (svinet_tpu/cli.py:
     320-333); MMSBInfer and FastAMM2 under -mesh N > 1
-    (svinet_tpu/svi/mmsb.py:314, svinet_tpu/svi/fastamm2.py:76);
-    -preprocess alone runs no engine, and FastInit (-findk, dispatched
-    first), SBM (-single, after -link-sampling) and FastAMM (-infset,
-    before -stratified -rnode in svinet_tpu/cli.py:367-414) have no mesh:
-    each runs one process on one device under any -mesh N."""
-    if cfg.findk:
+    (svinet_tpu/svi/mmsb.py:314, svinet_tpu/svi/fastamm2.py:76). The
+    generator family and the full blockmodel never read -mesh
+    (svinet_tpu/svi/gen.py, svinet_tpu/svi/orig.py) and win over
+    -link-sampling: -gen (before the network is read), -ppc, -lcstats and
+    -gml (after -mesh-locality's reorder, before -findk), then FastInit
+    (-findk), then -orig (svinet_tpu/cli.py:309-378). -preprocess alone
+    runs no engine, and SBM (-single, after -link-sampling) and FastAMM
+    (-infset, before -stratified -rnode in svinet_tpu/cli.py:379-414) have
+    no mesh either: each of these runs one process on one device under any
+    -mesh N."""
+    if cfg.gen or cfg.ppc or cfg.lcstats or cfg.gml or cfg.findk \
+            or cfg.orig:
         return False
     if cfg.link_sampling:
         return (cfg.mesh_devices > 1 or cfg.mesh_locality

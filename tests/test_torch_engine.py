@@ -218,8 +218,9 @@ def test_load_continues_from_a_jax_run(runs, planted, tmp_path, monkeypatch):
 def test_cli_sweep_flags_match_jax(planted, tmp_path, monkeypatch, flags):
     """-freeze, -prune and the three sweep flags together through both
     CLIs: the same stop or one report apart, best nshol within 1e-3
-    relative, NMI within 0.02, the same set of output files. The flags
-    of a later slice (-orig) stay refused by name."""
+    relative, NMI within 0.02, the same set of output files. -orig with
+    the same flags dispatches to the full blockmodel, as the JAX CLI does
+    (it wins over -link-sampling)."""
     _, net, gt = planted
     monkeypatch.setenv("SVINET_TORCH_DEVICE", "cpu")
     monkeypatch.chdir(tmp_path)
@@ -234,5 +235,7 @@ def test_cli_sweep_flags_match_jax(planted, tmp_path, monkeypatch, flags):
            for name, path in out.items()}
     assert abs(nmi["torch"] - nmi["jax"]) <= 0.02
     assert sorted(os.listdir(out["torch"])) == sorted(os.listdir(out["jax"]))
-    with pytest.raises(SystemExit, match="-orig"):
-        torch_main([*_args(net, gt, "refused"), *flags, "-orig"])
+    assert torch_main([*_args(net, gt, "orig"), *flags, "-orig",
+                       "-max-iterations", "1"]) == 0
+    orig = tmp_path / f"n{N}-k{K}-orig-seed1-linksampling"
+    assert (orig / "beta.txt").exists() and (orig / "gamma.txt").exists()

@@ -189,6 +189,9 @@ def test_parse_args_copy_has_not_drifted():
 
 @pytest.mark.parametrize("module,name", [
     ("svi.sbm", "chunk_incident_pairs"),
+    ("svi.gen", "draw_network_sparse"),
+    ("svi.gen", "local_clustering_avg"),
+    ("svi.gen", "bridgeness"),
 ])
 def test_numpy_function_copies_have_not_drifted(module, name):
     """A numpy function copied whole out of a module that imports JAX is
@@ -199,10 +202,10 @@ def test_numpy_function_copies_have_not_drifted(module, name):
 
 
 def test_fastinit_and_sbm_engines_are_dispatched_as_the_original():
-    """FastInit before LinkSampling, SBM after it and before MMSBInfer's
-    batch engine, then FastAMM and FastAMM2: the two CLIs build the
-    engines in the same order (svinet_tpu/cli.py:367-418)."""
-    engines = ("FastInit(cfg", "LinkSampling(cfg", "SBM(cfg",
+    """FastInit, then MMSBOrig, before LinkSampling, SBM after it and
+    before MMSBInfer's batch engine, then FastAMM and FastAMM2: the two
+    CLIs build the engines in the same order (svinet_tpu/cli.py:367-418)."""
+    engines = ("FastInit(cfg", "MMSBOrig(cfg", "LinkSampling(cfg", "SBM(cfg",
                "MMSBInfer(cfg", "FastAMM(cfg", "FastAMM2(cfg")
     for path, start in (("svinet_tpu/cli.py", "def main("),
                         ("svinet_torch/cli.py", "def _build_engine(")):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 from svinet_tpu.cli import main as jax_main
-from svinet_torch.cli import check_slice, main as torch_main, parse_args
+from svinet_torch.cli import main as torch_main, parse_args
 from svinet_torch.parallel import mesh
 from svinet_torch.synth import write_planted
 
@@ -221,8 +221,14 @@ def test_cli_mesh_refuses_with_the_jax_message(graphs, tmp_path,
     ["-rnode", "-dist-nprocs", "1"],
 ])
 def test_cli_takes_the_mesh_flags(flags):
-    check_slice(parse_args(["-file", "absent.txt", "-n", "10", "-k", "2",
-                            *flags]))
+    """The mesh flags parse, and each run takes the mesh path where the
+    JAX engine shards: all but -link-sampling -mesh-rowshard (no -mesh 1)
+    and -rnode without -mesh."""
+    from svinet_torch.parallel import mesh
+    cfg = parse_args(["-file", "absent.txt", "-n", "10", "-k", "2", *flags])
+    alone = (["-link-sampling", "-mesh-rowshard"],
+             ["-rnode", "-dist-nprocs", "1"])
+    assert mesh.wants_mesh(cfg) == (flags not in alone)
 
 
 def _wait_for(path, text, proc, deadline):

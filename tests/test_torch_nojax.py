@@ -4,9 +4,9 @@ with the GPU has no JAX, and the port imports nothing of svinet_tpu.
 A subprocess blocks every `jax` and `svinet_tpu` import with a
 sys.meta_path finder, imports svinet_torch and runs its CLI on a planted
 graph on the CPU. The
-CLI's refusals of flags outside the ported slice (-gen, -ppc, -lcstats,
--gml and -orig), and of a CUDA device on
-a machine without one, are checked here too."""
+CLI's dispatch of every engine flag as the JAX CLI dispatches it, and
+its refusal of a CUDA device on a machine without one, are checked here
+too."""
 
 import os
 import pathlib
@@ -36,6 +36,10 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     sys.meta_path.insert(0, BlockJax())
     sys.path.insert(0, REPO)
+    import torch
+    # the runs are thousands of tiny CPU ops: one thread, so that the
+    # test run's other workers do not starve this process's thread pool
+    torch.set_num_threads(1)
     from svinet_torch.synth import write_planted
     from svinet_torch.cli import main
     net, gt = write_planted(".", 200, 4, 12, 5)
@@ -55,11 +59,32 @@ _BLOCKED_RUN = textwrap.dedent("""
                    "fastamm", *flags])
         assert rc == 0
     for label, flags in (("findk", ["-findk"]), ("sbm", ["-single"]),
-                         ("sbmi", ["-single", "-infset"])):
+                         ("sbmi", ["-single", "-infset"]),
+                         ("orig", ["-orig"]),
+                         ("origl", ["-orig", "-logl"])):
         rc = main(["-file", net, "-n", "200", "-k", "4", "-nmi", gt,
                    "-seed", "3", "-max-iterations", "4", "-label", label,
                    *flags])
         assert rc == 0
+    for flags in (["-gen"], ["-gen", "-orig"]):
+        assert main(["-n", "200", "-k", "4", "-seed", "3", *flags]) == 0
+    # the model-reading entries on a small graph of their own (-ppc draws
+    # 100 networks), its gamma.txt cut from the -orig run's
+    import os
+    os.mkdir("model")
+    os.chdir("model")
+    small, _ = write_planted(".", 40, 4, 6, 5)
+    with open("../n200-k4-orig-seed3-orig/gamma.txt") as src, \
+            open("gamma.txt", "w") as f:
+        f.writelines(line for line in src if int(line.split()[0]) < 40)
+    with open("lambda.txt", "w") as f:
+        for k in range(4):
+            f.write(str(k) + "\\t1.00000\\t9.00000\\n")
+    for flag in ("-gml", "-lcstats", "-ppc"):
+        rc = main(["-file", small, "-n", "40", "-k", "4", "-seed", "3",
+                   flag])
+        assert rc == 0
+    os.chdir("..")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "svinet_tpu"))
     assert not loaded, loaded
@@ -89,12 +114,24 @@ def test_cli_runs_with_jax_blocked(tmp_path):
         assert (out / name).exists(), name
     for label, names in (("findk", ("communities.txt", "groups.txt")),
                          ("sbm", ("gamma.txt", "lambda.txt")),
-                         ("sbmi", ("gamma.txt", "neighbors.bin"))):
+                         ("sbmi", ("gamma.txt", "neighbors.bin")),
+                         ("orig", ("gamma.txt", "beta.txt")),
+                         ("origl", ("logl.txt", "beta.txt"))):
         out = [p for p in tmp_path.iterdir()
                if p.name.startswith(f"n200-k4-{label}-seed3")]
         assert len(out) == 1, out
         for name in names:
             assert (out[0] / name).exists(), (label, name)
+    assert (tmp_path / "n200-k4-origl-seed3-orig" / "logl.txt").read_text()
+    # -gen and -gen -orig write one directory; the second run adds the
+    # full blockmodel's beta matrix
+    gen = [p for p in tmp_path.iterdir() if p.name.startswith("gen-")]
+    assert len(gen) == 1, gen
+    for name in ("network_gen.dat", "pi-gen.txt", "beta-gen-matrix.txt"):
+        assert (gen[0] / name).exists(), name
+    for name in ("network.gml", "community_stats.txt"):
+        assert (tmp_path / "model" / "gml" / name).exists(), name
+    assert len(os.listdir(tmp_path / "model" / "ppc")) == 7
 
 
 # Installed as sitecustomize.py for a subprocess and every rank it spawns:
@@ -288,10 +325,82 @@ def test_cuda_without_a_card_raises(monkeypatch):
     (["-findk", "-gml"], "-gml"),
     (["-single", "-infset", "-ppc"], "-ppc"),
 ])
-def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
+def test_cli_dispatches_as_the_original(flags, named, tmp_path,
+                                        monkeypatch):
+    """Each engine flag set through both CLIs with every engine and the
+    generator stubbed: the port builds the engine (or runs the generator
+    entry) that svinet_tpu/cli.py builds, or stops with its message, and
+    runs it in one process as the JAX CLI does: the generator family and
+    -orig never read -mesh, and win over -link-sampling. `named` is the
+    flag that decides the dispatch."""
+    import importlib
+    import svinet_tpu.parallel.mesh as jmesh
+    from svinet_tpu.cli import main as jax_main
+    from svinet_torch.parallel import mesh
+    from svinet_torch.synth import write_planted
+    calls = []
+
+    def stub(name):
+        class Stub:
+            def __init__(self, *args, **kwargs):
+                self.terminate_requested = False
+
+            def __getattr__(self, method):
+                if method.startswith("__"):
+                    raise AttributeError(method)
+                return lambda *a, **kw: calls.append((name, method))
+
+            def close(self):
+                pass
+
+        Stub.__name__ = name
+        return Stub
+
+    for pkg in ("svinet_tpu", "svinet_torch"):
+        for mod, name in (("gen", "MMSBGen"), ("orig", "MMSBOrig"),
+                          ("fastinit", "FastInit"),
+                          ("linksampling", "LinkSampling"), ("sbm", "SBM"),
+                          ("mmsb", "MMSBInfer"), ("fastamm", "FastAMM"),
+                          ("fastamm2", "FastAMM2")):
+            m = importlib.import_module(f"{pkg}.svi.{mod}")
+            monkeypatch.setattr(m, name, stub(name))
+    def bring_up(coordinator, nprocs, procid):
+        # jax.distributed.initialize is not brought up here; without a
+        # coordinator address it refuses, as the port's CLI does
+        if not coordinator:
+            raise ValueError("coordinator_address should be defined")
+
+    monkeypatch.setattr(jmesh, "init_distributed", bring_up)
+    launched = []
+    monkeypatch.setattr(mesh, "launch",
+                        lambda *a, **kw: launched.append(a) or 0)
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
-    with pytest.raises(SystemExit, match=re.escape(named)):
-        main(["-file", "absent.txt", "-n", "10", "-k", "2", *flags])
+    monkeypatch.chdir(tmp_path)
+    net, _ = write_planted(str(tmp_path), 40, 2, 6, 1)
+    argv = ["-file", net, "-n", "40", "-k", "2", *flags]
+    picked = []
+    for run in (jax_main, main):
+        calls.clear()
+        try:
+            run(list(argv))
+            picked.append(list(calls))
+        except (SystemExit, ValueError) as e:
+            # a refusal before any engine is built
+            picked.append(("refused", str(e)))
+    assert not launched, flags
+    if isinstance(picked[0], tuple):
+        assert isinstance(picked[1], tuple), (flags, picked)
+        if "-mesh-locality" in flags:
+            assert picked[1] == picked[0], (flags, picked)
+        else:
+            assert "-dist-coordinator" in picked[1][1], picked
+    else:
+        assert picked[1] == picked[0], (flags, picked)
+        entry = {"-orig": ("MMSBOrig", "batch_infer"),
+                 "-gen": ("MMSBGen", "gen"), "-ppc": ("MMSBGen", "ppc"),
+                 "-lcstats": ("MMSBGen", "get_lc_stats"),
+                 "-gml": ("MMSBGen", "gml")}[named]
+        assert picked[0] == [entry], (flags, picked)
 
 
 @pytest.mark.parametrize("flags", [
@@ -310,11 +419,11 @@ def test_cli_refuses_flags_outside_the_slice(flags, named, monkeypatch):
 def test_cli_takes_mmsb_and_checkpoint_flags(flags, monkeypatch):
     """MMSBInfer's modes, FastAMM's (-infset, -fastqueue), FastInit's
     (-findk, which dispatches before -orig) and SBM's (-single, batch and
-    -infset), -checkpoint-freq and -resume pass the slice check; the run
-    then fails on the missing input file."""
-    from svinet_torch.cli import check_slice, parse_args
+    -infset), -checkpoint-freq and -resume parse, and the run fails on
+    the missing input file."""
+    from svinet_torch.cli import parse_args
     argv = ["-file", "absent.txt", "-n", "10", "-k", "2", *flags]
-    check_slice(parse_args(argv))
+    parse_args(argv)
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
     with pytest.raises(OSError):
         main(argv)
@@ -329,13 +438,13 @@ def test_cli_takes_mmsb_and_checkpoint_flags(flags, monkeypatch):
 ])
 def test_cli_takes_the_ported_sweep_flags(flags, monkeypatch):
     """-bf16, -freeze, -prune, -sparse-w, -init-communities,
-    -load-test-sets, -profile and -preprocess pass the slice check, alone
-    and together with the flags ported before them; the run then fails on
-    the missing input file, not on a refusal."""
-    from svinet_torch.cli import check_slice, parse_args
+    -load-test-sets, -profile and -preprocess parse, alone and together
+    with the flags ported before them; the run then fails on the missing
+    input file."""
+    from svinet_torch.cli import parse_args
     argv = ["-file", "absent.txt", "-n", "10", "-k", "2", "-link-sampling",
             *flags]
-    check_slice(parse_args(argv))
+    parse_args(argv)
     monkeypatch.setenv(svinet_torch.DEVICE_ENV, "cpu")
     with pytest.raises(OSError):
         main(argv)
