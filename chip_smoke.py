@@ -69,8 +69,15 @@ in float64 on its rounds and to its f32 rounds block by block, kernel 16
 (the generator's pair draw) to its plain version bit for bit, drives
 `-orig` and `-orig -logl -itype 1` held to the CPU port's rows, cuts and
 resumes an -orig run, drives `-gen`, `-gen -orig`, `-gml`, `-lcstats`
-and `-ppc` on the card and on the CPU with every file byte for byte, and
-times one -orig iteration at n=10,000, K=50 (`--phase8` runs it alone).
+and `-ppc` on the card and on the CPU with every file byte for byte (the
+generated network apart only at Gumbel near-ties: both draw on JAX's
+threefry stream, and the logs are the frameworks'), and times one -orig
+iteration at n=10,000, K=50 (`--phase8` runs it alone). Kernel 17 (JAX's
+uniforms, LinkSampling's device init) is counted in phase 3's stretch
+engine build and held to its plain version bit for bit; phases 6 and 7
+also take kernels 10, 11 and 13 past their former width limits (W = 96
+and 128, a `-k 200 -fastqueue 128` CLI run; widths 4,097 and 8,192, a
+`-findk -findk-width 4100` run).
 Every phase asserts what it checks; any failure exits non-zero. Progress goes to stdout; the
 line before the last is a JSON summary of the kernels (time, plain
 version's time, bound and launch counts) and the last line is
@@ -1499,6 +1506,7 @@ def _wrappers():
     from svinet_torch.svi.communities import edge_assignments
     from svinet_torch.svi.fastinit import overlap_stats, vote_topk
     from svinet_torch.ops.orig_phi import orig_chunk
+    from svinet_torch.ops.threefry import uniform_rows
     from svinet_torch.svi.gen import gen_pairs
     from svinet_torch.svi.sbm import estep_chunk
     from svinet_torch.svi.sweep_math import (
@@ -1516,7 +1524,7 @@ def _wrappers():
             "union_scores": union_scores,
             "vote_topk": vote_topk, "overlap_stats": overlap_stats,
             "estep_chunk": estep_chunk, "orig_chunk": orig_chunk,
-            "gen_pairs": gen_pairs}
+            "gen_pairs": gen_pairs, "uniform_rows": uniform_rows}
 
 
 def _zero_counts():
@@ -1932,14 +1940,17 @@ def phase3(dev, workdir):
     from svinet_torch.svi.linksampling import from_edges
     from svinet_torch.synth import random_edges
     n, k = STRETCH["n"], STRETCH["k"]
+    raw = random_edges(n, STRETCH["n_edges"], 0)
+    _zero_counts()
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng = from_edges(random_edges(n, STRETCH["n_edges"], 0), n, k, dev,
-                     os.path.join(workdir, "stretch"))
+    eng = from_edges(raw, n, k, dev, os.path.join(workdir, "stretch"))
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    init_launches = _read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     net = eng.network
+    uniform_report = phase3_uniform(dev, eng, init_launches)
     n_train = len(net.training_links)
     # the device init adds a normalised phi to both ends of every link, so
     # each gamma row sums to the node's degree in the whole graph
@@ -1960,7 +1971,8 @@ def phase3(dev, workdir):
                     "sparse_union_pass": 0, "phi_fixed_point": 0,
                     "edge_assignments": 0, "sparse_fastamm_stats": 0,
                     "union_scores": 0, "vote_topk": 0, "overlap_stats": 0,
-                    "estep_chunk": 0, "orig_chunk": 0, "gen_pairs": 0}
+                    "estep_chunk": 0, "orig_chunk": 0, "gen_pairs": 0,
+                    "uniform_rows": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     _zero_counts()
@@ -2225,7 +2237,66 @@ def phase3(dev, workdir):
         f"{p_ms + s_ms:.4f} ms")
     del gacc, sumk
     torch.cuda.empty_cache()
-    return phase3_mmsb(dev, eng), eng
+    return phase3_mmsb(dev, eng), eng, uniform_report
+
+
+def uniform_bound(rows, k):
+    """Kernel 17's bound: the (rows, K) floats written once; about 100
+    integer instructions an element (threefry2x32-20, the xor of its words
+    and the float), each an operation at the f32 rate of the table (the
+    card's 32-bit integer rate is half that)."""
+    return bound(4.0 * rows * k, 100.0 * rows * k)
+
+
+def phase3_uniform(dev, eng, init_launches):
+    """Kernel 17 on the stretch engine's device init: one launch a padded
+    edge block in the engine's build (init_launches, counted around it),
+    bit for bit its plain version at the block's shape and across two
+    launches, timed; the init alone timed again and held to the engine's
+    gamma (1e-5 relative: the adds into the rows are atomics). Returns the
+    kernel's report at the block's shape."""
+    from svinet_torch.ops import threefry
+    from svinet_torch.ops.edges import choose_edge_block, pad_edges
+    from svinet_torch.svi.linksampling import init_gamma_from_links_device
+    net, cfg = eng.network, eng.cfg
+    n, k = net.n, eng.k
+    block = choose_edge_block(len(net.training_links), k)
+    ie, im = pad_edges(net.edges, block)
+    num_blocks = ie.shape[0] // block
+    counted, forms = init_launches
+    assert counted["uniform_rows"] == num_blocks, (counted, num_blocks)
+    assert forms["uniform_rows:f32"] == num_blocks, forms
+    key = threefry.split_keys(threefry.prng_key(cfg.seed),
+                              num_blocks)[num_blocks // 2]
+    out = torch.empty((block, k), device=dev)
+    threefry.uniform_rows(key, out)
+    want = threefry.uniform_rows_plain(key, torch.empty_like(out))
+    again = threefry.uniform_rows(key, torch.empty_like(out))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(out, again)
+    ms = cuda_ms(lambda: threefry.uniform_rows(key, out), 10)
+    plain_ms = cuda_ms(lambda: threefry.uniform_rows_plain(key, out), 3)
+    bnd = uniform_bound(block, k)
+    edges = torch.as_tensor(ie, device=dev)
+    mask = torch.as_tensor(im, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gamma = init_gamma_from_links_device(cfg.seed, edges, mask, n, k,
+                                         cfg.alpha, num_blocks)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    err = _close_to_max(gamma, eng.gamma)
+    assert err <= 1e-5, err
+    log(f"phase 3: uniform_rows (kernel 17) at the stretch block "
+        f"({block}, {k}): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); bit for bit the plain version's and "
+        f"JAX's stream, two launches bitwise equal; the engine's device "
+        f"init launched it {num_blocks} times (one a padded edge block of "
+        f"{net.edges.shape[0]} links); the init alone {init_s * 1e3:.1f} ms"
+        f", its gamma within {err:.2e} of the engine's")
+    del gamma, edges, mask, out, want, again
+    torch.cuda.empty_cache()
+    return dict(_report(0.0, ms, plain_ms, bnd), launches=num_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -4124,6 +4195,12 @@ FAMM_FLAGS = ["-infset", "-max-iterations", str(FAMM_STEPS), "-rfreq",
               "500", "-no-stop"]
 FAMM_K_SPARSE = 100
 FAMM_W_SPARSE = 8
+# -fastqueue past the kernels' narrow form (W <= 64): 1,000 steps at K = 200
+FAMM_K_WIDE = 200
+FAMM_W_WIDE = 128
+FAMM_WIDE_STEPS = 1000
+FAMM_WIDE_FLAGS = ["-infset", "-max-iterations", str(FAMM_WIDE_STEPS),
+                   "-rfreq", "500", "-no-stop"]
 FAMM_CUT = 1500
 FAMM_CPU_ROWS = {
     "famm": {
@@ -4158,6 +4235,14 @@ FAMM_CPU_ROWS = {
              -0.009573992, -0.009873162],
         ],
     },
+    "famm-fqw": {
+        "heldout": [
+            [500, -2.696829319, -0.004595249, -5.389063835, -0.0045907,
+             -0.005335171, -0.009925871],
+            [1000, -2.684702635, -0.004687551, -5.36471796, -0.004682911,
+             -0.005311068, -0.009993979],
+        ],
+    },
     "famm-cut": {
         "heldout": [
             [500, -1.909123404, -0.030885301, -3.787361168, -0.030854725,
@@ -4187,18 +4272,34 @@ SPARSE_FP_SHAPES = ((20_000, 20, 8, 121, 256), (1_000_000, 500, 16, 141, 256),
                     (1_000_000, 8_000, 16, 16_000, 16_384),
                     (1_000_000, 8_000, 64, 16_000, 16_384),
                     (1_000_000, 8_000, 16, 0, 256),
-                    (1_000_000, 30_000, 16, 141, 256))
+                    (1_000_000, 30_000, 16, 141, 256),
+                    (1_000_000, 8_000, 96, 141, 256),
+                    (1_000_000, 8_000, 128, 141, 256),
+                    (1_000_000, 8_000, 128, 16_000, 16_384),
+                    (20_000, 3_000, 1_500, 41, 64))
+# the widths past which each wide form's region outgrows the card's shared
+# memory, so that it takes device scratch (the kernels' own scratch
+# queries, asserted): kernel 10 at W = 1,500, kernel 11 at W = 2,100
+WIDE_SCRATCH_W = {"svt_sparse_fastamm_scratch": 1_500,
+                  "svt_sparse_scores_scratch": 2_100}
+# the wide form's (W > 64) shape of the kernels line's row
+SPARSE_WIDE = (1_000_000, 8_000, 128)
 # kernel 11's scores form: (n, K, W, held-out pairs); its assignments form
 # on stretch's links: (n, K, W, links), all of them at SPARSE_STRETCH (the
 # kernels line's row), the first 2M at K=8,000 (the main path's shape,
 # planted-20k's links at K=100, W=8, is the -fastqueue CLI run's own)
 SCORE_SHAPES = ((20_000, 100, 8, 4_000), (1_000_000, 500, 16, 400_000),
                 (1_000_000, 8_000, 16, 400_000),
-                (1_000_000, 8_000, 64, 100_000))
+                (1_000_000, 8_000, 64, 100_000),
+                (1_000_000, 8_000, 96, 20_000),
+                (1_000_000, 8_000, 128, 20_000),
+                (20_000, 4_000, 2_100, 100))
 SPARSE_STRETCH = (1_000_000, 500, 16)
 ASSIGN_SHAPES = ((*SPARSE_STRETCH, STRETCH["n_edges"]),
                  (1_000_000, 8_000, 16, 1 << 21),
-                 (1_000_000, 8_000, 64, 1 << 21))
+                 (1_000_000, 8_000, 64, 1 << 21),
+                 (1_000_000, 8_000, 96, 1 << 18),
+                 (1_000_000, 8_000, 128, 1 << 18))
 # an assignment on the card may name another community than the plain
 # version only where the plain phi of its slot is this close to the
 # largest (the card's digamma and exp differ from torch's in the last
@@ -4230,7 +4331,11 @@ def _famm_runs(workdir, record):
     os.symlink(nb, "neighbors.bin")
     log(f"phase 6: -preprocess on planted-20k: {secs:.1f} s, "
         f"{os.path.getsize(nb)} bytes of informative zeros")
+    # the wide run before the narrow -fastqueue run, whose last edge
+    # assignments phase6_link_communities holds
     runs = (("famm", PLANTED["k"], FAMM_FLAGS),
+            ("famm-fqw", FAMM_K_WIDE,
+             ["-fastqueue", str(FAMM_W_WIDE), *FAMM_WIDE_FLAGS]),
             ("famm-fq", FAMM_K_SPARSE,
              ["-fastqueue", str(FAMM_W_SPARSE), *FAMM_FLAGS]))
     rows, info = {}, {}
@@ -4358,13 +4463,14 @@ def phase6_cli(workdir):
     finally:
         undo()
     launches, per_unit = {}, {}
-    steps = FAMM_STEPS + 1
-    for label in ("famm", "famm-fq"):
+    for label in ("famm", "famm-fq", "famm-fqw"):
         out, secs, counted, forms = info[label]
         want = {"heldout": FAMM_CPU_ROWS[label]["heldout"]}
         _rows_close({"heldout": rows[label]["heldout"]}, want, label)
         reports = len(rows[label]["heldout"])
-        assert reports == FAMM_STEPS // 500, (label, reports)
+        wide = label == "famm-fqw"
+        steps = (FAMM_WIDE_STEPS if wide else FAMM_STEPS) + 1
+        assert reports == (steps - 1) // 500, (label, reports)
         if label == "famm":
             assert forms["phi_fixed_point:fastamm"] == steps, forms
             assert counted["heldout_sums"] >= reports, counted
@@ -4374,15 +4480,20 @@ def phase6_cli(workdir):
             per_unit["phi_fixed_point:fastamm"] = (
                 forms["phi_fixed_point:fastamm"] / steps, "FastAMM step")
         else:
-            assert forms["sparse_fastamm_stats:f32"] == steps, forms
-            assert forms["union_scores:assign"] == reports + 1, forms
-            assert forms["union_scores:scores"] >= reports, forms
+            # the wide run (W = 128) takes only the kernels' wide forms
+            sfx = "+wide" if wide else ""
+            k10 = "sparse_fastamm_stats:" + ("wide" if wide else "f32")
+            assert forms[k10] == steps, forms
+            assert forms[f"union_scores:assign{sfx}"] == reports + 1, forms
+            assert forms[f"union_scores:scores{sfx}"] >= reports, forms
+            assert counted["sparse_fastamm_stats"] == steps, counted
             assert not counted["phi_fixed_point"], counted
-            per_unit["sparse_fastamm_stats"] = (
-                counted["sparse_fastamm_stats"] / steps, "FastAMM step")
+            per_unit["sparse_fastamm_stats:wide" if wide
+                     else "sparse_fastamm_stats"] = (
+                forms[k10] / steps, "FastAMM step")
             for form in ("scores", "assign"):
-                per_unit[f"union_scores:{form}"] = (
-                    forms[f"union_scores:{form}"] / reports,
+                per_unit[f"union_scores:{form}{sfx}"] = (
+                    forms[f"union_scores:{form}{sfx}"] / reports,
                     "FastAMM report")
         assert counted["dirichlet_expectation"] >= steps, counted
         for name, v in {**counted, **forms}.items():
@@ -4390,9 +4501,12 @@ def phase6_cli(workdir):
         g = np.loadtxt(os.path.join(out, "gamma.txt"))
         assert np.isfinite(g).all() and g.shape[0] == PLANTED["n"]
         nmi = float(open(os.path.join(out, "mutual.txt")).read().split()[-1])
-        log(f"phase 6: FastAMM {label} ({' '.join(FAMM_FLAGS[1:])}"
+        flags = FAMM_WIDE_FLAGS if wide else FAMM_FLAGS
+        log(f"phase 6: FastAMM {label} ({' '.join(flags[1:])}"
             + (f" -k {FAMM_K_SPARSE} -fastqueue {FAMM_W_SPARSE}"
                if label == "famm-fq" else "")
+            + (f" -k {FAMM_K_WIDE} -fastqueue {FAMM_W_WIDE}" if wide
+               else "")
             + f") on planted-20k: {secs:.1f} s, {steps} steps = "
             f"{secs / steps * 1e3:.3f} ms a step with the reports, heldout "
             f"rows {_rows_gap(rows[label], want):.3e} "
@@ -4535,18 +4649,32 @@ def phase6_fp(dev):
     return report
 
 
+def _wide_scratch_split(dev):
+    """Kernels 10 and 11 take device scratch from WIDE_SCRATCH_W on, by
+    their own scratch queries, and none at the narrow and the shared-memory
+    wide widths below it."""
+    from svinet_torch.kernels import build
+    for name, w in WIDE_SCRATCH_W.items():
+        for below in (64, 128, w - 400):
+            assert build.scratch(name, below, dev, torch.float32) is None, (
+                name, below)
+        assert build.scratch(name, w, dev, torch.float32) is not None, (
+            name, w)
+
+
 def phase6_sparse(dev):
     """Kernel 10 against its plain version at every shape of
     SPARSE_FP_SHAPES (the same R, sums at 1e-4 of the largest entry, two
-    launches bitwise equal). Returns the report at n=1M, K=8,000, W=16 and
-    one node's minibatch."""
+    launches bitwise equal). Returns the reports at n=1M, K=8,000, W=16
+    and at SPARSE_WIDE (its wide form), one node's minibatch."""
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.ops.sparse_gamma import (
         sparse_fastamm_stats, sparse_fastamm_stats_plain)
     log_eps = float(np.float32(np.log(1e-30)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
-    report = None
+    report = reports_wide = None
+    _wide_scratch_split(dev)
     for n, k, wt, m, pad in SPARSE_FP_SHAPES:
         ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
         lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
@@ -4582,9 +4710,11 @@ def phase6_sparse(dev):
             f"launches bitwise equal")
         if (n, k, wt, m) == (1_000_000, 8_000, 16, 141):
             report = _report(err, ms, plain_ms, bnd)
+        if (n, k, wt, m) == (*SPARSE_WIDE, 141):
+            reports_wide = _report(err, ms, plain_ms, bnd)
         del ids, vals, rest, g_k, g_2, g_p
         torch.cuda.empty_cache()
-    return report
+    return report, reports_wide
 
 
 def score_bound(n_pairs, w, out_bytes):
@@ -4677,6 +4807,9 @@ def phase6_scores(dev):
         if (n, k, wt) == (1_000_000, 8_000, 16):
             reports["scores"] = dict(_report(err, ms, plain_ms, bnd),
                                      floor_ms=floor)
+        if (n, k, wt) == SPARSE_WIDE:
+            reports["scores+wide"] = dict(_report(err, ms, plain_ms, bnd),
+                                          floor_ms=floor)
         if k == 100:
             # no pair at all: both forms return empty outputs
             none = pairs[:0]
@@ -4734,6 +4867,9 @@ def phase6_scores(dev):
         if (n, k, wt) == SPARSE_STRETCH:
             reports["assign"] = dict(_report(err, ms, plain_ms, bnd),
                                      floor_ms=floor)
+        if (n, k, wt) == SPARSE_WIDE:
+            reports["assign+wide"] = dict(_report(err, ms, plain_ms, bnd),
+                                          floor_ms=floor)
         del ids, vals, rest, c_k, c_2, c_p, m_k, m_2, m_p
         torch.cuda.empty_cache()
     return reports
@@ -4818,11 +4954,12 @@ def phase6(dev, workdir):
     stretch-shaped state. Returns (launches by name and form, {row name:
     (launches a unit, the unit)}, {row name: report})."""
     t0 = time.perf_counter()
-    reports = {"phi_fixed_point:fastamm": phase6_fp(dev),
-               "sparse_fastamm_stats": phase6_sparse(dev)}
+    reports = {"phi_fixed_point:fastamm": phase6_fp(dev)}
+    (reports["sparse_fastamm_stats"],
+     reports["sparse_fastamm_stats:wide"]) = phase6_sparse(dev)
     scores = phase6_scores(dev)
-    reports["union_scores:scores"] = scores["scores"]
-    reports["union_scores:assign"] = scores["assign"]
+    for form in ("scores", "assign", "scores+wide", "assign+wide"):
+        reports[f"union_scores:{form}"] = scores[form]
     launches, per_unit = phase6_cli(workdir)
     phase6_steps(dev)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
@@ -5008,7 +5145,12 @@ SBM_CPU_ROWS = {'sbm': {'heldout': [[1, -3.462412959, -0.000984786, -6.923840962
 # VOTE_HUB links; the labels come from a few values, so counts tie
 VOTE_HUB = 50_000
 # kernel 13 at these widths on made rows, beside stretch's links at 64
-OVERLAP_WIDTHS = (8, 130)
+OVERLAP_WIDTHS = (8, 130, 4_097, 8_192)
+# above this width a pair's table outgrows shared memory (device scratch):
+# made rows over fewer pairs, since the plain version's (B, w, w) blocks
+# grow as w^2
+OVERLAP_WIDE = 4_096
+OVERLAP_WIDE_PAIRS = 1_000
 # kernel 14 on chunk 3 and on a whole E-step: (n, K, held-out pairs)
 ESTEP_SHAPES = ((20_000, 20, 4_000), (1_000_000, 500, 400_000))
 ESTEP_TOL = 1e-4
@@ -5128,10 +5270,11 @@ def _overlap_ties(ids, pi, pairs, mid_k, mid_p, mx_p):
     return len(bad)
 
 
-def overlap_bound(n, w, m):
-    """Kernel 13's bound (ids and pi read once, the pairs read and three
-    outputs written) and its floor (each pair's two rows gathered)."""
-    return (bound(8 * n * w + 8 * m + 12 * m, 0.0),
+def overlap_bound(rows, w, m):
+    """Kernel 13's bound (the ids and pi rows the pairs name, `rows` of
+    them, read once, the pairs read and three outputs written) and its
+    floor (each pair's two rows gathered)."""
+    return (bound(8 * rows * w + 8 * m + 12 * m, 0.0),
             (16 * w + 20) * m / PEAK_BYTES_S * 1e3)
 
 
@@ -5139,7 +5282,8 @@ def phase7_overlap(dev, stretch_links):
     """Kernel 13 against its plain version (sums and largest products at
     ESTEP_TOL, ids equal up to ties) and across two launches: stretch's
     links on a width-64 vote of stretch, made rows at OVERLAP_WIDTHS over
-    planted-20k's links and random pairs. Returns stretch's report."""
+    planted-20k's links and random pairs. Returns stretch's report and
+    the widest made rows' (tables in device scratch)."""
     from svinet_torch.ops.edges import build_adjacency
     from svinet_torch.svi.fastinit import (
         overlap_stats, overlap_stats_plain, sparse_pi, vote_topk)
@@ -5154,13 +5298,17 @@ def phase7_overlap(dev, stretch_links):
               torch.as_tensor(stretch_links, device=dev))]
     planted = _planted_links()
     for w in OVERLAP_WIDTHS:
-        m_ids, m_cnt = _made_rows(gen_np, PLANTED["n"], w, 4 * w)
+        m_ids, m_cnt = _made_rows(gen_np, PLANTED["n"], w,
+                                  min(4 * w, PLANTED["n"] - 1))
         rand = gen_np.integers(0, PLANTED["n"], (200_000, 2)).astype(np.int32)
+        pairs = np.concatenate([planted, rand])
+        if w > OVERLAP_WIDE:
+            pairs = np.concatenate([planted[:OVERLAP_WIDE_PAIRS // 2],
+                                    rand[:OVERLAP_WIDE_PAIRS // 2]])
         cases.append((f"made rows of width {w}",
                       torch.as_tensor(m_ids, device=dev),
                       torch.as_tensor(m_cnt, device=dev),
-                      torch.as_tensor(np.concatenate([planted, rand]),
-                                      device=dev)))
+                      torch.as_tensor(pairs, device=dev)))
     report = None
     for label, ids, cnt, pairs in cases:
         nn, w = ids.shape
@@ -5173,13 +5321,18 @@ def phase7_overlap(dev, stretch_links):
         def plain():
             # the plain version's blocks at about 1 GB of (B, w, w) floats
             return overlap_stats_plain(ids, pi, pairs,
-                                       block=max(64, (1 << 28) // (w * w)))
+                                       block=max(1, (1 << 28) // (w * w)))
 
+        scratch_before = overlap_stats.forms.get("scratch", 0)
         s_k, mx_k, mid_k = run()
         s_2, mx_2, mid_2 = run()
         torch.cuda.synchronize()
         assert (torch.equal(s_k, s_2) and torch.equal(mx_k, mx_2)
                 and torch.equal(mid_k, mid_2))
+        # the kernel's own scratch query put the tables in device scratch
+        # past OVERLAP_WIDE, and only there
+        took = overlap_stats.forms.get("scratch", 0) - scratch_before
+        assert took == (2 if w > OVERLAP_WIDE else 0), (label, took)
         s_p, mx_p, mid_p = plain()
         err = max(_rel_err(s_k, s_p), _rel_err(mx_k, mx_p))
         assert err <= ESTEP_TOL, (label, err)
@@ -5187,17 +5340,24 @@ def phase7_overlap(dev, stretch_links):
         shared = float((s_p > 0).float().mean())
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 1)
-        bnd, floor = overlap_bound(nn, w, m)
+        rows = int(torch.unique(pairs).numel())
+        bnd, floor = overlap_bound(rows, w, m)
+        form = ("tables in device scratch" if w > OVERLAP_WIDE else
+                "a block a pair" if w > 64 else "a group a pair")
         log(f"phase 7: overlap_stats on {label} (n={nn}, width {w}, {m} "
-            f"pairs, {shared:.1%} sharing an id): kernel {ms:.4f} ms, plain "
+            f"pairs over {rows} rows, {shared:.1%} sharing an id; {form}): "
+            f"kernel "
+            f"{ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms, floor {floor:.4f} "
             f"ms; sums within {err:.3e}, {ties} ids apart on a tie within "
             f"1e-6; two launches bitwise equal")
         if label == "stretch's links":
             report = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
+        if w == OVERLAP_WIDTHS[-1]:
+            wide = dict(_report(err, ms, plain_ms, bnd), floor_ms=floor)
     del cases
     torch.cuda.empty_cache()
-    return report
+    return report, wide
 
 
 def _estep_state(dev, gen, n, k, links, m_held):
@@ -5601,6 +5761,47 @@ def phase7_times(dev, stretch_links):
     torch.cuda.empty_cache()
 
 
+# -findk past the width whose tables kernel 13 keeps in shared memory, on
+# planted n=2,000 (BATCH_PLANTED): its overlap tables in device scratch
+FK_WIDE_WIDTH = 4_100
+
+
+def phase7_wide_cli(workdir):
+    """-findk -findk-width FK_WIDE_WIDTH through the CLI on the card: every
+    FastInit report's overlap pass in kernel 13's scratch form, the files
+    written and finite. Returns (launches by name and form, {name:
+    (launches a unit, the unit)})."""
+    from svinet_torch.cli import main
+    from svinet_torch.synth import write_planted
+    wd = os.path.join(workdir, "phase7wide")
+    os.makedirs(wd, exist_ok=True)
+    n, k = BATCH_PLANTED["n"], BATCH_PLANTED["k"]
+    net, gt = write_planted(wd, n, k, BATCH_PLANTED["avg_deg"],
+                            BATCH_PLANTED["seed"])
+    os.chdir(wd)
+    _zero_counts()
+    t0 = time.perf_counter()
+    assert main(["-file", net, "-n", str(n), "-k", str(k), "-nmi", gt,
+                 "-seed", "1", "-label", "fkw", "-findk", "-findk-width",
+                 str(FK_WIDE_WIDTH)]) == 0
+    secs = time.perf_counter() - t0
+    counted, forms = _read_counts()
+    out = _outdir(wd, "fkw")
+    sweeps = int(np.log10(n)) + 1
+    assert forms.get("overlap_stats:scratch", 0) == counted[
+        "overlap_stats"] >= sweeps, (counted, forms)
+    assert counted["vote_topk"] >= sweeps, counted
+    rows = _mmsb_rows(out)["heldout"]
+    assert rows and np.isfinite(np.asarray(rows, float)).all(), rows
+    comms = open(os.path.join(out, "communities.txt")).read().splitlines()
+    log(f"phase 7: -findk -findk-width {FK_WIDE_WIDTH} on planted n={n}: "
+        f"{secs:.1f} s, {len(rows)} heldout rows, {len(comms)} communities;"
+        f" launches {forms}")
+    launches = {**counted, **forms}
+    return launches, {"overlap_stats:scratch": (
+        forms["overlap_stats:scratch"] / sweeps, "FastInit sweep")}
+
+
 def phase7(dev, workdir):
     """FastInit and SBM: kernels 12, 13 and 14 against their plain
     versions, the CLI runs on planted-20k, the times on stretch. Returns
@@ -5612,10 +5813,15 @@ def phase7(dev, workdir):
     stretch_links = stretch_links[np.unique(
         stretch_links[:, 0].astype(np.int64) * STRETCH["n"]
         + stretch_links[:, 1], return_index=True)[1]]
-    reports = {"vote_topk": phase7_vote(dev, stretch_links),
-               "overlap_stats": phase7_overlap(dev, stretch_links),
-               "estep_chunk": phase7_estep(dev, stretch_links)}
+    reports = {"vote_topk": phase7_vote(dev, stretch_links)}
+    (reports["overlap_stats"],
+     reports["overlap_stats:scratch"]) = phase7_overlap(dev, stretch_links)
+    reports["estep_chunk"] = phase7_estep(dev, stretch_links)
     launches, per_unit = phase7_cli(workdir)
+    wl, wu = phase7_wide_cli(workdir)
+    for name, v in wl.items():
+        launches[name] = launches.get(name, 0) + v
+    per_unit.update(wu)
     phase7_times(dev, stretch_links)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     return launches, per_unit, reports
@@ -5626,10 +5832,18 @@ def phase7(dev, workdir):
 # family (-gen, -ppc, -gml, -lcstats; kernel 16).
 
 # Kernel 15 over all pairs of a planted graph (BATCH_PLANTED's degree and
-# seed at n nodes): (n, K), the first the -orig runs' shape. K = 100 keeps
-# L_1 and L_0 in shared memory, K = 301 reads them from device memory.
-ORIG_SHAPES = ((2_000, 20), (2_000, 100), (500, 301))
-ORIG_SHARED_MAX_K = 100
+# seed at n nodes), or over the first chunk the -orig engine cuts them into
+# (chunk True): (n, K, chunk), the first the -orig runs' shape, the one
+# with chunk the timed iteration's. A cluster of 8 CTAs keeps a block of
+# the rule on chip for all its rounds, a group of G lanes a pair; the
+# shapes take every G (ORIG_LANES, from the kernel's own layout query):
+# one lane (no shuffle), 2, 4, 8, 16 and a warp, and K = 520 two column
+# tiles (its logits through shared memory)
+ORIG_SHAPES = ((2_000, 20, False), (2_000, 100, False), (500, 301, False),
+               (2_000, 8, False), (10_000, 50, True), (1_000, 200, False),
+               (200, 520, False))
+ORIG_LANES = {8: (1, 1), 20: (2, 1), 50: (4, 1), 100: (8, 1), 200: (16, 1),
+              301: (32, 1), 520: (32, 2)}
 # the -orig CLI runs on planted n=2,000, K=20 (BATCH_PLANTED), held to the
 # CPU port's rows at MMSB_ROW_RTOL (`python3 chip_smoke.py --record-cpu
 # orig` prints ORIG_CPU_ROWS); the run cut after the report of ORIG_CUT
@@ -5654,21 +5868,40 @@ ORIG_CPU_ROWS = {'orig': {'heldout': [[1, -2.357075691, -0.009105343, -4.7050457
                         -0.009019484, -0.042842231, -0.051861715]],
            'logl': [[1, -600716.01716], [2, -393761.09855],
                     [3, -393752.68267]]}}
+# kernel 15's R_b is the plain version's on every block but at a tie: a
+# block may end rounds apart only where the plain version's largest change
+# at each round between the two ends lies within an f32 unit (of a phi of
+# 1) of the threshold. The kernel's logits are the plain version's bits,
+# its softmax sums in another order, and a change of 1e-5 is a mean of
+# differences of phis near 1: at (2,000, 8) one block's change at round 20
+# is 9.99126e-6 in f32 and 1.00045e-5 in float64, and the kernel takes the
+# round float64 takes (ties seen on the card: within 1.6e-8, up to 3 of
+# 977 blocks a shape, two rounds apart at most)
+ORIG_ROUND_TIE = float(np.finfo(np.float32).eps)
 # one iteration timed on all pairs of a planted graph at (n, K)
 ORIG_TIMED = (10_000, 50)
 # gamma_hat and the moments against the float64 plain version on the
 # kernel's rounds, of their largest entry; the ELBO terms relative (or
 # absolute under 1)
 ORIG_TOL = 1e-4
-# kernel 16: (n, K, rows drawn; None: all), bit for bit its plain version;
-# the timed shape is -gen's dense limit
-GEN_SHAPES = ((2_000, 20, None), (65_536, 500, 512))
+# kernel 16: (n, K, rows drawn; None: all), bit for bit its plain version
+# on the card, under -gen's beta and under a low beta with eps above zero
+# (the shortcuts' cases); the timed shape is -gen's dense limit (the plain
+# version on its first rows). The generator CLI's network_gen.dat on the
+# card may part from the CPU port's only at Gumbel near-ties (the
+# frameworks' logs differ in last bits): GEN_NEAR_TIE
+GEN_SHAPES = ((2_000, 20, None), (65_536, 500, 4))
 GEN_TIMED = (65_536, 20)
-# the generator CLI: -gen and -gen -orig at GEN_SHAPES[0]; -gml, -lcstats
-# and -ppc (100 draws) on a planted graph of GEN_MODEL_N nodes with a
-# random model; every file byte for byte the CPU port's, ppc's z-scores
-# within PPC_TOL (relative, or absolute under 1)
-GEN_MODEL_N = 300
+GEN_TIMED_PLAIN_ROWS = 64
+GEN_NEAR_TIE = 4e-6
+# the generator CLI: -gen and -gen -orig at GEN_CLI_N nodes, K =
+# BATCH_PLANTED's; -gml, -lcstats and -ppc (100 draws) on a planted graph
+# of GEN_MODEL_N nodes with a random model; every file byte for byte the
+# CPU port's, ppc's z-scores within PPC_TOL (relative, or absolute under
+# 1). The CPU draws JAX's stream in int64 torch arithmetic, slowly, so
+# these shapes stay small
+GEN_CLI_N = 1_000
+GEN_MODEL_N = 150
 PPC_TOL = 1e-5
 
 
@@ -5708,11 +5941,54 @@ def orig_bound(n, k, m, rounds, elbo):
     return (t_sfu, "operations") if t_sfu > ms else (ms, by)
 
 
+def _orig_round_ties(elogpi, lf2, pairs, y, r_k, r_p, thresh):
+    """Blocks of the rule whose R_b on the card (r_k) and in the plain
+    version (r_p) differ, each asserted a tie: the plain version's largest
+    change over the block at every round from the earlier end to the
+    later one's round before within ORIG_ROUND_TIE of thresh (the block's
+    rounds rerun in f32 as the plain version runs them). Returns how
+    many."""
+    from svinet_torch.ops.orig_phi import BLOCK, _products, softmax_plain
+    m, k = pairs.shape[0], elogpi.shape[1]
+    bk, bp = r_k[::BLOCK].long(), r_p[::BLOCK].long()
+    bad = torch.nonzero(bk != bp).flatten().tolist()
+    for b in bad:
+        lo, hi = b * BLOCK, min((b + 1) * BLOCK, m)
+        first = int(min(bk[b], bp[b]))
+        last = int(max(bk[b], bp[b]))
+        p, q = pairs[lo:hi, 0].long(), pairs[lo:hi, 1].long()
+        e1, e2, link = elogpi[p], elogpi[q], y[lo:hi] == 1
+        if hi == m and m % BLOCK:
+            # the padding pair (0, 0), a nonlink, in the last block
+            e1 = torch.cat([e1, elogpi[:1]])
+            e2 = torch.cat([e2, elogpi[:1]])
+            link = torch.cat([link, link.new_zeros(1)])
+        a1 = torch.full(e1.shape, 1.0 / k, dtype=e1.dtype, device=e1.device)
+        a2 = a1.clone()
+        worst = []
+        for _ in range(last - 1):
+            n1 = softmax_plain(e1 + _products(lf2, link, a2))
+            n2 = softmax_plain(e2 + _products(lf2, link, a1))
+            worst.append(float(torch.maximum((n1 - a1).abs().mean(-1),
+                                             (n2 - a2).abs().mean(-1)).max()))
+            a1, a2 = n1, n2
+        near = worst[first - 1:]
+        assert all(abs(v - thresh) <= ORIG_ROUND_TIE for v in near), (
+            b, first, last, near)
+        log(f"phase 8: kernel 15's block {b} ended at round {int(bk[b])}, "
+            f"the plain version's at {int(bp[b])}: a tie, its largest "
+            f"change at rounds {first}-{last - 1} "
+            f"{', '.join(f'{v:.9e}' for v in near)} against {thresh}")
+    return len(bad)
+
+
 def phase8_kernel15(dev):
-    """Kernel 15 at ORIG_SHAPES: training and ELBO forms each two launches
+    """Kernel 15 at ORIG_SHAPES (each shape's lanes a group and tiles
+    asserted): training and ELBO forms each two launches
     bitwise equal, every pair of a block on its block's rounds, the two
     forms on the same rounds and those the plain version's (f32, under the
-    rule itself) block by block; each pair's phis and terms and gamma_hat
+    rule itself) block by block, a round apart only at a tie
+    (_orig_round_ties); each pair's phis and terms and gamma_hat
     and the moments held to the plain version in float64 on the kernel's
     rounds (a pair that went to another attractor in f32 is counted,
     logged and held under FP_SPLIT_SHARE). Returns the reports of both
@@ -5720,13 +5996,20 @@ def phase8_kernel15(dev):
     from svinet_torch.ops.edges import owner_csr
     from svinet_torch.ops.orig_phi import (
         BLOCK, elbo_logf_pair, logf_pair, moments, orig_chunk,
-        orig_chunk_plain)
+        orig_chunk_plain, orig_layout)
+    from svinet_torch.svi.orig import chunk_pairs
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
     reports = {}
-    for n, k in ORIG_SHAPES:
+    for n, k, first_chunk in ORIG_SHAPES:
         pairs, y = _orig_pairs(dev, n)
+        if first_chunk:
+            head = chunk_pairs(pairs, y, n, k)[0]
+            pairs, y = head.pairs, head.y
         m = pairs.shape[0]
+        lay = orig_layout(k)
+        assert (lay["lanes"], lay["tiles"]) == ORIG_LANES[k], (k, lay)
+        assert lay["kp"] == lay["tiles"] * lay["lanes"] * lay["columns"] >= k
         elogpi, beta = _orig_state(dev, gen, n, k)
         lf2 = logf_pair(beta).contiguous()
         csr = owner_csr(pairs.reshape(-1), n)
@@ -5774,8 +6057,8 @@ def phase8_kernel15(dev):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         del st_p
-        n_blocks, n_differ, r_gap = _block_rounds_differ(r_k, r_p)
-        assert n_differ == 0, (n, k, n_differ, r_gap)
+        n_blocks = r_k[::BLOCK].numel()
+        n_ties = _orig_round_ties(elogpi, lf2, pairs, y, r_k, r_p, 1e-5)
         # the ELBO form on the same fixed point
         e_new, b_new = _orig_state(dev, gen, n, k)
         lfe2 = elbo_logf_pair(b_new).contiguous()
@@ -5812,18 +6095,19 @@ def phase8_kernel15(dev):
         plain_ms_e = (time.perf_counter() - t0) * 1e3
         bnd = orig_bound(n, k, m, needed, False)
         bnd_e = orig_bound(n, k, m, needed, True)
-        plan = _orig_launch(k, dev)
-        assert plan["l_in_shared"] == (k <= ORIG_SHARED_MAX_K), (k, plan)
-        log(f"phase 8: orig_chunk n={n} K={k} pairs={m}: training form "
+        what = " (the timed iteration's first chunk)" if first_chunk else ""
+        log(f"phase 8: orig_chunk n={n} K={k} pairs={m}{what}: training form "
             f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
-            f"({bnd[1]}); ELBO form {ms_e:.4f} ms, plain {plain_ms_e:.1f} "
-            f"ms, bound {bnd_e[0]:.4f} ms; {plan['groups_per_block']} pairs "
-            f"a block, {plan['lanes']} lanes a pair, L in "
-            f"{'shared' if plan['l_in_shared'] else 'device'} memory "
-            f"({plan['smem_bytes']} bytes a block); {n_blocks} blocks of "
+            f"({bnd[1]}; without fma at most half of it: "
+            f"{2 * bnd[0]:.4f} ms); ELBO form {ms_e:.4f} ms, plain "
+            f"{plain_ms_e:.1f} ms, bound {bnd_e[0]:.4f} ms; "
+            f"{lay['lanes']} lanes a group, {lay['tiles']} tile(s) of "
+            f"{lay['columns']} columns a lane; "
+            f"{n_blocks} blocks of "
             f"{BLOCK}, R_b mean {float(r_k[::BLOCK].double().mean()):.2f}, "
             f"max {int(r_k.max())}, {needed / m:.2f} rounds a pair; R_b the "
-            f"plain version's on all {n_blocks} blocks, both forms; on the "
+            f"plain version's on {n_blocks - n_ties} of {n_blocks} blocks "
+            f"({n_ties} a round apart at a tie), both forms; on the "
             f"kernel's rounds "
             f"phi within {phi_err:.3e} of float64 on all but {n_split} pairs"
             f", gamma_hat and moments {err:.3e} of their largest entry, "
@@ -5833,85 +6117,122 @@ def phase8_kernel15(dev):
                            dict(_report(err_e, ms_e, plain_ms_e, bnd_e)))
         del staged, pairs, y, csr, g_k, g_t
         torch.cuda.empty_cache()
-    return reports[ORIG_SHAPES[0]]
+    return reports[ORIG_SHAPES[0][:2]]
 
 
-def _orig_launch(k, dev):
-    """Kernel 15's block at K = k, by the rule of its plan_for
-    (csrc/orig_fixed_point.cu): 8, 16 or 32 lanes a pair, the most groups
-    up to 256 lanes whose six rows of K floats fit in the opt-in shared
-    memory, and L_1, L_0 (8 K^2 bytes) there too where they fit beside
-    them."""
-    props = torch.cuda.get_device_properties(dev)
-    # the H100's opt-in shared memory a block, where this torch has no field
-    optin = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
-    lanes = 8 if k <= 32 else (16 if k <= 64 else 32)
-    row_bytes = 4 * 6 * k
-    gpb = 256 // lanes
-    while gpb > 1 and gpb * row_bytes > optin:
-        gpb //= 2
-    smem = gpb * row_bytes
-    shared = smem + 8 * k * k <= optin
-    return dict(lanes=lanes, groups_per_block=gpb, l_in_shared=shared,
-                smem_bytes=smem + (8 * k * k if shared else 0))
-
-
-def gen_bound(n, k, pairs, n_edges):
-    """Kernel 16's bound: the cumulative rows and beta read once, the
-    edges written; per pair one Philox4x32-10 (10 rounds of 2 wide
-    multiplies, 2 high words, 4 xors and the key's 2 adds), three
-    uniforms and two binary searches of log2 K steps, each instruction an
-    operation at the f32 rate."""
-    ops = pairs * (100 + 9 + 6 * max(1.0, np.log2(k)) + 4)
+def gen_bound(n, k, pairs, drawn_p, drawn_q, n_edges):
+    """Kernel 16's bound on this run's draw: the logits and beta read once,
+    the edges written; a pair's u (one threefry2x32-20, about 90 integer
+    instructions with the float it makes), and K Gumbels for each category
+    the shortcuts left to draw (a threefry2x32-20, two logf of about 15
+    instructions each, an add and a compare: some 125), each instruction
+    an operation at the f32 rate of the table (the card's 32-bit integer
+    rate is half that: a ceiling of half the bound)."""
+    ops = pairs * 90.0 + (drawn_p + drawn_q) * k * 125.0
     return bound(4 * n * k + 4 * k + 8 * n_edges, ops)
 
 
-def phase8_kernel16(dev):
-    """Kernel 16 at GEN_SHAPES bit for bit its plain version, two launches
-    bitwise equal; timed at GEN_TIMED. Returns its report."""
+def _gen_state(rng, n, k, low_beta):
+    """pi ~ Dir(0.05) rows of n, beta of -gen's Beta(4700.59, 0.77), or a
+    low beta in [0.05, 0.3] with eps 0.02: (logits, beta) on the host."""
     from svinet_torch.config import Config
-    from svinet_torch.svi.gen import cumulative_pi, gen_pairs, gen_pairs_plain
+    from svinet_torch.svi.gen import logits_of
     cfg = Config()
-    eps = float(np.float32(cfg.epsilon))
+    pi = rng.dirichlet(np.full(k, 0.05), size=n)
+    if low_beta:
+        beta, eps = rng.uniform(0.05, 0.3, size=k), 0.02
+    else:
+        beta, eps = rng.beta(cfg.eta0_gen, cfg.eta1_gen, size=k), cfg.epsilon
+    return (logits_of(pi), beta.astype(np.float32),
+            float(np.float32(eps)))
+
+
+def _gen_near_ties(logits, key, row_block, apart):
+    """Each pair (i, j) of `apart` must have two of its z_p's or its z_q's
+    Gumbel scores (JAX's stream, computed on the CPU) within GEN_NEAR_TIE:
+    where the card's logf and the CPU's log may order them otherwise."""
+    from svinet_torch.ops import threefry
+    from svinet_torch.svi.gen import _block_keys
+    n, k = logits.shape
+    lg = torch.as_tensor(logits)
+    for i, j in apart:
+        start = i // row_block * row_block
+        keys = _block_keys(key, start)
+        x = (i - start) * n + j
+        c = torch.arange(k, dtype=torch.int64)
+        gaps = []
+        for kk, row in ((keys[0], lg[i]), (keys[1], lg[j])):
+            sc = torch.sort(threefry.gumbel_at(kk, x * k + c) + row).values
+            gaps.append(float(sc[-1] - sc[-2]))
+        assert min(gaps) <= GEN_NEAR_TIE, (i, j, gaps)
+
+
+def phase8_kernel16(dev):
+    """Kernel 16 at GEN_SHAPES bit for bit its plain version on the card,
+    two launches bitwise equal; timed at GEN_TIMED with the share of pairs
+    each shortcut skipped. Returns its report at GEN_SHAPES[0] (kernel, plain
+    version and bound on the same 2M pairs)."""
+    from svinet_torch.ops import threefry
+    from svinet_torch.svi.gen import (
+        default_row_block, gen_pairs, gen_pairs_plain)
     rng = np.random.default_rng(16)
-
-    def state(n, k):
-        pi = rng.dirichlet(np.full(k, 0.05), size=n)
-        beta = rng.beta(cfg.eta0_gen, cfg.eta1_gen, size=k)
-        return (torch.as_tensor(cumulative_pi(pi), device=dev),
-                torch.as_tensor(beta.astype(np.float32), device=dev))
-
+    key = threefry.prng_key(11)
+    report = None
     for n, k, rows in GEN_SHAPES:
-        cum, beta = state(n, k)
-        e_k = gen_pairs(cum, beta, eps, 11, 0, 0, rows)
-        e_2 = gen_pairs(cum, beta, eps, 11, 0, 0, rows)
-        e_p = gen_pairs_plain(cum, beta, eps, 11, 0, 0, rows)
-        torch.cuda.synchronize()
-        assert torch.equal(e_k, e_2), (n, k, "two launches differ")
-        assert torch.equal(e_k, e_p), (n, k, e_k.shape, e_p.shape)
-        r = rows or n
-        log(f"phase 8: gen_pairs n={n} K={k} rows [0, {r}): "
-            f"{e_k.shape[0]} links, bit for bit the plain version's, two "
-            f"launches bitwise equal")
-        del e_k, e_2, e_p
+        for low in (False, True):
+            lg_np, b_np, eps = _gen_state(rng, n, k, low)
+            lg = torch.as_tensor(lg_np, device=dev)
+            beta = torch.as_tensor(b_np, device=dev)
+            rb = default_row_block(n, k)
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            e_k = gen_pairs(lg, beta, eps, key, rb, 0, rows, stats=stats)
+            e_2 = gen_pairs(lg, beta, eps, key, rb, 0, rows)
+            e_p = gen_pairs_plain(lg, beta, eps, key, rb, 0, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(e_k, e_2), (n, k, low, "two launches differ")
+            assert torch.equal(e_k, e_p), (n, k, low, e_k.shape, e_p.shape)
+            r = rows or n
+            pairs = r * (2 * n - r - 1) / 2
+            dp, dq = (int(v) for v in stats.tolist())
+            log(f"phase 8: gen_pairs n={n} K={k} rows [0, {r}) "
+                f"({'low beta, eps 0.02' if low else '-gen beta'}): "
+                f"{e_k.shape[0]} links, bit for bit the plain version's, "
+                f"two launches bitwise equal; z_p drawn for "
+                f"{dp / pairs:.4f} of the pairs, z_q for {dq / pairs:.4f}")
+            if rows is None and not low:
+                ms = cuda_ms(lambda: gen_pairs(lg, beta, eps, key, rb), 5)
+                plain_ms = cuda_ms(
+                    lambda: gen_pairs_plain(lg, beta, eps, key, rb), 2)
+                report = dict(_report(0.0, ms, plain_ms, gen_bound(
+                    n, k, pairs, dp, dq, e_k.shape[0])))
+            del e_k, e_2, e_p
     n, k = GEN_TIMED
-    cum, beta = state(n, k)
-    ms = cuda_ms(lambda: gen_pairs(cum, beta, eps, 11, 0), 3)
-    edges = gen_pairs(cum, beta, eps, 11, 0)
+    lg_np, b_np, eps = _gen_state(rng, n, k, False)
+    lg = torch.as_tensor(lg_np, device=dev)
+    beta = torch.as_tensor(b_np, device=dev)
+    rb = default_row_block(n, k)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    edges = gen_pairs(lg, beta, eps, key, rb, stats=stats)
+    ms = cuda_ms(lambda: gen_pairs(lg, beta, eps, key, rb), 2)
+    rows = GEN_TIMED_PLAIN_ROWS
     t0 = time.perf_counter()
-    plain = gen_pairs_plain(cum, beta, eps, 11, 0)
+    plain = gen_pairs_plain(lg, beta, eps, key, rb, 0, rows)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    assert torch.equal(edges, plain)
+    assert torch.equal(edges[edges[:, 0] < rows], plain)
     pairs = n * (n - 1) / 2
-    bnd = gen_bound(n, k, pairs, edges.shape[0])
+    dp, dq = (int(v) for v in stats.tolist())
+    bnd = gen_bound(n, k, pairs, dp, dq, edges.shape[0])
+    sub = rows * (2 * n - rows - 1) / 2
     log(f"phase 8: gen_pairs n={n} K={k} (-gen's dense limit, "
         f"{pairs:.0f} pairs): kernel {ms:.3f} ms, {edges.shape[0]} links "
-        f"({pairs / ms / 1e6:.2f} G pairs/s), plain {plain_ms:.1f} ms (bit "
-        f"for bit), bound {bnd[0]:.4f} ms ({bnd[1]})")
+        f"({pairs / ms / 1e6:.2f} G pairs/s), bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}), z_p drawn for {dp / pairs:.4f} of the pairs and z_q "
+        f"for {dq / pairs:.4f}; plain version on rows [0, {rows}) "
+        f"({sub:.0f} pairs) {plain_ms:.1f} ms, those rows bit for bit")
     del edges, plain
     torch.cuda.empty_cache()
-    return dict(_report(0.0, ms, plain_ms, bnd))
+    return report
 
 
 def _orig_cli(workdir, net, label, flags):
@@ -6089,7 +6410,8 @@ def _gen_runs(workdir, device):
             d = os.path.join(workdir, device, label)
             os.makedirs(d)
             if label in ("gen", "genorig"):
-                argv = ["-n", "2000", "-k", str(BATCH_PLANTED["k"]), *flags]
+                argv = ["-n", str(GEN_CLI_N), "-k", str(BATCH_PLANTED["k"]),
+                        *flags]
             else:
                 net = _gen_model(d)
                 argv = ["-file", net, "-n", str(GEN_MODEL_N), "-k",
@@ -6106,6 +6428,26 @@ def _gen_runs(workdir, device):
         else:
             os.environ["SVINET_TORCH_DEVICE"] = prev
     return files, info
+
+
+def _gen_file_ties(label, got, want):
+    """The pairs in one network_gen.dat and not the other, each at a Gumbel
+    near-tie of the draw GEN_RUNS[label] made (pi drawn again from its
+    seed, as MMSBGen.gen draws it). Returns their count."""
+    from svinet_torch.ops import threefry
+    from svinet_torch.svi.gen import default_row_block, logits_of
+    n, k = GEN_CLI_N, BATCH_PLANTED["k"]
+    alpha = 1.0 / k if label == "genorig" else 0.05
+    pi = np.random.default_rng(3).dirichlet(np.full(k, alpha), size=n)
+
+    def pairs(data):
+        return {tuple(int(v) for v in line.split())
+                for line in data.decode().splitlines() if line}
+
+    apart = sorted(pairs(got) ^ pairs(want))
+    _gen_near_ties(logits_of(pi), threefry.prng_key(3),
+                   default_row_block(n, k), apart)
+    return len(apart)
 
 
 def _ppc_close(got, want):
@@ -6141,9 +6483,14 @@ def phase8_gen_cli(workdir):
         for name, data in card[label].items():
             if data == cpu[label][name]:
                 continue
+            apart.append(name)
+            if name.endswith("network_gen.dat"):
+                ties = _gen_file_ties(label, data, cpu[label][name])
+                log(f"phase 8: {label}: network_gen.dat {ties} pairs apart "
+                    f"from the CPU port's, each at a Gumbel near-tie")
+                continue
             assert "zscores" in name, (label, name)
             worst = max(worst, _ppc_close(data, cpu[label][name]))
-            apart.append(name)
         assert worst <= PPC_TOL, (label, worst)
         for name, v in {**counted, **forms}.items():
             launches[name] = launches.get(name, 0) + v
@@ -6154,8 +6501,10 @@ def phase8_gen_cli(workdir):
             f"card: {secs:.1f} s, {len(made)} files byte for byte the CPU "
             f"port's" + (f" but {apart} (within {worst:.3e})" if apart
                          else "") + f"; launches {forms}")
-    edges = card["gen"]["gen-n2000-k20-dense/network_gen.dat"].count(b"\n")
-    log(f"phase 8: -gen at n=2,000, K=20 drew {edges} links")
+    edges = card["gen"][f"gen-n{GEN_CLI_N}-k{BATCH_PLANTED['k']}-dense/"
+                        f"network_gen.dat"].count(b"\n")
+    log(f"phase 8: -gen at n={GEN_CLI_N:,}, K={BATCH_PLANTED['k']} drew "
+        f"{edges} links")
     return launches, {"gen_pairs": (launches["gen_pairs"] / networks,
                                     "generated network (-gen, a -ppc draw)")}
 
@@ -6242,7 +6591,7 @@ def main() -> int:
             phase1_edge_assign(dev, workdir)
             launches, per_sweep = phase2(workdir)
             mmsb = phase2_mmsb(workdir)
-            assign_report, stretch = phase3(dev, workdir)
+            assign_report, stretch, uniform_report = phase3(dev, workdir)
             mesh_launches = phase4(dev, workdir, stretch)
             p5_launches, fa_fp_report, fa_launches = phase5(dev, workdir,
                                                             stretch)
@@ -6282,6 +6631,11 @@ def main() -> int:
         launches[name] = p7_launches.get(name, 0)
         per_sweep[name] = per
         unit[name] = what
+    # kernel 17 from phase 3's stretch engine build: one launch a padded
+    # edge block of its device init
+    launches["uniform_rows"] = uniform_report.pop("launches")
+    per_sweep["uniform_rows"] = float(launches["uniform_rows"])
+    unit["uniform_rows"] = "stretch engine's device init"
     # MMSBOrig and the generator from phase 8's CLI runs: kernel 15 a chunk
     # an -orig iteration (one chunk at n=2,000), its ELBO form a chunk a
     # -logl report; kernel 16 a generated network
@@ -6365,6 +6719,23 @@ def main() -> int:
          "svinet_tpu/svi/orig.py:68", p8_reports["orig_chunk:elbo"]),
         ("gen_pairs", "svinet_torch/csrc/gen_pairs.cu",
          "svinet_tpu/svi/gen.py:45", p8_reports["gen_pairs"]),
+        # LinkSampling's device init (a jax.random.uniform block in the
+        # XLA scan on the TPU)
+        ("uniform_rows", "svinet_torch/csrc/threefry_uniform.cu",
+         "svinet_tpu/svi/linksampling.py:403", uniform_report),
+        # the wide forms (W > 64, kernel 13's tables past width 4,096)
+        ("sparse_fastamm_stats:wide", "svinet_torch/csrc/sparse_fastamm.cu",
+         "svinet_tpu/ops/sparse_gamma.py:74",
+         p6_reports["sparse_fastamm_stats:wide"]),
+        ("union_scores:scores+wide", "svinet_torch/csrc/sparse_scores.cu",
+         "svinet_tpu/ops/sparse_gamma.py:213",
+         p6_reports["union_scores:scores+wide"]),
+        ("union_scores:assign+wide", "svinet_torch/csrc/sparse_scores.cu",
+         "svinet_tpu/ops/sparse_gamma.py:247",
+         p6_reports["union_scores:assign+wide"]),
+        ("overlap_stats:scratch", "svinet_torch/csrc/fastinit_overlap.cu",
+         "svinet_tpu/svi/fastinit.py:105",
+         p7_reports["overlap_stats:scratch"]),
     )
     # then the forms of -bf16, -freeze and -prune, as "kernel:form": each
     # with its launches in the phase 2 run that takes it, and its error,

@@ -15,7 +15,9 @@
 // to 32) for width <= 64, a block of 256 threads above. The group enters
 // q's real ids into an open-addressing table of slot_table_size(w) (>= 4w)
 // entries in shared memory (id -> q's slot; integer atomicCAS, whose order
-// does not change the table's content), then each of p's slots looks its
+// does not change the table's content; above width 4,096 the table, 8
+// bytes an entry, outgrows the card's shared memory and sits in device
+// scratch, one table a resident block), then each of p's slots looks its
 // id up (csrc/sparse_slots.cuh keys kernel 11's union slots the same
 // way). Each lane adds its slots in slot order, and the group's sum is a
 // fixed tree: two launches give the same bits.
@@ -33,7 +35,19 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 227 * 1024;
+// largest table kept in shared memory: width 4,096, 16,384 entries
+constexpr int kMaxTableSmem = 128 * 1024;
+
+// Tables of device scratch at width w on the current device: 0 where a
+// table fits kMaxTableSmem, else two a multiprocessor (the blocks in
+// flight at once, a table each). The launch and svt_fastinit_overlap_scratch
+// both take it from here.
+int64_t scratch_tables(int w) {
+  const size_t table = sizeof(int) * 2 * svt::slot_table_size(w);
+  return w > 64 && table > static_cast<size_t>(kMaxTableSmem)
+             ? int64_t{2} * svt::sm_count()
+             : 0;
+}
 
 struct OverlapArgs {
   const int32_t* ids;    // (n, w)
@@ -164,21 +178,24 @@ __global__ void __launch_bounds__(kThreads) overlap_group_kernel(
     overlap_pair<G>(a, item, g, grp, key, key + tsize, nullptr);
 }
 
-// a block of kThreads a pair, blocks striding over the pairs
+// a block of kThreads a pair, blocks striding over the pairs; the table in
+// shared memory (scratch null) or at scratch + blockIdx.x * 2 tsize
 __global__ void __launch_bounds__(kThreads) overlap_block_kernel(
-    const OverlapArgs a) {
+    const OverlapArgs a, int* scratch) {
   extern __shared__ int smem[];
   __shared__ int red[3 * kThreads / svt::kWarp];
   const int tsize = svt::slot_table_size(a.w);
+  int* const key = scratch == nullptr
+                       ? smem
+                       : scratch + static_cast<int64_t>(blockIdx.x) * 2 * tsize;
   const Group<kThreads> grp{svt::kFull};
   for (int64_t item = blockIdx.x; item < a.m; item += gridDim.x)
-    overlap_pair<kThreads>(a, item, threadIdx.x, grp, smem, smem + tsize,
-                           red);
+    overlap_pair<kThreads>(a, item, threadIdx.x, grp, key, key + tsize, red);
 }
 
 using Kernel = void (*)(OverlapArgs);
 
-// lanes a pair (g) and the kernel for width w
+// lanes a pair (g) and the group kernel for width w <= 64
 Kernel pick(int w, int* g) {
   if (w <= 4) {
     *g = 4;
@@ -192,41 +209,58 @@ Kernel pick(int w, int* g) {
     *g = 16;
     return overlap_group_kernel<16>;
   }
-  if (w <= 64) {
-    *g = 32;
-    return overlap_group_kernel<32>;
-  }
-  *g = kThreads;
-  return overlap_block_kernel;
+  *g = 32;
+  return overlap_group_kernel<32>;
 }
 
 }  // namespace
 
 // ids (n, w) int32, pi (n, w), pairs (m, 2) int32; out: ssum, maxv, maxid
-// (m,). Width up to 4096 (a table of 16,384 entries, 128 KB).
+// (m,). Any width: above 4,096 (a table of more than 16,384 entries, 128
+// KB) the tables sit in scratch, scratch_tables(w) of 2 slot_table_size(w)
+// ints (svt_fastinit_overlap_scratch's; null below).
 extern "C" int svt_fastinit_overlap(const int32_t* ids, const float* pi,
                                     const int32_t* pairs, float* ssum,
                                     float* maxv, int32_t* maxid, int64_t m,
-                                    int64_t n, int w, cudaStream_t stream) {
+                                    int64_t n, int w, int* scratch,
+                                    cudaStream_t stream) {
   if (w < 1 || n <= 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return 0;
+  const OverlapArgs a{ids, pi, pairs, ssum, maxv, maxid, m, n, w};
+  const size_t table = sizeof(int) * 2 * svt::slot_table_size(w);
+  const int64_t card = int64_t{16} * svt::sm_count();
+  if (w > 64) {
+    const int64_t tables = scratch_tables(w);
+    const bool in_smem = tables == 0;
+    if (!in_smem && scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t bytes = in_smem ? table : 0;
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          overlap_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int64_t cap = in_smem ? card : tables;
+    const int64_t blocks = m < cap ? m : cap;
+    overlap_block_kernel<<<static_cast<unsigned>(blocks), kThreads, bytes,
+                           stream>>>(a, in_smem ? nullptr : scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   int g = 0;
   const Kernel kernel = pick(w, &g);
-  const int64_t per_block = g >= kThreads ? 1 : kThreads / g;
-  const size_t bytes =
-      sizeof(int) * 2 * svt::slot_table_size(w) * static_cast<size_t>(per_block);
-  if (bytes > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int64_t per_block = kThreads / g;
+  const size_t bytes = table * static_cast<size_t>(per_block);
   int64_t blocks = (m + per_block - 1) / per_block;
-  const int64_t card = int64_t{16} * svt::sm_count();
   blocks = blocks < card ? blocks : card;
-  const OverlapArgs a{ids, pi, pairs, ssum, maxv, maxid, m, n, w};
   kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Ints of device scratch svt_fastinit_overlap takes at width w on the
+// current device (0: none) into *words. No launch.
+extern "C" int svt_fastinit_overlap_scratch(int w, int64_t* words) {
+  if (w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  *words = scratch_tables(w) * 2 * svt::slot_table_size(w);
+  return 0;
 }

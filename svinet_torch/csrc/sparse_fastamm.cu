@@ -40,7 +40,10 @@
 // a warp, then a warp with up to 4 slots a lane: W <= 64), its two rows
 // copied into shared memory at once and its slots matched through a table
 // there (csrc/sparse_slots.cuh, match_slots), its slots' inputs in
-// registers.
+// registers. Above W = 64 the wide form gives a pair a block of one warp
+// and keeps each slot's inputs and phis in its region of shared memory
+// (device scratch past the card's shared memory; match_slots_wide), the
+// same arithmetic slot by slot.
 
 #include <math.h>
 
@@ -360,6 +363,166 @@ lam_chunks_kernel(const float* __restrict__ staged,
   }
 }
 
+// The wide form (W > 64): a block of one warp a pair, each slot's inputs,
+// phis and exponentials in the region after match_slots_wide's facts
+// (kWideExtra words a slot), lane g owning slots g, g + 32, ...: the
+// rounds of run_rounds, slot by slot.
+constexpr int kWideExtra = 7;
+
+struct WideSlots {
+  float* ep;
+  float* eq;
+  float* f;
+  float* p1;
+  float* p2;
+  float* x1;
+  float* x2;
+  const int* live;
+  int n;   // 2W
+};
+
+__device__ __forceinline__ WideSlots load_slots_wide(
+    const SparseArgs& a, const svt::WideMatch& m, bool link, int lane) {
+  const int w = a.w_top;
+  const int n = 2 * w;
+  WideSlots s{m.own,         m.own + n,     m.own + 2 * n, m.own + 3 * n,
+              m.own + 4 * n, m.own + 5 * n, m.own + 6 * n, m.first, n};
+  const float kw = static_cast<float>(a.k - w > 1 ? a.k - w : 1);
+  const float tail_p = fmaxf(m.rest_p / kw, 1e-10f);
+  const float tail_q = fmaxf(m.rest_q / kw, 1e-10f);
+  const float dp = svt::digamma_f(m.tot_p), dq = svt::digamma_f(m.tot_q);
+  float live = 0.0f;
+  for (int i = lane; i < n; i += svt::kWarp) {
+    s.ep[i] = svt::digamma_f(svt::value_at(m.vals, m.at_p[i], tail_p)) - dp;
+    s.eq[i] = svt::digamma_f(svt::value_at(m.vals, m.at_q[i], tail_q)) - dq;
+    const int c = m.slots[i];
+    const int cc = c < 0 ? 0 : (c >= a.k ? a.k - 1 : c);
+    s.f[i] = __ldg(a.elogbeta + 2 * cc + (link ? 0 : 1));
+    live += s.live[i] ? 1.0f : 0.0f;
+  }
+  // phi = 1/(live slots) on the live slots (start_phi)
+  const float v = __fdiv_rn(1.0f, svt::warp_sum(live));
+  for (int i = lane; i < n; i += svt::kWarp)
+    s.p1[i] = s.p2[i] = s.live[i] ? v : 0.0f;
+  return s;
+}
+
+template <bool LINK, bool RECORD>
+__device__ int run_rounds_wide(const SparseArgs& a, const WideSlots& s,
+                               int lane, int limit, uint64_t* mask_out) {
+  const float le = a.log_eps;
+  const float n_slots = static_cast<float>(s.n);
+  int r = 0;
+  bool stable = false;
+  uint64_t word = 0;
+  while (r < limit) {
+    float m1 = -INFINITY, m2 = -INFINITY;
+    for (int i = lane; i < s.n; i += svt::kWarp) {
+      const bool live = s.live[i] != 0;
+      s.x1[i] = logit<LINK>(s.f[i], s.p2[i], s.ep[i], le, live);
+      s.x2[i] = logit<LINK>(s.f[i], s.p1[i], s.eq[i], le, live);
+      m1 = fmaxf(m1, s.x1[i]);
+      m2 = fmaxf(m2, s.x2[i]);
+    }
+    m1 = svt::group_max<svt::kWarp>(m1, svt::kFull);
+    m2 = svt::group_max<svt::kWarp>(m2, svt::kFull);
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int i = lane; i < s.n; i += svt::kWarp) {
+      s.x1[i] = expf(s.x1[i] - m1);
+      s.x2[i] = expf(s.x2[i] - m2);
+      s1 += s.x1[i];
+      s2 += s.x2[i];
+    }
+    s1 = svt::warp_sum(s1);
+    s2 = svt::warp_sum(s2);
+    float d1 = 0.0f, d2 = 0.0f;
+    bool same = true;
+    for (int i = lane; i < s.n; i += svt::kWarp) {
+      const float n1 = __fdiv_rn(s.x1[i], s1), n2 = __fdiv_rn(s.x2[i], s2);
+      if constexpr (RECORD) {
+        d1 += fabsf(n1 - s.p1[i]);
+        d2 += fabsf(n2 - s.p2[i]);
+        same = same && __float_as_uint(n1) == __float_as_uint(s.p1[i]) &&
+               __float_as_uint(n2) == __float_as_uint(s.p2[i]);
+      }
+      s.p1[i] = n1;
+      s.p2[i] = n2;
+    }
+    ++r;
+    if constexpr (RECORD) {
+      d1 = svt::warp_sum(d1);
+      d2 = svt::warp_sum(d2);
+      if (!(fmaxf(d1 / n_slots, d2 / n_slots) >= a.thresh))
+        word |= uint64_t{1} << ((r - 1) & 63);
+      stable = __ballot_sync(svt::kFull, !same) == 0u;
+      if ((r & 63) == 0) {
+        if (lane == 0) mask_out[(r >> 6) - 1] = word;
+        word = 0;
+      }
+      if (stable) break;
+    }
+  }
+  if constexpr (RECORD) {
+    if (stable) word |= ~uint64_t{0} << (r & 63);
+    if (lane == 0)
+      for (int j = r >> 6; j < a.words; ++j)
+        mask_out[j] = j == (r >> 6) ? word : (stable ? ~uint64_t{0} : 0);
+    return stable ? r - 1 : r;
+  }
+  return r;
+}
+
+// sparse_pair_kernel's wide form: a block of one warp a pair, its region
+// in shared memory (scratch null) or scratch + blockIdx.x * region words
+template <bool FINISH>
+__global__ void __launch_bounds__(svt::kWarp)
+sparse_pair_wide_kernel(const SparseArgs a, float* scratch,
+                        int64_t region_words) {
+  extern __shared__ float smem[];
+  float* const region =
+      scratch == nullptr ? smem : scratch + blockIdx.x * region_words;
+  const int lane = threadIdx.x;
+  const int slots_n = 2 * a.w_top;
+  const int64_t n_items = a.n_pairs + (FINISH ? 0 : a.pad);
+  for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const bool real = item < a.n_pairs;
+    const float w = real ? a.w[item] : 0.0f;
+    int limit = a.max_iters;
+    if constexpr (FINISH) {
+      limit = a.block_rounds[0];
+      if (lane == 0) a.rounds[item] = limit;
+      if (w == 0.0f || a.stop[item] <= limit) continue;
+    }
+    const bool link = real && a.y[item] == 1;
+    const int64_t p = real ? a.pairs[2 * item] : 0;
+    const int64_t q = real ? a.pairs[2 * item + 1] : 0;
+    const svt::WideMatch m = svt::match_slots_wide(
+        a.ids, a.vals, a.rest, p, q, a.w_top, lane, region);
+    const WideSlots s = load_slots_wide(a, m, link, lane);
+    if constexpr (FINISH) {
+      if (link)
+        run_rounds_wide<true, false>(a, s, lane, limit, nullptr);
+      else
+        run_rounds_wide<false, false>(a, s, lane, limit, nullptr);
+    } else {
+      uint64_t* const mo = a.masks + item * a.words;
+      const int r = link
+          ? run_rounds_wide<true, true>(a, s, lane, limit, mo)
+          : run_rounds_wide<false, true>(a, s, lane, limit, mo);
+      if (lane == 0) a.stop[item] = r;
+      if (w == 0.0f) continue;
+    }
+    float* const s1 = a.staged + 2 * item * slots_n;
+    float* const s2 = s1 + slots_n;
+    int32_t* const sl = a.slots + item * slots_n;
+    for (int i = lane; i < slots_n; i += svt::kWarp) {
+      s1[i] = s.p1[i];
+      s2[i] = s.p2[i];
+      if constexpr (!FINISH) sl[i] = s.live[i] ? m.slots[i] : -1;
+    }
+  }
+}
+
 using PairKernel = void (*)(SparseArgs);
 
 template <int G, int NS>
@@ -408,7 +571,10 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 // nonlink column), rounds (n_pairs,) R. Scratch: staged (2 n_pairs, 2W),
 // slots (n_pairs, 2W), masks ((n_pairs + pad) words u64), stop (n_pairs +
 // pad), block_rounds (1), lam_partial (ceil(n_pairs / chunk), 2K). `block`
-// is the minibatch's padded length: pad = 1 when n_pairs < block.
+// is the minibatch's padded length: pad = 1 when n_pairs < block. Above W
+// = 64 (the wide form), wide_scratch holds the regions of
+// svt::wide_scratch_regions where a region outgrows the card's shared
+// memory (svt_sparse_fastamm_scratch's floats; null otherwise).
 extern "C" int svt_sparse_fastamm(
     const int32_t* ids, const float* vals, const float* rest,
     const float* elogbeta, const int32_t* pairs, const int32_t* y,
@@ -420,10 +586,11 @@ extern "C" int svt_sparse_fastamm(
     float* lam_partial, float* lam_sums, float* gacc, int64_t n_pairs,
     int64_t n_rows, int64_t n_hubs, int64_t n_segs, int k, int w_top,
     int seg_len, int max_iters, float log_eps, float thresh, int block,
-    int chunk, cudaStream_t stream) {
+    int chunk, float* wide_scratch, cudaStream_t stream) {
   const int g = svt::slot_lanes(w_top);
   const int ns = svt::slots_per_lane(w_top);
-  if (k <= 0 || g == 0 || w_top >= k || n_pairs > block || chunk <= 0 ||
+  const bool wide = w_top > svt::kNarrowMaxW;
+  if (k <= 0 || w_top < 1 || w_top >= k || n_pairs > block || chunk <= 0 ||
       max_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slots_n = 2 * w_top;
@@ -443,7 +610,37 @@ extern "C" int svt_sparse_fastamm(
                      2 * row_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t chunks = (n_pairs + chunk - 1) / chunk;
-  if (n_pairs > 0) {
+  if (n_pairs > 0 && wide) {
+    // a block of one warp a pair, its region in shared memory where it
+    // fits the card's opt-in, else in the caller's scratch (one region a
+    // block in flight)
+    const int64_t region = svt::wide_words(w_top, kWideExtra);
+    int64_t regions = 0;
+    err = svt::wide_scratch_regions(w_top, kWideExtra, &regions);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const bool in_smem = regions == 0;
+    if (!in_smem && wide_scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t cap = in_smem ? int64_t{32} * svt::sm_count() : regions;
+    int64_t blocks = n_pairs + pad;
+    blocks = blocks < cap ? blocks : cap;
+    const size_t smem = in_smem ? sizeof(float) * region : 0;
+    float* const scratch = in_smem ? nullptr : wide_scratch;
+    err = allow_smem(
+        reinterpret_cast<const void*>(sparse_pair_wide_kernel<false>), smem);
+    if (err == cudaSuccess)
+      err = allow_smem(
+          reinterpret_cast<const void*>(sparse_pair_wide_kernel<true>), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sparse_pair_wide_kernel<false><<<static_cast<unsigned>(blocks),
+                                     svt::kWarp, smem, stream>>>(a, scratch,
+                                                                 region);
+    svt::block_rounds_kernel<<<1, svt::kWarp, 0, stream>>>(
+        masks, words, n_pairs, block, pad, max_iters, block_rounds, 1);
+    sparse_pair_wide_kernel<true><<<static_cast<unsigned>(blocks),
+                                    svt::kWarp, smem, stream>>>(a, scratch,
+                                                                region);
+  } else if (n_pairs > 0) {
     const int64_t per_block = kPairThreads / g;
     int64_t blocks = (n_pairs + pad + per_block - 1) / per_block;
     const int64_t card = int64_t{8} * svt::sm_count();
@@ -456,6 +653,8 @@ extern "C" int svt_sparse_fastamm(
         masks, words, n_pairs, block, pad, max_iters, block_rounds, 1);
     pair_kernel(g, ns, true)<<<static_cast<unsigned>(blocks), kPairThreads,
                                staged_bytes, stream>>>(a);
+  }
+  if (n_pairs > 0) {
     const dim3 grid(static_cast<unsigned>(chunks), tiles);
     lam_chunks_kernel<<<grid, kRowThreads, 2 * row_bytes, stream>>>(
         staged, slots, y, w, n_pairs, chunk, slots_n, k, lam_partial);
@@ -488,4 +687,15 @@ extern "C" int svt_sparse_fastamm(
                                  n_hubs, k, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of device scratch svt_sparse_fastamm takes at top width w_top on
+// the current device (0: none) into *words. No launch.
+extern "C" int svt_sparse_fastamm_scratch(int w_top, int64_t* words) {
+  if (w_top < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t regions = 0;
+  const cudaError_t err =
+      svt::wide_scratch_regions(w_top, kWideExtra, &regions);
+  *words = regions * svt::wide_words(w_top, kWideExtra);
+  return static_cast<int>(err);
 }

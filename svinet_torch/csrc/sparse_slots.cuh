@@ -27,15 +27,17 @@
 
 namespace svt {
 
-// most slots a lane owns: 2W <= 4 * 32, W <= 64
+// most slots a lane owns in registers: 2W <= 4 * 32, W <= 64; a wider W
+// takes the wide form
 constexpr int kMaxSlotsPerLane = 4;
+constexpr int kNarrowMaxW = kMaxSlotsPerLane * kWarp / 2;
 constexpr float kDeadLogit = -1e30f;
 
 // Lanes a pair and slots a lane for 2W slots: the next power of two of 2W
 // up to a warp, then a warp with 2, 3 or 4 slots a lane. 0 when W is out
-// of range.
+// of the registers' range (W > 64 takes the wide form).
 inline int slot_lanes(int w) {
-  if (w < 1 || 2 * w > kMaxSlotsPerLane * kWarp) return 0;
+  if (w < 1 || w > kNarrowMaxW) return 0;
   int g = 2;
   while (g < 2 * w && g < kWarp) g *= 2;
   return g;
@@ -146,6 +148,121 @@ __device__ __forceinline__ SlotMatch<NS> match_slots(
   m.rest_q = smem[4 * w + 1];
   m.tot_p = group_sum<G>(sp, mask) + m.rest_p;
   m.tot_q = group_sum<G>(sq, mask) + m.rest_q;
+  return m;
+}
+
+// The wide form's region: the pair's rows, rests and table
+// (pair_rows_words), each slot's place in p's and q's lists and whether it
+// is its community's first, then `extra` words a slot of the kernel's own
+__host__ __device__ inline int64_t wide_words(int w, int extra) {
+  return pair_rows_words(w) + int64_t{2} * w * (3 + extra);
+}
+
+// Where the wide form keeps a pair's region of wide_words(w, extra) floats
+// on the current device: in shared memory where it fits the card's opt-in
+// (*regions 0, and 0 for the narrow form), else in device scratch of
+// *regions regions, two a multiprocessor (the blocks in flight at once,
+// one region each). The launches and the scratch queries the wrappers
+// size their scratch by (svt_sparse_fastamm_scratch,
+// svt_sparse_scores_scratch) both take it from here.
+inline cudaError_t wide_scratch_regions(int w, int extra, int64_t* regions) {
+  *regions = 0;
+  if (w <= kNarrowMaxW) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (sizeof(float) * wide_words(w, extra) > static_cast<size_t>(optin))
+    *regions = int64_t{2} * sm_count();
+  return cudaSuccess;
+}
+
+// The wide form's facts of a pair's slots, in its region: the rows
+// ([ids_p | ids_q], [vals_p | vals_q]), for slot i at_p[i] and at_q[i]
+// (the community's slot in p's and q's lists, -1 where absent) and
+// first[i] (1 where slot i is its community's first), and the totals.
+// `own` points at the region's first word past these, the kernel's
+// `extra` words a slot.
+struct WideMatch {
+  const int* slots;
+  const float* vals;
+  const int* at_p;
+  const int* at_q;
+  const int* first;
+  float* own;
+  float rest_p, rest_q, tot_p, tot_q;
+};
+
+// match_slots for a block of one warp and any W: the same table, the
+// same facts, each slot's written by the lane that owns it (slot i lane
+// i % 32), so that only the table needs the warp's barriers.
+__device__ __forceinline__ WideMatch match_slots_wide(
+    const int32_t* ids, const float* vals, const float* rest, int64_t p,
+    int64_t q, int w, int lane, float* region) {
+  int* const sl = reinterpret_cast<int*>(region);
+  float* const sv = region + 2 * w;
+  const int tsize = slot_table_size(w);
+  int* const key = reinterpret_cast<int*>(region + 4 * w + 2);
+  int* const lo = key + tsize;
+  int* const hi = lo + tsize;
+  int* const at_p = hi + tsize;
+  int* const at_q = at_p + 2 * w;
+  int* const first = at_q + 2 * w;
+  __syncwarp();   // the warp's reads of its previous pair are done
+  for (int i = lane; i < 2 * w; i += kWarp) {
+    const int64_t at = i < w ? p * w + i : q * w + i - w;
+    sl[i] = __ldg(ids + at);
+    sv[i] = __ldg(vals + at);
+  }
+  for (int t = lane; t < tsize; t += kWarp) {
+    key[t] = -1;
+    lo[t] = INT_MAX;
+    hi[t] = -1;
+  }
+  if (lane == 0) {
+    region[4 * w] = __ldg(rest + p);
+    region[4 * w + 1] = __ldg(rest + q);
+  }
+  __syncwarp();
+  float sp = 0.0f, sq = 0.0f;
+  for (int i = lane; i < 2 * w; i += kWarp) {
+    const int id = sl[i];
+    if (i < w)
+      sp += sv[i];
+    else
+      sq += sv[i];
+    unsigned t = (static_cast<unsigned>(id) * 2654435761u) &
+                 static_cast<unsigned>(tsize - 1);
+    while (true) {
+      const int was = atomicCAS(key + t, -1, id);
+      if (was == -1 || was == id) break;
+      t = (t + 1) & static_cast<unsigned>(tsize - 1);
+    }
+    first[i] = static_cast<int>(t);   // the slot's entry, for the pass below
+    atomicMin(lo + t, i);
+    atomicMax(hi + t, i);
+  }
+  __syncwarp();
+  for (int i = lane; i < 2 * w; i += kWarp) {
+    const int t = first[i];
+    const int a = lo[t], b = hi[t];
+    first[i] = a == i ? 1 : 0;
+    at_p[i] = a < w ? a : -1;
+    at_q[i] = b >= w ? b : -1;
+  }
+  WideMatch m;
+  m.slots = sl;
+  m.vals = sv;
+  m.at_p = at_p;
+  m.at_q = at_q;
+  m.first = first;
+  m.own = reinterpret_cast<float*>(first + 2 * w);
+  m.rest_p = region[4 * w];
+  m.rest_q = region[4 * w + 1];
+  m.tot_p = warp_sum(sp) + m.rest_p;
+  m.tot_q = warp_sum(sq) + m.rest_q;
   return m;
 }
 

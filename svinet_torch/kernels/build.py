@@ -35,6 +35,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -101,32 +102,40 @@ SIGNATURES = {
     # ids, vals, rest, elogbeta, pairs, y, w, staged, slots, masks, stop,
     # block_rounds, rounds, the seven endpoint-CSR arrays, seg_partial,
     # lam_partial, lam_sums, gacc, pairs, rows, n_hubs, n_segs, k, w,
-    # seg_len, max_iters, log_eps, thresh, block, chunk
+    # seg_len, max_iters, log_eps, thresh, block, chunk, wide scratch
     "svt_sparse_fastamm": (_P,) * 24 + (_I64,) * 4 + (_I32,) * 4 + (
-        _F32, _F32, _I32, _I32, _P),
+        _F32, _F32, _I32, _I32, _P, _P),
+    # w, the wide scratch's floats (1 int64 out): no launch, no stream
+    "svt_sparse_fastamm_scratch": (_I32, _P),
     # ids, vals, rest, table, beta_sum, pairs, out0, out1, cid, pairs, k,
-    # w, form
-    "svt_sparse_scores": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P),
+    # w, form, wide scratch
+    "svt_sparse_scores": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P, _P),
+    "svt_sparse_scores_scratch": (_I32, _P),
     # labels, rowptr, nbr, hub_node, hub_off, lab_scratch, key_scratch,
     # ids, cnt, n, n_hubs, width
     "svt_fastinit_vote": (_P,) * 9 + (_I64, _I64, _I32, _P),
-    # ids, pi, pairs, ssum, maxv, maxid, pairs, n, w
-    "svt_fastinit_overlap": (_P,) * 6 + (_I64, _I64, _I32, _P),
+    # ids, pi, pairs, ssum, maxv, maxid, pairs, n, w, table scratch
+    "svt_fastinit_overlap": (_P,) * 6 + (_I64, _I64, _I32, _P, _P),
+    # w, the table scratch's ints (1 int64 out): no launch, no stream
+    "svt_fastinit_overlap_scratch": (_I32, _P),
     # phi, block_partial, partial, tot, n, k, n_chunks
     "svt_sbm_chunk_sums": (_P,) * 4 + (_I64, _I32, _I32, _P),
     # phi, elogpi, da, db, rowptr, nbr, held rowptr, held nbr, staged,
     # change, block_partial, partial, tot, n, k, chunk, n_chunks
     "svt_sbm_estep_chunk": (_P,) * 13 + (_I64, _I32, _I32, _I32, _P),
-    # elogpi, lt, pairs, y, elogpi_e, lte, phi, change, done,
-    # block_rounds, remaining, terms, rowptr, nbr, gacc, n, pairs, k,
-    # max_iters, thresh, block, pad, elbo
-    "svt_orig_fixed_point": (_P,) * 15 + (_I64, _I64, _I32, _I32, _F32,
-                                          _I32, _I32, _I32, _P),
-    # k, info (5 ints out): no launch, no stream
-    # cum, beta, counts, offsets, edges, n, k, row0, row1, eps, seed,
-    # stream id, write
-    "svt_gen_pairs": (_P,) * 5 + (_I64, _I32, _I64, _I64, _F32, _I64, _I64,
-                                  _I32, _P),
+    # elogpi, lt, pairs, y, elogpi_e, lte, phi, block_rounds, terms,
+    # rowptr, nbr, gacc, n, pairs, k, kp (L's padded row), max_iters,
+    # thresh, block, pad, elbo
+    "svt_orig_fixed_point": (_P,) * 12 + (_I64, _I64, _I32, _I32, _I32,
+                                          _F32, _I32, _I32, _I32, _P),
+    # k, info (4 ints out): no launch, no stream
+    "svt_orig_layout": (_I32, _P),
+    # logits, beta, table, counts, offsets, edges, stats, n, k, row0,
+    # row1, row_block, words, eps, umax, key (two words), write
+    "svt_gen_pairs": (_P,) * 7 + (_I64, _I32, _I64, _I64, _I64, _I64, _F32,
+                                  _F32, _I64, _I64, _I32, _P),
+    # out, total, key (two words)
+    "svt_threefry_uniform": (_P, _I64, _I64, _I64, _P),
 }
 
 _lock = threading.Lock()
@@ -244,6 +253,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         library().call(name, *args,
                        torch.cuda.current_stream(device).cuda_stream)
+
+
+def scratch(name: str, w: int, device: torch.device,
+            dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The device scratch that entry point `name` (a kernel's scratch
+    query) asks for at width w on `device`, by its kernel's own rule: None
+    where the kernel needs none."""
+    words = (ctypes.c_int64 * 1)()
+    with torch.cuda.device(device):
+        library().call(name, int(w), words)
+    if words[0] == 0:
+        return None
+    return torch.empty(words[0], dtype=dtype, device=device)
 
 
 def count_launch(wrapper, form: str) -> None:

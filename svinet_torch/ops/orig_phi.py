@@ -20,11 +20,14 @@ over h = 0, 1, ..., K - 1 in order, every product and sum rounded alone,
 then Elogpi added; the softmax as the JAX one, exp(x - max) over its sum.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-csrc/orig_fixed_point.cu or raises.
+csrc/orig_fixed_point.cu or raises: a cluster of CTAs a block of the rule,
+all its rounds on chip, each lane's columns of a pair's products in
+registers, tile by tile.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -216,8 +219,9 @@ def orig_chunk(elogpi, lf2, pairs, y, max_iters: int, thresh: float, *,
     every slot into gacc (n, K) in slot order, over `csr`
     (ops/edges.py:owner_csr of pairs.reshape(-1)). ELBO form (elbo =
     (Elogpi' (n, K), lf'2 (2, K, K))): returns (terms (m,), rounds). On
-    the card the max_iters rounds are queued at once, each a launch over
-    the blocks still running and a warp a block deciding its exit."""
+    the card a cluster of CTAs keeps each block of the rule on chip for
+    all its rounds and decides its exit there, one launch a chunk (the
+    ELBO's terms in the same launch)."""
     if elogpi.device.type == "cpu":
         return orig_chunk_plain(elogpi, lf2, pairs, y, max_iters, thresh,
                                 block, pad, gacc, elbo)
@@ -231,15 +235,14 @@ def orig_chunk(elogpi, lf2, pairs, y, max_iters: int, thresh: float, *,
     build.check_cuda(y, "y", torch.int32, (m,), dev)
     if max_iters < 1:
         raise ValueError(f"max_iters must be at least 1, got {max_iters}")
-    # L kept transposed: row h holds column h of L
-    lt = lf2.transpose(1, 2).contiguous()
+    # L kept transposed (row h holds column h of L), each row padded with
+    # zeros to the kernel's kp columns
+    kp = orig_layout(k)["kp"]
+    lt = _padded_lt(lf2, kp)
     slots = m + (1 if pad and m % block else 0)
     blocks = max(1, -(-m // block))
     phi = torch.empty((slots, 2, k), dtype=torch.float32, device=dev)
-    change = torch.empty(slots, dtype=torch.float32, device=dev)
-    done = torch.empty(blocks, dtype=torch.int32, device=dev)
     block_rounds = torch.zeros(blocks, dtype=torch.int32, device=dev)
-    remaining = torch.empty(1, dtype=torch.int32, device=dev)
     ep_e = lte = terms = rowptr = nbr = None
     if elbo is None:
         build.check_cuda(gacc, "gacc", torch.float32, (n, k), dev)
@@ -250,7 +253,7 @@ def orig_chunk(elogpi, lf2, pairs, y, max_iters: int, thresh: float, *,
         ep_e, lfe2 = elbo
         build.check_cuda(ep_e, "elogpi_e", torch.float32, (n, k), dev)
         build.check_cuda(lfe2, "lfe2", torch.float32, (2, k, k), dev)
-        lte = lfe2.transpose(1, 2).contiguous()
+        lte = _padded_lt(lfe2, kp)
         terms = torch.empty(m, dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -258,11 +261,10 @@ def orig_chunk(elogpi, lf2, pairs, y, max_iters: int, thresh: float, *,
 
     build.launch("svt_orig_fixed_point", dev, elogpi.data_ptr(),
                  lt.data_ptr(), pairs.data_ptr(), y.data_ptr(), ptr(ep_e),
-                 ptr(lte), phi.data_ptr(), change.data_ptr(),
-                 done.data_ptr(), block_rounds.data_ptr(),
-                 remaining.data_ptr(), ptr(terms), ptr(rowptr), ptr(nbr),
-                 ptr(gacc), n, m, k, int(max_iters), float(thresh),
-                 int(block), int(pad), int(elbo is not None))
+                 ptr(lte), phi.data_ptr(), block_rounds.data_ptr(),
+                 ptr(terms), ptr(rowptr), ptr(nbr), ptr(gacc), n, m, k, kp,
+                 int(max_iters), float(thresh), int(block), int(pad),
+                 int(elbo is not None))
     build.count_launch(orig_chunk, "f32" if elbo is None else "elbo")
     rounds = block_rounds.repeat_interleave(block)[:m]
     if elbo is None:
@@ -272,6 +274,23 @@ def orig_chunk(elogpi, lf2, pairs, y, max_iters: int, thresh: float, *,
 
 orig_chunk.launches = 0
 orig_chunk.forms = {}
+
+
+def orig_layout(k: int) -> dict:
+    """Kernel 15's columns at K (csrc/orig_fixed_point.cu:svt_orig_layout):
+    lanes a group, columns a lane a tile, tiles, and kp, the row L's
+    transposes are padded to."""
+    info = (ctypes.c_int * 4)()
+    build.library().call("svt_orig_layout", int(k), info)
+    return dict(lanes=info[0], columns=info[1], tiles=info[2], kp=info[3])
+
+
+def _padded_lt(lf2: torch.Tensor, kp: int) -> torch.Tensor:
+    """(2, K, kp): each L transposed, its rows padded with zeros."""
+    k = lf2.shape[1]
+    lt = torch.zeros((2, k, kp), dtype=lf2.dtype, device=lf2.device)
+    lt[:, :, :k] = lf2.transpose(1, 2)
+    return lt
 
 
 def moments(staged: torch.Tensor, y: torch.Tensor

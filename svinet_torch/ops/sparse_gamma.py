@@ -34,15 +34,18 @@ LAM_CHUNK = 64
 # tensor (svinet_tpu/svi/fastamm.py:370-376)
 ASSIGN_CHUNK = 8192
 DEAD = -1e30
-# widest top-W the card's kernels take: 2W slots, at most 4 a lane of a
-# warp (csrc/sparse_slots.cuh)
-MAX_W = 64
+# above this W, kernels 10 and 11 take their wide form: a block of one warp
+# a pair, each slot's facts and state in a region of shared memory, or of
+# device scratch past the card's shared memory (csrc/sparse_slots.cuh)
+NARROW_MAX_W = 64
 
 
-def _check_width(w: int) -> None:
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"-fastqueue {w}: the kernels on the card take "
-                         f"1 <= W <= {MAX_W}")
+def _check_width(w: int, k: int) -> None:
+    """Any top-W width the JAX engine takes, 1 <= W < K
+    (svinet_tpu/svi/fastamm.py:153-156)."""
+    if not 1 <= w < k:
+        raise ValueError(f"-fastqueue {w}: the width must be in [1, K) "
+                         f"with K = {k}")
 
 
 def top_w(x: torch.Tensor, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -187,7 +190,7 @@ def sparse_fastamm_stats(ids, vals, rest, elogbeta, pairs, y, w, lp, lq,
     m = pairs.shape[0]
     if m > block:
         raise ValueError(f"{m} pairs exceed the block of {block}")
-    _check_width(wt)
+    _check_width(wt, k)
     build.check_cuda(ids, "ids", torch.int32, (n, wt), dev)
     build.check_cuda(vals, "vals", torch.float32, (n, wt), dev)
     build.check_cuda(rest, "rest", torch.float32, (n,), dev)
@@ -216,6 +219,8 @@ def sparse_fastamm_stats(ids, vals, rest, elogbeta, pairs, y, w, lp, lq,
     lam_partial = torch.empty((max(1, -(-m // LAM_CHUNK)), 2 * k), **f32)
     sums = torch.empty(2 * k, **f32)
     gacc = torch.empty((t, k), **f32)
+    scratch = build.scratch("svt_sparse_fastamm_scratch", wt, dev,
+                            torch.float32)
     build.launch("svt_sparse_fastamm", dev, ids.data_ptr(), vals.data_ptr(),
                  rest.data_ptr(), elogbeta.data_ptr(), pairs.data_ptr(),
                  y.data_ptr(), w.data_ptr(), staged.data_ptr(),
@@ -225,8 +230,10 @@ def sparse_fastamm_stats(ids, vals, rest, elogbeta, pairs, y, w, lp, lq,
                  seg_partial.data_ptr(), lam_partial.data_ptr(),
                  sums.data_ptr(), gacc.data_ptr(), m, t, n_hubs, n_segs, k,
                  wt, csr.seg_len, int(max_iters), float(log_eps),
-                 float(thresh), int(block), LAM_CHUNK)
-    build.count_launch(sparse_fastamm_stats, "f32")
+                 float(thresh), int(block), LAM_CHUNK,
+                 None if scratch is None else scratch.data_ptr())
+    build.count_launch(sparse_fastamm_stats,
+                       "wide" if wt > NARROW_MAX_W else "f32")
     return gacc, sums.view(2, k).t(), rounds
 
 
@@ -313,7 +320,7 @@ def union_scores(ids, vals, rest, table, pairs, k: int, assign: bool):
     dev = vals.device
     n, wt = ids.shape
     m = pairs.shape[0]
-    _check_width(wt)
+    _check_width(wt, k)
     build.check_cuda(ids, "ids", torch.int32, (n, wt), dev)
     build.check_cuda(vals, "vals", torch.float32, (n, wt), dev)
     build.check_cuda(rest, "rest", torch.float32, (n,), dev)
@@ -329,14 +336,18 @@ def union_scores(ids, vals, rest, table, pairs, k: int, assign: bool):
         out1 = torch.empty(m, dtype=torch.float32, device=dev)
         cid = None
 
+    scratch = build.scratch("svt_sparse_scores_scratch", wt, dev,
+                            torch.float32)
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     build.launch("svt_sparse_scores", dev, ids.data_ptr(), vals.data_ptr(),
                  rest.data_ptr(), table.data_ptr(), ptr(beta_sum),
                  pairs.data_ptr(), out0.data_ptr(), ptr(out1), ptr(cid), m,
-                 k, wt, int(assign))
-    build.count_launch(union_scores, "assign" if assign else "scores")
+                 k, wt, int(assign), ptr(scratch))
+    build.count_launch(union_scores, ("assign" if assign else "scores")
+                       + ("+wide" if wt > NARROW_MAX_W else ""))
     return (cid, out0) if assign else (out0, out1)
 
 

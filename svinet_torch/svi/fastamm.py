@@ -42,7 +42,7 @@ from svinet_torch.ops.edges import Adjacency, owner_csr
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.phicomp import NodeUpdate, phi_fixed_point
 from svinet_torch.ops.sparse_gamma import (
-    MAX_W, densify, sparse_edge_assignments, sparse_fastamm_step,
+    densify, sparse_edge_assignments, sparse_fastamm_step,
     sparse_pair_scores)
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.mmsb import init_gamma_random
@@ -213,11 +213,6 @@ class FastAMM(EngineBase):
     defer_report_hooks = True
 
     def __init__(self, cfg: Config, network: Network, device: torch.device):
-        if device.type == "cuda" and cfg.fastqueue_width > MAX_W:
-            # before anything is built: the card's kernels hold a pair's 2W
-            # slots at most 4 a lane of a warp
-            raise SystemExit(f"-fastqueue {cfg.fastqueue_width}: on the GPU "
-                             f"the width must be <= {MAX_W}")
         super().__init__(cfg, network, device)
         n, k = self.n, self.k
         if network.sparse_zeros_ptr is None:

@@ -36,9 +36,6 @@ from svinet_torch.svi.base import EngineBase
 # Longest neighbour list kernel 12 sorts in one warp's shared memory; a
 # node with more (a hub) takes a block of its own over global scratch.
 VOTE_WARP_MAX = 256
-# Widest list kernel 13 takes: a pair's table of slot_table_size(w) (>= 4w)
-# entries of two ints in shared memory, at most 128 KB.
-OVERLAP_MAX_W = 4096
 
 
 def _next_pow2(x: torch.Tensor) -> torch.Tensor:
@@ -215,27 +212,34 @@ def overlap_stats(ids, pi, pairs):
     """Kernel 13 (csrc/fastinit_overlap.cu) on CUDA tensors, the plain
     version on CPU tensors. ids (n, w) int32, pi (n, w) f32, pairs (m, 2)
     int32. Returns (ssum (m,) f32, the largest product (m,) f32, its id
-    (m,) int32). One group of lanes a pair for w <= 64, a block above; no
-    atomics on floats, so two launches give the same bits."""
+    (m,) int32). One group of lanes a pair for w <= 64, a block above, its
+    table in device scratch above 4,096 (the scratch sized by the kernel's
+    query, svt_fastinit_overlap_scratch); no atomics on floats, so two
+    launches give the same bits."""
     if pi.device.type == "cpu":
         return overlap_stats_plain(ids, pi, pairs)
     build.require_cuda(pi, "overlap_stats")
     dev = pi.device
     n, w = ids.shape
     m = pairs.shape[0]
-    if not 1 <= w <= OVERLAP_MAX_W:
-        raise ValueError(f"overlap_stats takes 1 <= width <= "
-                         f"{OVERLAP_MAX_W}, got {w}")
+    if w < 1:
+        raise ValueError(f"overlap_stats takes a width of 1 or more, "
+                         f"got {w}")
     build.check_cuda(ids, "ids", torch.int32, (n, w), dev)
     build.check_cuda(pi, "pi", torch.float32, (n, w), dev)
     build.check_cuda(pairs, "pairs", torch.int32, (m, 2), dev)
     ssum = torch.empty(m, dtype=torch.float32, device=dev)
     mx = torch.empty(m, dtype=torch.float32, device=dev)
     mid = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = build.scratch("svt_fastinit_overlap_scratch", w, dev,
+                            torch.int32)
     build.launch("svt_fastinit_overlap", dev, ids.data_ptr(), pi.data_ptr(),
                  pairs.data_ptr(), ssum.data_ptr(), mx.data_ptr(),
-                 mid.data_ptr(), m, n, w)
-    build.count_launch(overlap_stats, "block" if w > 64 else "group")
+                 mid.data_ptr(), m, n, w,
+                 None if scratch is None else scratch.data_ptr())
+    build.count_launch(overlap_stats,
+                       "scratch" if scratch is not None
+                       else ("block" if w > 64 else "group"))
     return ssum, mx, mid
 
 

@@ -5,17 +5,17 @@ GML export (-gml) and link-community statistics (-lcstats)
 The dense pair draw runs on kernel 16 (csrc/gen_pairs.cu): for every pair
 i < j, z_p ~ Cat(pi_i), z_q ~ Cat(pi_j) and a link with probability
 beta[z_p] where z_p == z_q, eps otherwise (reference: src/mmsbgen.cc:
-662-697). Its uniforms come from Philox4x32-10 keyed by the seed (and,
-for the -ppc draw d, the stream d + 1, where the JAX package folds d into
-its key) and counted by the pair; the categories are the inverse CDF of
-the row's cumulative pi, made once on the host in float64 and kept in
-f32. gen_pairs_plain draws the same in int64 torch arithmetic, so the
-kernel and the plain version give the same edges bit for bit. JAX's
-threefry categorical draws cannot be had without JAX: the port draws from
-the same distribution, not the same edges. Every numpy draw (pi, beta,
-ppc's per-draw pi and beta, the sparse generator above n = 65,536) is the
-JAX package's, in its order; draw_network_sparse, local_clustering_avg
-and bridgeness are copied whole. The edge colours (inner_prod_max) are
+662-697). It draws on JAX's threefry stream (ops/threefry.py), in
+draw_network's row blocks and keys: -gen from PRNGKey(seed), the -ppc draw
+d from fold_in(PRNGKey(seed), d); each category is the Gumbel-max that
+jax.random.categorical takes over log(max(pi, 1e-300)). So the edges are
+the JAX package's, but where two of a pair's Gumbel scores lie within the
+last bits of each other (the logs are the framework's, not XLA's).
+gen_pairs_plain draws the same in int64 and f32 torch arithmetic. Every
+numpy draw (pi, beta, ppc's per-draw pi and beta, the sparse generator
+above n = 65,536) is the JAX package's, in its order;
+draw_network_sparse, local_clustering_avg and bridgeness are copied
+whole. The edge colours (inner_prod_max) are
 plain PyTorch.
 """
 
@@ -31,95 +31,77 @@ from svinet_torch.config import Config
 from svinet_torch.graph import Network
 from svinet_torch.io.writers import load_model
 from svinet_torch.kernels import build
+from svinet_torch.ops import threefry
 
 # above this many nodes -gen takes the sparse Poisson-thinned draw
 # (svinet_tpu/svi/gen.py:216)
 DENSE_MAX_N = 65536
-# pairs x K of the cumulative rows the plain draw gathers at once
-_PLAIN_FLOATS = 1 << 26
+# pairs x K Gumbel draws the plain version makes at once
+_PLAIN_FLOATS = 1 << 24
+# words of the kernel's bit table a launch pair fills (256 MB)
+_TABLE_WORDS = 1 << 26
 # edges whose (E, K) products _edge_colors makes at once
 _COLOR_FLOATS = 1 << 26
 
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+def default_row_block(n: int, k: int) -> int:
+    """draw_network's row block (svinet_tpu/svi/gen.py:68-69)."""
+    return max(1, min(n, (1 << 24) // max(n * k, 1) + 1))
 
 
-def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) words of m * x for 32-bit m and x (int64 tensors holding
-    values below 2^32), in products below 2^49."""
-    a = m * (x & 0xFFFF)
-    b = m * (x >> 16)
-    t = a + ((b & 0xFFFF) << 16)
-    return ((t >> 32) + (b >> 16)) & _MASK32, t & _MASK32
+def logits_of(pi: np.ndarray) -> np.ndarray:
+    """log(max(pi, 1e-300)) in float64, kept in f32, as draw_network makes
+    the categorical's logits."""
+    return np.log(np.maximum(np.asarray(pi, np.float64), 1e-300)).astype(
+        np.float32)
 
 
-def philox4x32(c0, c1, c2, c3, key0: int, key1: int):
-    """Philox4x32-10 (Salmon et al., SC'11) of the counters (int64 tensors
-    of 32-bit values) under the key (key0, key1): its four output words,
-    as csrc/gen_pairs.cu computes them."""
-    k0, k1 = key0 & _MASK32, key1 & _MASK32
-    for r in range(10):
-        if r:
-            k0 = (k0 + _PHILOX_W[0]) & _MASK32
-            k1 = (k1 + _PHILOX_W[1]) & _MASK32
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
+def _block_keys(key: threefry.Key, start: int):
+    """(k1, k2, k3) of the row block at `start`: split(fold_in(key,
+    start), 3)."""
+    return threefry.split_keys(threefry.fold_in(key, start), 3)
 
 
-def philox_key(seed: int, stream: int) -> Tuple[int, int]:
-    """The draw's key: the seed's low word, its high word xor the stream
-    (0 for -gen, d + 1 for the -ppc draw d)."""
-    s = int(seed) & ((1 << 64) - 1)
-    return s & _MASK32, ((s >> 32) ^ int(stream)) & _MASK32
+def _categories(key, base, logits_rows, k):
+    """The first argmax over c of gumbel(key, base K + c) + logits_rows."""
+    c = torch.arange(k, dtype=torch.int64, device=base.device)
+    g = threefry.gumbel_at(key, base[:, None] * k + c)
+    return torch.argmax(g + logits_rows, dim=1)
 
 
-def uniform24(x: torch.Tensor) -> torch.Tensor:
-    """(x >> 8) 2^-24 in f32: 24 random bits, exact."""
-    return (x >> 8).to(torch.float32) * 2.0 ** -24
-
-
-def pair_uniforms(i: torch.Tensor, j: torch.Tensor, seed: int,
-                  stream: int) -> Tuple[torch.Tensor, ...]:
-    """The pair's three uniforms (u_p, u_q, u), counter (j, i, 0, 0)."""
-    k0, k1 = philox_key(seed, stream)
-    zero = torch.zeros_like(i)
-    x = philox4x32(j, i, zero, zero, k0, k1)
-    return uniform24(x[0]), uniform24(x[1]), uniform24(x[2])
-
-
-def gen_pairs_plain(cum, beta, eps: float, seed: int, stream: int,
-                    row0: int = 0, row1: Optional[int] = None
-                    ) -> torch.Tensor:
+def gen_pairs_plain(logits, beta, eps: float, key: threefry.Key,
+                    row_block: int, row0: int = 0,
+                    row1: Optional[int] = None) -> torch.Tensor:
     """Kernel 16 in plain PyTorch: the links among the pairs i < j of rows
-    [row0, row1), row-major, (E, 2) int32. cum (n, K) f32 is each row's
-    cumulative pi, beta (K,) f32."""
-    n, k = cum.shape
+    [row0, row1), row-major, (E, 2) int32. logits (n, K) f32 are log(max(pi,
+    1e-300)), beta (K,) f32; key the draw's key, row_block
+    default_row_block(n, K) for the JAX package's stream."""
+    n, k = logits.shape
     row1 = n if row1 is None else row1
-    dev = cum.device
-    inner = cum[:, :k - 1].contiguous()
+    dev = logits.device
+    epsf = torch.tensor(eps, dtype=torch.float32, device=dev)
     limit = max(1024, _PLAIN_FLOATS // k)
     out = []
     i0 = row0
     while i0 < row1:
+        start = i0 // row_block * row_block
+        k1, k2, k3 = _block_keys(key, start)
+        stop = min(row1, start + row_block)
         i1, count = i0, 0
-        while i1 < row1 and (count == 0 or count + (n - 1 - i1) <= limit):
+        while i1 < stop and (count == 0 or count + (n - 1 - i1) <= limit):
             count += n - 1 - i1
             i1 += 1
         rows = torch.arange(i0, i1, device=dev, dtype=torch.int64)
         per = n - 1 - rows
         i = torch.repeat_interleave(rows, per)
-        start = torch.cumsum(per, 0) - per
+        first = torch.cumsum(per, 0) - per
         j = (torch.arange(i.shape[0], device=dev)
-             - torch.repeat_interleave(start, per) + i + 1)
-        up, uq, u = pair_uniforms(i, j, seed, stream)
-        zp = torch.searchsorted(inner[i], up[:, None], right=True)[:, 0]
-        zq = torch.searchsorted(inner[j], uq[:, None], right=True)[:, 0]
-        rate = torch.where(zp == zq, beta[zp],
-                           torch.tensor(eps, dtype=torch.float32,
-                                        device=dev))
+             - torch.repeat_interleave(first, per) + i + 1)
+        x = (i - start) * n + j
+        u = threefry.uniform_at(k3, x)
+        zp = _categories(k1, x, logits[i], k)
+        zq = _categories(k2, x, logits[j], k)
+        rate = torch.where(zp == zq, beta[zp], epsf)
         hit = u < rate
         out.append(torch.stack([i[hit], j[hit]], 1).to(torch.int32))
         i0 = i1
@@ -128,53 +110,72 @@ def gen_pairs_plain(cum, beta, eps: float, seed: int, stream: int,
     return torch.cat(out)
 
 
-def gen_pairs(cum, beta, eps: float, seed: int, stream: int,
-              row0: int = 0, row1: Optional[int] = None) -> torch.Tensor:
+def gen_pairs(logits, beta, eps: float, key: threefry.Key, row_block: int,
+              row0: int = 0, row1: Optional[int] = None,
+              stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 16 (csrc/gen_pairs.cu) on a CUDA tensor, gen_pairs_plain on
     a CPU tensor: the links among the pairs i < j of rows [row0, row1),
-    row-major, (E, 2) int32. On the card pass 1 counts each row's links,
-    the counts are scanned into offsets, pass 2 draws again and writes."""
-    if cum.device.type == "cpu":
-        return gen_pairs_plain(cum, beta, eps, seed, stream, row0, row1)
-    build.require_cuda(cum, "gen_pairs")
-    dev = cum.device
-    n, k = cum.shape
+    row-major, (E, 2) int32. On the card, spans of rows whose bit table
+    fits _TABLE_WORDS: pass 1 draws each pair once into the table and
+    counts each row's links, the counts are scanned into offsets, pass 2
+    writes. `stats` (2,) int64 on the card, when given, += the pairs whose
+    z_p and z_q were drawn (the rest the kernel's exact shortcuts skip)."""
+    if logits.device.type == "cpu":
+        return gen_pairs_plain(logits, beta, eps, key, row_block, row0, row1)
+    build.require_cuda(logits, "gen_pairs")
+    dev = logits.device
+    n, k = logits.shape
     row1 = n if row1 is None else row1
-    build.check_cuda(cum, "cum", torch.float32, (n, k), dev)
+    build.check_cuda(logits, "logits", torch.float32, (n, k), dev)
     build.check_cuda(beta, "beta", torch.float32, (k,), dev)
-    rows = row1 - row0
-    counts = torch.empty(max(rows, 1), dtype=torch.int64, device=dev)
-    args = (n, k, row0, row1, float(eps), int(seed), int(stream))
-    build.launch("svt_gen_pairs", dev, cum.data_ptr(), beta.data_ptr(),
-                 counts.data_ptr(), None, None, *args, 0)
-    ends = torch.cumsum(counts[:rows], 0)
-    total = int(ends[-1]) if rows else 0
-    offsets = (ends - counts[:rows]).contiguous()
-    edges = torch.empty((max(total, 1), 2), dtype=torch.int32, device=dev)
-    build.launch("svt_gen_pairs", dev, cum.data_ptr(), beta.data_ptr(),
-                 None, offsets.data_ptr(), edges.data_ptr(), *args, 1)
+    if stats is not None:
+        build.check_cuda(stats, "stats", torch.int64, (2,), dev)
+    eps = float(np.float32(eps))
+    umax = max(float(beta.max()), eps)
+    words = max(1, -(-n // 32))
+    span = max(1, _TABLE_WORDS // words)
+    table = torch.empty((min(span, max(row1 - row0, 1)), words),
+                        dtype=torch.int32, device=dev)
+    out = []
+    for lo in range(row0, row1, span):
+        hi = min(row1, lo + span)
+        rows = hi - lo
+        counts = torch.empty(rows, dtype=torch.int64, device=dev)
+        args = (n, k, lo, hi, int(row_block), words, eps, umax,
+                int(key[0]), int(key[1]))
+        build.launch("svt_gen_pairs", dev, logits.data_ptr(),
+                     beta.data_ptr(), table.data_ptr(), counts.data_ptr(),
+                     None, None, None if stats is None else stats.data_ptr(),
+                     *args, 0)
+        ends = torch.cumsum(counts, 0)
+        total = int(ends[-1])
+        offsets = (ends - counts).contiguous()
+        edges = torch.empty((max(total, 1), 2), dtype=torch.int32,
+                            device=dev)
+        build.launch("svt_gen_pairs", dev, logits.data_ptr(),
+                     beta.data_ptr(), table.data_ptr(), None,
+                     offsets.data_ptr(), edges.data_ptr(), None, *args, 1)
+        out.append(edges[:total])
     build.count_launch(gen_pairs, "f32")
-    return edges[:total]
+    if not out:
+        return torch.zeros((0, 2), dtype=torch.int32, device=dev)
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 gen_pairs.launches = 0
 gen_pairs.forms = {}
 
 
-def cumulative_pi(pi: np.ndarray) -> np.ndarray:
-    """Each row's cumulative pi, summed in float64 and kept in f32."""
-    return np.cumsum(np.asarray(pi, np.float64), axis=1).astype(np.float32)
-
-
-def draw_network(pi: np.ndarray, beta: np.ndarray, eps: float, seed: int,
-                 stream: int, device) -> np.ndarray:
-    """Draw a full network (svinet_tpu/svi/gen.py:64-82): (E, 2) int32
-    canonical edges, row-major, from kernel 16 on `device` (the plain
-    version on the CPU)."""
-    cum = torch.as_tensor(cumulative_pi(pi), device=device)
+def draw_network(pi: np.ndarray, beta: np.ndarray, eps: float,
+                 key: threefry.Key, device) -> np.ndarray:
+    """Draw a full network (svinet_tpu/svi/gen.py:64-82) on JAX's stream
+    under `key`: (E, 2) int32 canonical edges, row-major, from kernel 16 on
+    `device` (the plain version on the CPU)."""
+    n, k = pi.shape
+    logits = torch.as_tensor(logits_of(pi), device=device)
     b = torch.as_tensor(np.asarray(beta, np.float32), device=device)
-    return gen_pairs(cum, b, float(np.float32(eps)), seed, stream).cpu() \
-        .numpy()
+    return gen_pairs(logits, b, float(np.float32(eps)), key,
+                     default_row_block(n, k)).cpu().numpy()
 
 
 def draw_network_sparse(rng: np.random.Generator, pi: np.ndarray,
@@ -314,8 +315,8 @@ class MMSBGen:
             if sparse:
                 print(f"+ sparse generator (n={self.n} > 65536)")
                 return draw_network_sparse(rng, pi, beta, cfg.epsilon)
-            return draw_network(pi, beta, cfg.epsilon, cfg.seed, 0,
-                                self.device)
+            return draw_network(pi, beta, cfg.epsilon,
+                                threefry.prng_key(cfg.seed), self.device)
 
         if cfg.orig:
             alpha = 1.0 / self.k
@@ -386,7 +387,7 @@ class MMSBGen:
         """-ppc (svinet_tpu/svi/gen.py:294-382): the observed statistics,
         then ppc_ndraws networks under pi ~ Dir(gamma), beta ~
         Beta(lambda), drawn in the JAX order (a Dirichlet a row, then
-        beta), each network from kernel 16 (stream d + 1); z-scores of
+        beta), each network from kernel 16 under fold_in(PRNGKey(seed), d); z-scores of
         the observed against the replicated statistics."""
         cfg = self.cfg
         net = self.network
@@ -407,6 +408,7 @@ class MMSBGen:
             f.write(f"{obs_ccf:.5f}\n")
 
         rng = np.random.default_rng(cfg.seed)
+        key = threefry.prng_key(cfg.seed)
         nd = cfg.ppc_ndraws
         rep_ones = np.zeros(nd)
         rep_avgd = np.zeros(nd)
@@ -420,8 +422,8 @@ class MMSBGen:
         for d in range(nd):
             pi = np.stack([rng.dirichlet(gamma[i]) for i in range(self.n)])
             beta = rng.beta(lam[:, 0], lam[:, 1])
-            edges = draw_network(pi, beta, cfg.epsilon, cfg.seed, d + 1,
-                                 self.device)
+            edges = draw_network(pi, beta, cfg.epsilon,
+                                 threefry.fold_in(key, d), self.device)
             rep_ones[d] = len(edges) / total_pairs
             deg = np.zeros(self.n, np.int64)
             if len(edges):

@@ -35,6 +35,7 @@ from svinet_torch.evals.likelihood import (
 from svinet_torch.evals.precision import auc as auc_fn
 from svinet_torch.ops.edges import (
     Adjacency, build_adjacency, choose_edge_block, owner_csr, pad_edges)
+from svinet_torch.ops import threefry
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.parallel import mesh
 from svinet_torch.parallel.locality import locality_edge_layout
@@ -342,19 +343,24 @@ def init_gamma_from_communities(members, deg: np.ndarray, n: int, k: int,
     return alpha + deg[:, None] * phi
 
 
-def init_gamma_from_links_device(gen: torch.Generator, edges, mask, n: int,
-                                 k: int, alpha: float, num_blocks: int):
+def init_gamma_from_links_device(seed: int, edges, mask, n: int, k: int,
+                                 alpha: float, num_blocks: int):
     """init_gamma_from_links drawn on the device block by block, for edge
-    sets whose host (E,K) phi matrix would not fit. `gen` lives on the
-    edges' device; its numbers differ from numpy's and from jax.random's,
-    so this init matches the host one in distribution only."""
+    sets whose host (E,K) phi matrix would not fit
+    (svinet_tpu/svi/linksampling.py:387-411): block b's phi is
+    uniform(split(PRNGKey(seed), num_blocks)[b], (block, K)), JAX's
+    threefry stream (kernel 17 on the card, ops/threefry.py), normalised
+    by its row sum, masked, and added into both ends' rows. So the init is
+    the JAX package's up to the order of the f32 adds."""
+    keys = threefry.split_keys(threefry.prng_key(seed), num_blocks)
     gamma = torch.zeros((n, k), dtype=torch.float32, device=edges.device)
-    for blk, msk in edge_blocks(edges, mask, num_blocks):
-        phi = torch.rand((blk.shape[0], k), generator=gen,
-                         dtype=torch.float32, device=edges.device)
-        phi = phi / phi.sum(dim=1, keepdim=True) * msk[:, None]
-        gamma.index_add_(0, blk[:, 0], phi)
-        gamma.index_add_(0, blk[:, 1], phi)
+    phi = torch.empty((edges.shape[0] // max(num_blocks, 1), k),
+                      dtype=torch.float32, device=edges.device)
+    for (blk, msk), key in zip(edge_blocks(edges, mask, num_blocks), keys):
+        threefry.uniform_rows(key, phi)
+        p = phi / phi.sum(dim=1, keepdim=True) * msk[:, None]
+        gamma.index_add_(0, blk[:, 0], p)
+        gamma.index_add_(0, blk[:, 1], p)
     empty = gamma.sum(dim=1, keepdim=True) == 0
     return torch.where(empty, alpha, gamma)
 
@@ -428,10 +434,8 @@ class LinkSampling(EngineBase):
             l0 = np.tile([cfg.eta0, cfg.eta1], (k, 1))
         elif len(network.edges) * k > DEVICE_INIT_MIN:
             ie, im = pad_edges(network.edges, block)
-            gen = torch.Generator(device=device)
-            gen.manual_seed(cfg.seed)
             g0 = init_gamma_from_links_device(
-                gen, torch.as_tensor(ie, device=device),
+                cfg.seed, torch.as_tensor(ie, device=device),
                 torch.as_tensor(im, device=device), n, k, cfg.alpha,
                 ie.shape[0] // block)
             l0 = np.tile([cfg.eta0, cfg.eta1], (k, 1))

@@ -725,15 +725,15 @@ def _late_gamma(member, k: int, gen) -> torch.Tensor:
     return gamma
 
 
-def _engine_gamma(links, adj, deg, n: int, k: int, gen) -> torch.Tensor:
+def _engine_gamma(links, adj, deg, n: int, k: int) -> torch.Tensor:
     """The state the engine holds when annealing ends early on a graph
     with no communities (chip_smoke.py phase 3 on the stretch shape): its
-    device-side init (init_gamma_from_links_device), then three annealing
-    sweeps. No column is tied."""
+    device-side init (init_gamma_from_links_device, seed 0), then three
+    annealing sweeps. No column is tied."""
     block = choose_edge_block(len(links), k)
     edges_np, mask_np = pad_edges(links, block)
     gamma = init_gamma_from_links_device(
-        gen, torch.as_tensor(edges_np, device="cuda"),
+        0, torch.as_tensor(edges_np, device="cuda"),
         torch.as_tensor(mask_np, device="cuda"), n, k, 1.0 / k,
         edges_np.shape[0] // block)
     lam = torch.tensor([[1.0, 1.0]] * k, device="cuda")
@@ -798,7 +798,7 @@ def bench_sparse(alt, label: str, links, member, n: int, k: int, widths,
     reps = 2 if big else 10
     out = []
     for state in states:
-        gamma = (_engine_gamma(links, adj, deg, n, k, gen)
+        gamma = (_engine_gamma(links, adj, deg, n, k)
                  if state == "engine" else _late_gamma(member, k, gen))
         elogpi = dirichlet_expectation(gamma)
         dense = timed({
@@ -1006,7 +1006,7 @@ def _stretch_mmsb_inputs(gen, s: int):
     adj = build_adjacency(links, n, "cuda")
     deg = torch.as_tensor(np.bincount(links.ravel(), minlength=n)
                           .astype(np.float32), device="cuda")
-    gamma = _engine_gamma(links, adj, deg, n, k, gen)
+    gamma = _engine_gamma(links, adj, deg, n, k)
     del adj
     keys = torch.as_tensor(links[:, 0].astype(np.int64) * n + links[:, 1],
                            device="cuda")

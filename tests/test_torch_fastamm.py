@@ -308,8 +308,15 @@ def _held_to_jax(ours, theirs):
     np.testing.assert_array_equal(a[:, [0, 2, 3]], b[:, [0, 2, 3]])
 
 
-@pytest.mark.parametrize("k,flags", [(4, []), (8, ["-fastqueue", "4"])])
+@pytest.mark.parametrize("k,flags", [
+    (4, []), (8, ["-fastqueue", "4"]),
+    (160, ["-fastqueue", "96", "-max-iterations", "75", "-rfreq", "25"])],
+    ids=["dense", "fastqueue4", "fastqueue96"])
 def test_cli_fastamm_matches_jax(planted, tmp_path, monkeypatch, k, flags):
+    """Both CLIs after -preprocess: the port's files held to the JAX
+    package's; under -fastqueue the community files byte for byte. W = 96
+    is past the card kernels' narrow form (W <= 64), where they take their
+    wide one; the plain version the CPU runs is the same at every W."""
     monkeypatch.setenv("SVINET_TORCH_DEVICE", "cpu")
     net, gt = planted
     out = {}
@@ -355,12 +362,17 @@ def test_cli_fastamm_resume_continues_the_counters(planted, tmp_path,
 
 
 def test_gpu_width_refused_before_the_engine_is_built():
-    """-fastqueue W above the card kernels' widest exits on a CUDA device
-    naming the limit, before any state is drawn or copied."""
-    cfg = parse_args(["-file", "x", "-n", "10", "-k", "100", "-infset",
-                      "-fastqueue", str(sg.MAX_W + 1)])
-    with pytest.raises(SystemExit, match=f"<= {sg.MAX_W}"):
-        fastamm.FastAMM(cfg, None, torch.device("cuda"))
+    """The card's kernels take any top-W width the JAX engine takes, 1 <=
+    W < K (W = 96 and 128 take their wide form, a region of 20-30 KB a
+    pair in shared memory; W = 1,500 one in device scratch); a W of K or
+    more, or below 1, is refused before anything launches. The engine no
+    longer exits on a wide W (only on W >= K, as the JAX engine does)."""
+    for w, k in ((1, 2), (64, 100), (96, 160), (128, 200), (1_500, 3_000)):
+        sg._check_width(w, k)
+    for w, k in ((0, 8), (160, 160), (200, 160)):
+        with pytest.raises(ValueError, match="-fastqueue"):
+            sg._check_width(w, k)
+    assert not hasattr(sg, "MAX_W")
 
 
 def test_cli_infset_mesh_runs_one_process(planted, tmp_path, monkeypatch):

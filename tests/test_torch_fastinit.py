@@ -140,6 +140,54 @@ def test_sparse_pi_and_overlap_match_jax(width):
     assert (js > 0).any() and (js == 0).any()
 
 
+def test_overlap_plain_at_width_4097_matches_jax():
+    """overlap_stats_plain at width 4,097 (past the width whose table
+    kernel 13 keeps in shared memory; the card takes its tables in device
+    scratch there) against JAX's _overlap_block on pairs sharing most of
+    their ids: two pairs, since JAX's (B, w, w) intermediate is 67 MB a
+    pair. The plain pass takes them in blocks of one."""
+    w, n = 4_097, 4_200
+    rng = np.random.default_rng(41)
+    # rows of distinct ids below n (ids are node labels, n the sentinel),
+    # the first four drawn apart, the rest a copy of row 0
+    ids = np.empty((n, w), np.int32)
+    for r in range(4):
+        ids[r] = rng.permutation(n)[:w]
+    ids[4:] = ids[0]
+    ids[:4, -3:] = n                            # a few empty slots
+    pi = np.broadcast_to(rng.random(w).astype(np.float32) / w,
+                         (n, w)).copy()
+    pairs = np.array([[0, 1], [2, 3]], np.int32)
+    js, jm, jid = (np.asarray(a) for a in jfi._overlap_block(
+        jnp.asarray(ids), jnp.asarray(pi), jnp.asarray(pairs)))
+    ts, tm, tid = (a.numpy() for a in fi.overlap_stats_plain(
+        torch.tensor(ids), torch.tensor(pi), torch.tensor(pairs), block=1))
+    assert (js > 0).all()
+    np.testing.assert_allclose(ts, js, **TOL)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tid, jid)
+
+
+def test_overlap_width_has_no_limit():
+    """No width limit is left: the wrapper takes width 5,000 (past 4,096
+    the card keeps the tables in device scratch, sized by the kernel's own
+    query). On CPU tensors a pair of rows sharing two ids among empty slots
+    gives their products' sum, the largest and its id."""
+    assert not hasattr(fi, "OVERLAP_MAX_W")
+    n, w = 4, 5_000
+    ids = torch.full((n, w), n, dtype=torch.int32)
+    pi = torch.zeros((n, w))
+    ids[0, [0, 7, 4_999]] = torch.tensor([1, 2, 3], dtype=torch.int32)
+    pi[0, [0, 7, 4_999]] = torch.tensor([0.5, 0.25, 0.2])
+    ids[1, [10, 4_000, 4_998]] = torch.tensor([3, 2, 0], dtype=torch.int32)
+    pi[1, [10, 4_000, 4_998]] = torch.tensor([0.5, 0.25, 0.125])
+    ssum, mx, mid = fi.overlap_stats(ids, pi,
+                                     torch.tensor([[0, 1]], dtype=torch.int32))
+    assert float(ssum[0]) == pytest.approx(0.2 * 0.5 + 0.25 * 0.25)
+    assert float(mx[0]) == pytest.approx(0.2 * 0.5)
+    assert int(mid[0]) == 3
+
+
 def test_overlap_without_a_shared_id_gives_ids_p0():
     """No shared id: sum 0, max 0 and p's first id, the sentinel where p's
     row is empty (the argmax of an all-zero block)."""

@@ -4,13 +4,15 @@ the JAX package's, on the CPU.
 Wherever the draws are numpy's (pi, beta, ppc's per-draw pi and beta, the
 sparse generator) and wherever no draw is made (gml, lcstats), the files
 are the JAX package's byte for byte. The dense pair draw is kernel 16's
-Philox4x32-10 stream, which JAX's threefry cannot give: there the port
-draws from the same distribution, not the same edges, and the tests hold
-its edges to the model (row-major pairs i < j, the edge count within 4
-sigma of its exact expectation) and its uniforms to a chi-squared test."""
+plain version on JAX's threefry stream (ops/threefry.py): its edges are
+the JAX package's but at Gumbel near-ties, where the frameworks' logs may
+order two of a pair's category scores otherwise. The tests count such
+pairs (JAX's two best scores within NEAR_TIE) and allow no other
+difference."""
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,9 @@ from svinet_torch.svi import gen as tgen
 from svinet_torch.synth import write_planted
 
 N, K = 60, 3
+# a pair's edge may differ from JAX's only where JAX's two best Gumbel
+# scores of its z_p or z_q lie within this of each other
+NEAR_TIE = 4e-6
 
 
 class _SparseN(int):
@@ -51,16 +56,6 @@ def _only_dir(d):
     return sub
 
 
-def _expected_links(pi, beta, eps):
-    """The exact expectation and variance of the dense draw's edge count
-    in float64."""
-    s = pi @ (pi * beta).T          # sum_k pi_ik pi_jk beta_k
-    same = pi @ pi.T                # sum_k pi_ik pi_jk
-    p = s + eps * (1.0 - same)
-    iu = np.triu_indices(len(pi), 1)
-    return p[iu].sum(), (p[iu] * (1.0 - p[iu])).sum()
-
-
 @pytest.mark.parametrize("extra", [[], ["-orig"], ["-disjoint"]],
                          ids=["gen", "gen_orig", "gen_disjoint"])
 def test_gen_files_match_jax(tmp_path, monkeypatch, extra):
@@ -77,63 +72,92 @@ def test_gen_files_match_jax(tmp_path, monkeypatch, extra):
         assert (td / name).read_bytes() == (jd / name).read_bytes(), name
     assert sorted(os.listdir(td)) == sorted(os.listdir(jd))
     edges = np.loadtxt(td / "network_gen.dat", dtype=np.int64, ndmin=2)
+    want = np.loadtxt(jd / "network_gen.dat", dtype=np.int64, ndmin=2)
     assert (edges[:, 0] < edges[:, 1]).all()
     keys = edges[:, 0] * 150 + edges[:, 1]
     assert (np.diff(keys) > 0).all()
-    # the model's pi and beta, drawn as both engines draw them
+    # the model's pi, drawn as both engines draw it
     rng = np.random.default_rng(11)
     alpha = 0.25 if extra == ["-orig"] else 0.05
     pi = rng.dirichlet(np.full(4, alpha), size=150)
-    from svinet_torch.config import Config
-    cfg = Config()
-    beta = rng.beta(cfg.eta0_gen, cfg.eta1_gen, size=4)
     if extra == ["-disjoint"]:
         pi = 0.999 * np.eye(4)[pi.argmax(1)] + 0.001 / 4
-    mean, var = _expected_links(pi, beta, cfg.epsilon)
-    assert abs(len(edges) - mean) <= 4 * np.sqrt(var) + 1e-9, (
-        len(edges), mean, var)
+    ties = _apart_at_near_ties(edges, want, pi, jax.random.PRNGKey(11))
+    if ties == 0:
+        assert (td / "network_gen.dat").read_bytes() == \
+            (jd / "network_gen.dat").read_bytes()
+    assert len(want) > 100
 
 
-def test_philox_known_answers():
-    """Philox4x32-10's published test vectors (Random123's kat_vectors)."""
-    cases = [((0, 0, 0, 0), (0, 0),
-              (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
-             ((0xffffffff,) * 4, (0xffffffff,) * 2,
-              (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
-             ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
-              (0xa4093822, 0x299f31d0),
-              (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
-    for ctr, key, want in cases:
-        got = tgen.philox4x32(*(torch.tensor([c], dtype=torch.int64)
-                                for c in ctr), *key)
-        assert tuple(int(g[0]) for g in got) == want
+def _jax_scores(key, pi):
+    """JAX's category scores of draw_network's one row block (n rows):
+    gumbel(k1 or k2, (n, n, K)) + log(max(pi, 1e-300)) of row i (z_p) or
+    row j (z_q), as _gen_rows forms them."""
+    n, k = pi.shape
+    logpi = np.log(np.maximum(pi, 1e-300)).astype(np.float32)
+    k1, k2, _ = jax.random.split(jax.random.fold_in(key, 0), 3)
+    gp = np.asarray(jax.random.gumbel(k1, (n, n, k)))
+    gq = np.asarray(jax.random.gumbel(k2, (n, n, k)))
+    return gp + logpi[:, None, :], gq + logpi[None, :, :]
 
 
-def test_philox_uniforms_pass_chi_squared():
-    """Each of the three uniforms of 200,000 pairs in 64 equal bins: the
-    chi-squared statistic (63 degrees of freedom) below its 0.999
-    quantile, 103.4; every value in [0, 1) and a multiple of 2^-24."""
-    n = 632
-    iu = torch.triu_indices(n, n, 1)
-    i, j = iu[0][:200_000], iu[1][:200_000]
-    for u in tgen.pair_uniforms(i, j, 123456789, 0):
-        assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
-        assert torch.equal(u * 2 ** 24, torch.floor(u * 2 ** 24))
-        counts = torch.bincount((u * 64).long(), minlength=64).double()
-        expect = u.shape[0] / 64
-        chi2 = float(((counts - expect) ** 2 / expect).sum())
-        assert chi2 < 103.4, chi2
+def _gap(scores):
+    """The best score less the second best, along the last axis."""
+    top = np.sort(scores, axis=-1)
+    return top[..., -1] - top[..., -2]
+
+
+def _apart_at_near_ties(got, want, pi, key):
+    """The pairs in one edge list and not the other, each of which must
+    sit at a JAX near-tie (NEAR_TIE) of its z_p or z_q; returns their
+    count. The draw is one row block (n K below 2^24)."""
+    from svinet_torch.svi.gen import default_row_block
+    n, k = pi.shape
+    assert default_row_block(n, k) == n
+    a = {tuple(e) for e in np.asarray(got).tolist()}
+    b = {tuple(e) for e in np.asarray(want).tolist()}
+    apart = sorted(a ^ b)
+    if apart:
+        sp, sq = _jax_scores(key, pi)
+        gp, gq = _gap(sp), _gap(sq)
+        far = [(i, j) for i, j in apart
+               if min(gp[i, j], gq[i, j]) > NEAR_TIE]
+        assert not far, far
+    return len(apart)
+
+
+def test_draw_network_matches_jax_edges():
+    """Kernel 16's plain version on JAX's stream writes the JAX package's
+    edges, under -gen's beta (near 1, so nearly every pair draws both
+    categories) and a low beta with eps above zero (the u-first shortcut's
+    cases), at two seeds."""
+    from svinet_tpu.svi.gen import draw_network as jdraw
+    from svinet_torch.ops import threefry
+    rng = np.random.default_rng(5)
+    pi = rng.dirichlet(np.full(5, 0.3), size=120)
+    for seed, beta, eps in ((11, rng.beta(4700.59, 0.77, size=5), 1e-30),
+                            (2**31 + 7, rng.uniform(0.05, 0.3, 5), 0.02)):
+        key = jax.random.PRNGKey(seed)
+        want = jdraw(key, pi, beta, eps)
+        got = tgen.draw_network(pi, beta, eps, threefry.prng_key(seed),
+                                torch.device("cpu"))
+        assert _apart_at_near_ties(got, want, pi, key) == 0
+        np.testing.assert_array_equal(got, want)
+        assert len(want) > 100
 
 
 def test_plain_draw_is_row_range_consistent():
     """The plain draw over rows [a, b) is the whole draw's rows [a, b):
-    a pair's draw depends on the pair alone."""
+    a pair's draw depends on the pair and its row block alone."""
+    from svinet_torch.ops import threefry
     rng = np.random.default_rng(3)
     pi = rng.dirichlet(np.full(5, 0.3), size=90)
-    cum = torch.as_tensor(tgen.cumulative_pi(pi))
+    logits = torch.as_tensor(tgen.logits_of(pi))
     beta = torch.full((5,), 0.6)
-    whole = tgen.gen_pairs_plain(cum, beta, 1e-3, 7, 2)
-    part = tgen.gen_pairs_plain(cum, beta, 1e-3, 7, 2, 20, 47)
+    key = threefry.fold_in(threefry.prng_key(7), 2)
+    # row blocks of 16: the range [20, 47) crosses two block keys
+    whole = tgen.gen_pairs_plain(logits, beta, 1e-3, key, 16)
+    part = tgen.gen_pairs_plain(logits, beta, 1e-3, key, 16, 20, 47)
     sel = (whole[:, 0] >= 20) & (whole[:, 0] < 47)
     assert torch.equal(part, whole[sel]) and part.shape[0] > 0
 
@@ -215,12 +239,36 @@ def test_gml_and_lcstats_match_jax(tmp_path, monkeypatch, model_dir, flag,
 
 
 def test_ppc_matches_jax(tmp_path, monkeypatch, model_dir):
-    """-ppc at n=60: obs-*.txt byte for byte; ppc/*.txt with 100 rows (K
-    for the link-community z-scores), every value finite."""
+    """-ppc at n=60: obs-*.txt byte for byte; each of the 100 draws' edges
+    the JAX package's but at counted Gumbel near-ties; ppc/*.txt with 100
+    rows (K for the link-community z-scores), every value finite, and
+    byte for byte JAX's where no draw was apart."""
+    import svinet_tpu.svi.gen as jgen
     model, net = model_dir
     _with_model(tmp_path, model)
+    drawn = {"jax": [], "torch": []}
+
+    def keep(mod, name, key_at, pi_at):
+        inner = mod.draw_network
+
+        def wrapped(*a, **kw):
+            edges = inner(*a, **kw)
+            drawn[name].append((a[key_at], np.array(a[pi_at]),
+                                np.asarray(edges)))
+            return edges
+        monkeypatch.setattr(mod, "draw_network", wrapped)
+
+    keep(jgen, "jax", 0, 1)
+    keep(tgen, "torch", 3, 0)
     argv = ["-file", net, "-n", str(N), "-k", str(K), "-ppc", "-seed", "5"]
     jd, td = _run_both(tmp_path, monkeypatch, argv)
+    assert len(drawn["jax"]) == len(drawn["torch"]) == 100
+    apart = 0
+    for d, ((jkey, jpi, want), (tkey, tpi, got)) in enumerate(
+            zip(drawn["jax"], drawn["torch"])):
+        np.testing.assert_array_equal(jpi, tpi)
+        assert tuple(np.asarray(jkey).tolist()) == tkey, d
+        apart += _apart_at_near_ties(got, want, jpi, jkey)
     obs = sorted(p.name for p in jd.iterdir() if p.name.startswith("obs-"))
     assert len(obs) == 4
     for name in obs:
@@ -233,6 +281,9 @@ def test_ppc_matches_jax(tmp_path, monkeypatch, model_dir):
                 "lc_zscores_size.txt": K}.get(name, 100)
         assert len(rows) == want, name
         assert np.isfinite([float(r[-1]) for r in rows]).all(), name
+        if apart == 0 and not name.startswith("lc_"):
+            assert (td / "ppc" / name).read_bytes() == \
+                (jd / "ppc" / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("argv", [

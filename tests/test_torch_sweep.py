@@ -252,13 +252,13 @@ def test_init_gamma_device_matches_host_stats():
     each gamma row sums to the node's degree (each link adds a normalised
     phi to both endpoints), rows without a link hold alpha, and the
     masked pad rows of the ragged last block (which point at node 0) add
-    nothing."""
+    nothing. Its draws are JAX's threefry stream under the seed
+    (tests/test_torch_threefry.py holds them to the JAX package's)."""
     _, edges, deg = _planted()
     n, k, alpha, block = len(deg) + 5, 4, 0.25, 256
     e, m = pad_edges(edges, block)
     assert len(e) > len(edges) and len(e) // block > 1
-    gen = torch.Generator().manual_seed(0)
-    g_dev = init_gamma_from_links_device(gen, _t(e), _t(m), n, k, alpha,
+    g_dev = init_gamma_from_links_device(0, _t(e), _t(m), n, k, alpha,
                                          len(e) // block).numpy()
     g_host = init_gamma_from_links(np.random.default_rng(0), edges, n, k,
                                    alpha)
