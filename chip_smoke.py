@@ -5151,8 +5151,32 @@ OVERLAP_WIDTHS = (8, 130, 4_097, 8_192)
 # grow as w^2
 OVERLAP_WIDE = 4_096
 OVERLAP_WIDE_PAIRS = 1_000
-# kernel 14 on chunk 3 and on a whole E-step: (n, K, held-out pairs)
-ESTEP_SHAPES = ((20_000, 20, 4_000), (1_000_000, 500, 400_000))
+# kernel 14 on chunk 3 and on whole E-steps: (n, K, held-out pairs, the
+# whole E-steps' state), on planted-20k's, stretch's and planted
+# n=2,000's links. The chunk check is made in the member state
+# (_estep_model: 0.8 of each row on its node's block, a random balanced
+# assignment, under a lambda whose rows depend on their neighbours' and
+# held-out partners' rows), beside the plain version with each planted
+# fault (every neighbour read from the round's input, the held-out list
+# left out), which must part from it by more than ESTEP_TOL. A random phi
+# under a lambda scaled at random (the saturated state) puts every row
+# one-hot on one column whatever the kernel gathers. The whole E-steps
+# need rounds that contract: the member state's do at n = 2,000, and so do
+# the planted state's (the member state on planted-20k's blocks, which
+# stops by the threshold after an odd number of rounds, the last round's
+# rows copied back into phi); at n = 20,000 and at stretch the member
+# state's do not (two plain versions that add tot in other orders part by
+# up to 1.0 within one round), so there they run from the saturated
+# state and hold the rounds and the driver. K = 1,000 and 1,001 take the
+# kernel's tiles, 1,001 and 37 its rows of 4-byte units (K % 4 != 0).
+ESTEP_SHAPES = ((20_000, 20, 4_000, "saturated"),
+                (1_000_000, 500, 400_000, "saturated"),
+                (2_000, 1_000, 400, "member"),
+                (2_000, 1_001, 400, "member"),
+                (20_000, 37, 4_000, "saturated"),
+                (20_000, 20, 4_000, "planted"))
+# the member state's lambda: (diagonal row, row K)
+ESTEP_MEMBER_LAMBDA = ((3.0, 7.0), (1.0, 9.0))
 ESTEP_TOL = 1e-4
 
 
@@ -5168,6 +5192,13 @@ def _planted_links():
     from svinet_torch.synth import planted_blocks
     edges, _ = planted_blocks(PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
                               PLANTED["seed"])
+    return _clean_links(edges)
+
+
+def _batch_planted_links():
+    from svinet_torch.synth import planted_blocks
+    edges, _ = planted_blocks(BATCH_PLANTED["n"], BATCH_PLANTED["k"],
+                              BATCH_PLANTED["avg_deg"], BATCH_PLANTED["seed"])
     return _clean_links(edges)
 
 
@@ -5360,90 +5391,168 @@ def phase7_overlap(dev, stretch_links):
     return report, wide
 
 
-def _estep_state(dev, gen, n, k, links, m_held):
-    """A random phi (rows near a planted assignment), gamma and an
-    assortative lambda, the CSRs of the links and of m_held random
-    pairs, and what the E-step takes."""
-    from svinet_torch.ops.digamma import dirichlet_expectation
+def _estep_graph(dev, gen, n, links, m_held):
+    """The CSRs of the links and of m_held random pairs (no pair of a
+    node with itself), and those pairs."""
     from svinet_torch.ops.edges import build_adjacency
+    held = torch.randint(0, n, (m_held, 2), generator=gen, device=dev)
+    held = held[held[:, 0] != held[:, 1]]
+    return (build_adjacency(links, n, dev),
+            build_adjacency(held.cpu().numpy(), n, dev),
+            held.to(torch.int32))
+
+
+def _estep_model(dev, gen, n, k, member=None):
+    """phi, gamma, lambda and what the E-step takes of them (Elogpi, A -
+    A_K, B - B_K). The member state (member: each node's block, below k):
+    each row 0.8 on its block and 0.2 a random softmax, lambda's rows
+    ESTEP_MEMBER_LAMBDA. The saturated state (no member): a random softmax
+    and an assortative lambda, each entry scaled at random."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
     phi = torch.softmax(3.0 * torch.rand((n, k), generator=gen, device=dev),
                         -1)
     gamma = 1.0 + 99.0 * torch.rand(k, generator=gen, device=dev)
-    lam = torch.cat([torch.tensor([[9.0, 1.0]], device=dev).repeat(k, 1),
-                     torch.tensor([[1.0, 9.0]], device=dev)])
-    lam = lam * (0.5 + torch.rand((k + 1, 2), generator=gen, device=dev))
-    held = torch.randint(0, n, (m_held, 2), generator=gen, device=dev)
-    held = held[held[:, 0] != held[:, 1]]
-    la = build_adjacency(links, n, dev)
-    ha = build_adjacency(held.cpu().numpy(), n, dev)
+    if member is None:
+        lam = torch.cat([torch.tensor([[9.0, 1.0]], device=dev).repeat(k, 1),
+                         torch.tensor([[1.0, 9.0]], device=dev)])
+        lam = lam * (0.5 + torch.rand((k + 1, 2), generator=gen, device=dev))
+    else:
+        phi = 0.2 * phi + 0.8 * torch.nn.functional.one_hot(
+            torch.as_tensor(member, device=dev).long(), k).float()
+        diag, rest = ESTEP_MEMBER_LAMBDA
+        lam = torch.cat([torch.tensor([diag], device=dev).repeat(k, 1),
+                         torch.tensor([rest], device=dev)])
     elogpi = dirichlet_expectation(gamma.reshape(1, k))[0].contiguous()
     eb = dirichlet_expectation(lam)
     da = (eb[:k, 0] - eb[k, 0]).contiguous()
     db = (eb[:k, 1] - eb[k, 1]).contiguous()
-    return phi, elogpi, da, db, la, ha, held.to(torch.int32)
+    return phi, gamma, lam, elogpi, da, db
+
+
+def _estep_faults(src, seen, elogpi, da, db, tot, la, ha, c, want):
+    """How far chunk c's rows move from want (the plain version on phi as
+    the chunk sees it, seen) under each planted fault, in the plain
+    version: every neighbour read from the round's input src, or the
+    held-out list left out."""
+    from svinet_torch.ops.edges import build_adjacency
+    from svinet_torch.svi.sbm import estep_chunk_plain
+    none = build_adjacency(np.zeros((0, 2), np.int32), src.shape[0],
+                           src.device)
+    faults = {"neighbours from the input": (src, ha),
+              "no held-out list": (seen, none)}
+    return {name: float((estep_chunk_plain(phi, elogpi, da, db, tot, la, h,
+                                           c)[0] - want).abs().max())
+            for name, (phi, h) in faults.items()}
 
 
 def estep_bound(n, k, la, ha):
     """A chunk's bound (phi read once, the chunk's CSR entries read, its
-    rows written twice: staged, then phi) and floor (each of its rows'
+    rows and their changes written once) and floor (each of its rows'
     neighbours and held-out partners gathered, 4K bytes each)."""
     entries = (la.nbr.shape[0] + ha.nbr.shape[0]) / 16
     rows = n / 16
-    base = 4 * n * k + 4 * entries + 2 * 4 * rows * k + 16 * rows
+    base = 4 * n * k + 4 * entries + 4 * rows * k + 16 * rows
     return (bound(base, 0.0),
-            (4 * k * entries + 4 * entries + 8 * rows * k) / PEAK_BYTES_S
+            (4 * k * entries + 4 * entries + 4 * rows * k) / PEAK_BYTES_S
             * 1e3)
 
 
-def phase7_estep(dev, stretch_links):
-    """Kernel 14 against its plain version at ESTEP_SHAPES: chunk 3 (the
-    new rows and their changes at ESTEP_TOL, the other rows untouched,
-    two launches bitwise equal) and a whole E-step (the same rounds, phi
-    at ESTEP_TOL). Returns stretch's report."""
+def phase7_estep(dev, stretch_links, shapes=ESTEP_SHAPES):
+    """Kernel 14 against its plain version at each of shapes
+    (ESTEP_SHAPES). In the member state, chunk 3 of a round whose output
+    already holds other rows for chunks 0-2: the new rows and their
+    changes at ESTEP_TOL against the plain version on phi as the chunk
+    sees it, each planted fault's plain version more than ESTEP_TOL from
+    it, the round's input and the output's other rows untouched, tot
+    renewed, two launches bitwise equal. From the shape's whole-E-step
+    state, a one-round E-step (phi the round's output rows bit for bit)
+    and a whole E-step on the plain version's rounds, phi at ESTEP_TOL
+    (the planted state stops before ESTEP_ROUNDS). Returns stretch's
+    report."""
+    from svinet_torch.synth import planted_blocks
     from svinet_torch.svi.sbm import (
-        N_CHUNKS, chunk_sums, estep_buffers, estep_chunk, estep_chunk_plain,
-        sbm_estep, sbm_estep_plain)
+        ESTEP_ROUNDS, N_CHUNKS, chunk_sums, estep_buffers, estep_chunk,
+        estep_chunk_plain, sbm_estep, sbm_estep_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
     report = None
-    for n, k, m_held in ESTEP_SHAPES:
-        links = _planted_links() if n == PLANTED["n"] else stretch_links
-        phi, elogpi, da, db, la, ha, _ = _estep_state(dev, gen, n, k,
-                                                      links, m_held)
+    for n, k, m_held, whole in shapes:
+        if n == STRETCH["n"]:
+            links = stretch_links
+        elif n == PLANTED["n"]:
+            links = _planted_links()
+        else:
+            links = _batch_planted_links()
+        la, ha, _ = _estep_graph(dev, gen, n, links, m_held)
+        member = torch.randperm(n, generator=gen, device=dev) % k
+        phi, _, _, elogpi, da, db = _estep_model(dev, gen, n, k, member)
         bufs = estep_buffers(n, k, dev)
         c = 3
         rows = torch.arange(c, n, N_CHUNKS, device=dev)
+        chunk_of = torch.arange(n, device=dev) % N_CHUNKS
+        before = (chunk_of < c)[:, None]
+        # the round's output with other rows of chunks 0-2 in it
+        dst0 = torch.where(
+            before, torch.softmax(torch.rand((n, k), generator=gen,
+                                             device=dev), -1), phi)
+        seen = torch.where(before, dst0, phi)  # phi as chunk c sees it
 
-        def one(phi_in):
-            chunk_sums(phi_in, bufs)
+        def one(src):
+            dst = dst0.clone()
+            chunk_sums(seen, bufs)
             tot = bufs.tot.clone()
-            estep_chunk(phi_in, elogpi, da, db, la, ha, c, bufs)
-            return tot, bufs.staged[:rows.shape[0]].clone(), \
-                bufs.change[rows].clone()
+            estep_chunk(src, dst, elogpi, da, db, la, ha, c, bufs)
+            return dst, tot, bufs.change[rows].clone()
 
         phi_k = phi.clone()
-        tot, new_k, ch_k = one(phi_k)
-        phi_2 = phi.clone()
-        _, new_2, ch_2 = one(phi_2)
+        dst_k, tot, ch_k = one(phi_k)
+        tot_k = bufs.tot.clone()
+        dst_2, _, ch_2 = one(phi.clone())
         torch.cuda.synchronize()
-        assert torch.equal(new_k, new_2) and torch.equal(ch_k, ch_2)
-        assert torch.equal(phi_k, phi_2)
-        new_p, ch_p = estep_chunk_plain(phi, elogpi, da, db, tot, la, ha, c)
+        assert torch.equal(dst_k, dst_2) and torch.equal(ch_k, ch_2)
+        assert torch.equal(tot_k, bufs.tot)
+        new_k = dst_k[rows]
+        new_p, ch_p = estep_chunk_plain(seen, elogpi, da, db, tot, la, ha, c)
         err = max(float((new_k - new_p).abs().max()), _rel_err(ch_k, ch_p))
         assert err <= ESTEP_TOL, (n, k, err)
-        assert torch.equal(phi_k[rows], new_k)
-        others = torch.ones(n, dtype=torch.bool, device=dev)
-        others[rows] = False
-        assert torch.equal(phi_k[others], phi[others])
-        err_tot = _rel_err(bufs.tot, phi_k.sum(0))
+        faults = _estep_faults(phi, seen, elogpi, da, db, tot, la, ha, c,
+                               new_p)
+        assert min(faults.values()) > ESTEP_TOL, (n, k, faults)
+        assert torch.equal(phi_k, phi)
+        others = chunk_of != c
+        assert torch.equal(dst_k[others], dst0[others])
+        err_tot = _rel_err(tot_k, torch.where(chunk_of[:, None] <= c, dst_k,
+                                              phi).sum(0))
         assert err_tot <= ESTEP_TOL, err_tot
-        phi_t = phi.clone()
-        ms = cuda_ms(lambda: estep_chunk(phi_t, elogpi, da, db, la, ha, c,
-                                         bufs), 10)
+        del dst_2, seen
+        phi_t, dst_t = phi.clone(), dst0.clone()
+        ms = cuda_ms(lambda: estep_chunk(phi_t, dst_t, elogpi, da, db, la,
+                                         ha, c, bufs), 10)
         plain_ms = cuda_ms(lambda: estep_chunk_plain(
             phi_t, elogpi, da, db, bufs.tot, la, ha, c), 2)
         bnd, floor = estep_bound(n, k, la, ha)
-        # the whole E-step
+        del phi_t, dst_t, dst0, dst_k
+        # the whole E-steps' state
+        if whole == "saturated":
+            phi, _, _, elogpi, da, db = _estep_model(dev, gen, n, k)
+        elif whole == "planted":
+            phi, _, _, elogpi, da, db = _estep_model(
+                dev, gen, n, k, planted_blocks(
+                    PLANTED["n"], PLANTED["k"], PLANTED["avg_deg"],
+                    PLANTED["seed"])[1])
+        # one round: phi takes the round's output rows, bit for bit those
+        # of its chunks launched one by one (a round can part from the
+        # plain version's by more than ESTEP_TOL in the saturated state,
+        # whose logits run to thousands; ten rounds do not)
+        phi_k = phi.clone()
+        _, r_1 = sbm_estep(phi_k, elogpi, da, db, la, ha, max_rounds=1,
+                           bufs=bufs)
+        out = torch.empty_like(phi)
+        chunk_sums(phi, bufs)
+        for cc in range(N_CHUNKS):
+            estep_chunk(phi, out, elogpi, da, db, la, ha, cc, bufs)
+        assert r_1 == 1 and torch.equal(phi_k, out), n
+        del phi_k, out
         phi_k = phi.clone()
         t0 = time.perf_counter()
         _, r_k = sbm_estep(phi_k, elogpi, da, db, la, ha, bufs=bufs)
@@ -5455,21 +5564,129 @@ def phase7_estep(dev, stretch_links):
         torch.cuda.synchronize()
         secs_p = time.perf_counter() - t0
         assert r_k == r_p, (n, k, r_k, r_p)
+        assert whole != "planted" or r_k < ESTEP_ROUNDS, r_k
         err_full = float((phi_k - phi_p).abs().max())
         assert err_full <= ESTEP_TOL, (n, k, err_full)
-        log(f"phase 7: estep_chunk at n={n} K={k} ({la.nbr.shape[0]} link "
-            f"and {ha.nbr.shape[0]} held-out entries), chunk {c}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms, "
-            f"floor {floor:.4f} ms; rows within {err:.3e}, tot within "
-            f"{err_tot:.3e}, two launches bitwise equal; a whole E-step "
-            f"{r_k} rounds (the plain version's {r_p}) in {secs_k * 1e3:.1f} "
-            f"ms (plain {secs_p * 1e3:.1f} ms), phi within {err_full:.3e}")
+        log(f"phase 7: estep_chunk at n={n} K={k} "
+            f"({la.nbr.shape[0]} link and {ha.nbr.shape[0]} held-out "
+            f"entries), chunk {c}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms, floor {floor:.4f} "
+            f"ms; rows within {err:.3e} (largest entry "
+            f"{float(new_p.max(1).values.mean()):.3f} on average), a fault "
+            f"moves them by "
+            + ", ".join(f"{v:.3e} ({name})" for name, v in faults.items())
+            + f"; tot within {err_tot:.3e}, two launches bitwise equal; from "
+            f"the {whole} state one round's phi the round's output bit for "
+            f"bit, a whole E-step {r_k} rounds (the plain version's {r_p}) in "
+            f"{secs_k * 1e3:.1f} ms (plain {secs_p * 1e3:.1f} ms), phi "
+            f"within {err_full:.3e}")
         if n == STRETCH["n"]:
             report = dict(_report(max(err, err_full), ms, plain_ms, bnd),
                           floor_ms=floor)
-        del phi, phi_k, phi_2, phi_p, phi_t, la, ha, bufs
+        del phi, phi_k, phi_p, la, ha, bufs
         torch.cuda.empty_cache()
     return report
+
+
+# kernel 14 timed through the E-step's own entry, sbm_estep, which takes
+# the same arguments in both designs the kernel has had (so estep_times
+# also times an older checkout's package): (n, K, held-out pairs) on
+# planted-20k's and stretch's links, from the saturated state
+ESTEP_TIMED = ((20_000, 20, 4_000), (1_000_000, 500, 400_000))
+
+
+def _device_split(fn):
+    """{kernel: (device ms, launches)} over the second of two calls of fn
+    under torch.profiler (it drops the first kernels it sees)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and not ev.key.startswith(("aten::", "cuda")):
+            name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                          ev.key).split("(")[0]
+            ms, count = split.get(name, (0.0, 0))
+            split[name] = (ms + us / 1e3, count + ev.count)
+    return split
+
+
+def estep_times(dev, stretch_links):
+    """Kernel 14 through sbm_estep at ESTEP_TIMED: a one-round E-step split
+    by kernel (device ms and launches), two whole E-steps of ESTEP_ROUNDS
+    rounds (threshold 0, so that every design runs them all) on the
+    host's clock, and at stretch two SBM batch iterations with the peak
+    memory. Logs each."""
+    from svinet_torch.svi.sbm import (
+        ESTEP_ROUNDS, estep_buffers, sbm_batch_step, sbm_estep)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    for n, k, m_held in ESTEP_TIMED:
+        links = stretch_links if n == STRETCH["n"] else _planted_links()
+        la, ha, held = _estep_graph(dev, gen, n, links, m_held)
+        phi, gamma, lam, elogpi, da, db = _estep_model(dev, gen, n, k)
+        bufs = estep_buffers(n, k, dev)
+        phi_t = phi.clone()
+        split = _device_split(lambda: sbm_estep(
+            phi_t, elogpi, da, db, la, ha, max_rounds=1, thresh=0.0,
+            bufs=bufs))
+        walls = []
+        for _ in range(2):
+            phi_t.copy_(phi)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, r = sbm_estep(phi_t, elogpi, da, db, la, ha, thresh=0.0,
+                             bufs=bufs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert r == ESTEP_ROUNDS and torch.isfinite(phi_t).all()
+        tag = (f"phase 7: E-step timed at n={n} K={k} ({la.nbr.shape[0]} "
+               f"link and {ha.nbr.shape[0]} held-out entries)")
+        log(f"{tag}: a round by kernel (profiler): " + "; ".join(
+            f"{name} {ms:.4f} ms in {count} launches"
+            for name, (ms, count) in sorted(split.items(),
+                                            key=lambda t: -t[1][0])))
+        log(f"{tag}: a whole E-step of {ESTEP_ROUNDS} rounds "
+            + ", ".join(f"{w:.1f}" for w in walls) + " ms (host clock)")
+        del phi_t
+        if n == STRETCH["n"]:
+            eta = torch.ones((k + 1, 2), device=dev)
+            links_t = torch.as_tensor(links, device=dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for it in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                phi, gamma, lam, rounds = sbm_batch_step(
+                    phi, gamma, lam, la, ha, links_t, held, 0.5, eta,
+                    float(n) * (n - 1) / 2 - held.shape[0],
+                    float(links_t.shape[0]), bufs=bufs)
+                torch.cuda.synchronize()
+                log(f"phase 7: SBM batch iteration {it + 1} on stretch "
+                    f"(n={n}, K={k}, {links_t.shape[0]} links): "
+                    f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host "
+                    f"clock), {rounds} E-step rounds, peak memory "
+                    f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            assert torch.isfinite(phi).all() and torch.isfinite(lam).all()
+            del links_t
+        del phi, la, ha, bufs
+        torch.cuda.empty_cache()
+
+
+def _stretch_links():
+    """Stretch's training links: STRETCH["n_edges"] random pairs, each
+    kept once."""
+    from svinet_torch.synth import random_edges
+    links = random_edges(STRETCH["n"], STRETCH["n_edges"], 0)
+    return links[np.unique(links[:, 0].astype(np.int64) * STRETCH["n"]
+                           + links[:, 1], return_index=True)[1]]
 
 
 def _p7_cli(workdir, net, gt, label, flags):
@@ -5588,7 +5805,7 @@ def phase7_cli(workdir):
     port's, -findk's files byte for byte, the resumed batch run bit for bit
     the uninterrupted one's; kernel 12 launched every FastInit sweep and
     SBM init sweep, kernel 13 at every FastInit report, kernel 14 sixteen
-    times an E-step round. Returns (launches by name and form, {name:
+    times an E-step round and its sums form sixteen times an E-step. Returns (launches by name and form, {name:
     (launches a unit, the unit)})."""
     last, undo = _keep_fastinit_state()
     try:
@@ -5635,8 +5852,10 @@ def phase7_cli(workdir):
         assert counted["vote_topk"] == init_sweeps, counted
         assert not counted["overlap_stats"], counted
         if label == "sbm":
-            # at least one round an iteration, at most ten
-            assert 16 * steps <= counted["estep_chunk"] <= 160 * steps, (
+            # the sums form's 16 launches an E-step, then at least one
+            # round an iteration, at most ten
+            assert forms["estep_chunk:sums"] == 16 * steps, forms
+            assert 32 * steps <= counted["estep_chunk"] <= 176 * steps, (
                 counted)
             per_unit["estep_chunk"] = (counted["estep_chunk"] / steps,
                                        "SBM batch iteration")
@@ -5672,13 +5891,12 @@ def phase7_cli(workdir):
 
 def phase7_times(dev, stretch_links):
     """On stretch: one FastInit sweep with its report's overlap over every
-    training link and the host's community grouping; one SBM batch
-    iteration and one stochastic step on a stretch-shaped state."""
+    training link and the host's community grouping; SBM's stochastic step
+    on a stretch-shaped state (its batch iteration: estep_times)."""
     from svinet_torch.ops.edges import build_adjacency
     from svinet_torch.svi.fastinit import (
         link_groups, overlap_stats, sparse_pi, vote_plan, vote_topk)
-    from svinet_torch.svi.sbm import (
-        StochStep, estep_buffers, sbm_batch_step, sbm_stoch_step)
+    from svinet_torch.svi.sbm import StochStep, sbm_stoch_step
     n, k = STRETCH["n"], STRETCH["k"]
     gen_np = np.random.default_rng(20)
     adj = build_adjacency(stretch_links, n, dev)
@@ -5703,31 +5921,11 @@ def phase7_times(dev, stretch_links):
             f"{(t1 - t0) * 1e3:.1f} ms, the overlap of every link "
             f"{(t2 - t1) * 1e3:.1f} ms, grouping on the host "
             f"{(t3 - t2):.2f} s ({len(groups)} communities)")
-    del ids, cnt, s, mx, mid, plan
+    del ids, cnt, s, mx, mid, plan, adj
     gen = torch.Generator(device=dev)
     gen.manual_seed(21)
-    phi, _, _, _, la, ha, held = _estep_state(dev, gen, n, k,
-                                              stretch_links, 400_000)
-    del adj
-    gamma = 1.0 + 99.0 * torch.rand(k, generator=gen, device=dev)
-    lam = torch.cat([torch.tensor([[9.0, 1.0]], device=dev).repeat(k, 1),
-                     torch.tensor([[1.0, 9.0]], device=dev)])
+    phi, gamma, lam, _, _, _ = _estep_model(dev, gen, n, k)
     eta = torch.ones((k + 1, 2), device=dev)
-    bufs = estep_buffers(n, k, dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    for it in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        phi, gamma, lam, rounds = sbm_batch_step(
-            phi, gamma, lam, la, ha, links, held, 0.5, eta,
-            float(n) * (n - 1) / 2 - held.shape[0], float(links.shape[0]),
-            bufs=bufs)
-        torch.cuda.synchronize()
-        log(f"phase 7: SBM batch iteration {it + 1} on stretch (n={n}, K={k}"
-            f", {links.shape[0]} links): {(time.perf_counter() - t0) * 1e3:.1f}"
-            f" ms wall, {rounds} E-step rounds, peak memory "
-            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    assert torch.isfinite(phi).all() and torch.isfinite(lam).all()
     # a stochastic step: a node's 40 links and 100 zeros
     reps = 100
     steps = []
@@ -5757,7 +5955,7 @@ def phase7_times(dev, stretch_links):
         f"partners): {(time.perf_counter() - t0) * 1e3 / reps:.3f} ms wall "
         f"a step over {reps} steps")
     assert torch.isfinite(phi).all() and torch.isfinite(gamma).all()
-    del phi, la, ha, bufs
+    del phi
     torch.cuda.empty_cache()
 
 
@@ -5807,12 +6005,8 @@ def phase7(dev, workdir):
     versions, the CLI runs on planted-20k, the times on stretch. Returns
     (launches by name and form, {name: (launches a unit, the unit)},
     {name: report})."""
-    from svinet_torch.synth import random_edges
     t0 = time.perf_counter()
-    stretch_links = random_edges(STRETCH["n"], STRETCH["n_edges"], 0)
-    stretch_links = stretch_links[np.unique(
-        stretch_links[:, 0].astype(np.int64) * STRETCH["n"]
-        + stretch_links[:, 1], return_index=True)[1]]
+    stretch_links = _stretch_links()
     reports = {"vote_topk": phase7_vote(dev, stretch_links)}
     (reports["overlap_stats"],
      reports["overlap_stats:scratch"]) = phase7_overlap(dev, stretch_links)
@@ -5822,6 +6016,7 @@ def phase7(dev, workdir):
     for name, v in wl.items():
         launches[name] = launches.get(name, 0) + v
     per_unit.update(wu)
+    estep_times(dev, stretch_links)
     phase7_times(dev, stretch_links)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     return launches, per_unit, reports

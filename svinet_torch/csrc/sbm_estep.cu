@@ -8,23 +8,33 @@
 //   h  = sum of phi_q over p's held-out partners,
 //   s0 = ((tot - phi_p) - s1) - h,
 //   phi'_p = softmax(Elogpi + s1 (A - A_K) + s0 (B - B_K)),
-// all from phi as it stood before the chunk (the JAX package computes a
-// chunk's rows together, so a row reads a neighbour of its own chunk at
-// its old value). A warp owns a row: it pulls the neighbours' rows over
-// the CSR of the training links, then that of the held-out pairs, each
-// lane its columns lane, lane + 32, ..., in list order, and writes the
-// new row into `staged` (never into phi, which the chunk still reads) and
-// the row's summed change |phi' - phi| into change[p]. K above 512 is
-// taken in tiles of 512 columns, the logits parked in the staged row
-// between the passes. The logits are formed as the plain version forms
-// them, each operation rounded, no fma.
+// all from phi as it stood before the chunk: the rows of the chunks before
+// it at their new values, every other row (its own chunk's too: the JAX
+// package computes a chunk's rows together) at the round's old value.
 //
-// The commit kernel then writes the staged rows into phi and adds them in
-// a fixed order into per-block column sums; the finish kernel adds those
-// into the chunk's column sums partial[c] and tot = partial[0] + ... +
-// partial[15], in chunk order. So tot is phi's column sums renewed after
-// every chunk from 16 exact-order parts, with no running update to drift
-// and no atomics: two launches give the same bits.
+// A round's rows go into a second (n, K) array, `dst`, apart from the
+// round's input, `src`: a neighbour q is read from dst when its chunk
+// (q % n_chunks) comes before c, else from src, and the chunk's new rows
+// are written into dst. No pass copies rows back; the caller swaps src and
+// dst after the round.
+//
+// A warp owns a row at a time and strides over the chunk's rows. It takes
+// the row's training neighbours then its held-out partners as one list,
+// 32 ids at a time (a lane an id, handed round by shuffle), with the next
+// 32 ids loaded while these are pulled, and D neighbour rows in flight
+// (16-byte loads where K % 4 == 0). Each column is summed in list order. K
+// above the tile (32 * VEC * N columns) is taken tile by tile, the logits
+// parked in the row's own place in dst between the passes. The logits are
+// formed as the plain version forms them, each operation rounded, no fma.
+//
+// Column sums without atomics: a warp adds each row it writes into its
+// own row of warp_sums; at the end the block adds its warps' rows in warp
+// order into its row of block_sums, and the last block to finish (a
+// ticket) adds the blocks' rows in a fixed order (runs of blocks, then the
+// runs in order) into partial[c], then tot = partial[0] + ... +
+// partial[n_chunks - 1] in chunk order. tot is so phi's
+// column sums renewed after every chunk from exact-order parts, with no
+// running update to drift, and two launches give the same bits.
 //
 // What bounds it on an H100: each row gathers its neighbours' and
 // held-out partners' rows, 4K bytes each, from random places; a round
@@ -39,245 +49,435 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * svt::kWarp;
+constexpr int kCodeDst = static_cast<int>(0x80000000u);  // read from dst
 
 struct EStepArgs {
-  const float* phi;      // (n, K)
-  const float* elogpi;   // (K,)
-  const float* da;       // (K,) A - A_K
-  const float* db;       // (K,) B - B_K
-  const float* tot;      // (K,) phi's column sums
+  const float* src;       // (n, K) phi before the round
+  float* dst;             // (n, K) the round's new rows
+  const float* elogpi;    // (K,)
+  const float* da;        // (K,) A - A_K
+  const float* db;        // (K,) B - B_K
+  float* tot;             // (K,) phi's column sums as the chunk sees them
   const int32_t* rowptr;  // training links' CSR
   const int32_t* nbr;
   const int32_t* hrowptr;  // held-out pairs' CSR
   const int32_t* hnbr;
-  float* staged;  // (rows, K)
-  float* change;  // (n,)
-  int64_t rows;   // rows of the chunk
+  float* change;      // (n,)
+  float* warp_sums;   // (blocks * kWarpsPerBlock, K)
+  float* block_sums;  // (blocks, K)
+  float* partial;     // (n_chunks, K)
+  unsigned* ticket;   // 0 between launches
+  int64_t rows;       // rows of the chunk
   int k;
   int c;
   int n_chunks;
 };
 
-// acc[j] += the sum over the list nbr[b, e) of phi_q[col0 + lane + 32 j],
-// in list order, four rows in flight
-template <int NV>
-__device__ __forceinline__ void pull(const float* __restrict__ phi,
-                                     const int32_t* __restrict__ nbr,
-                                     int64_t b, int64_t e, int k, int col0,
-                                     int lane, float (&acc)[NV]) {
-  int64_t i = b;
-  for (; i + 4 <= e; i += 4) {
-    int64_t q[4];
+// neighbour q as a shuffled code: its row index, the top bit set when the
+// row is read from dst (its chunk comes before c)
+__device__ __forceinline__ int entry_code(const EStepArgs& a, int deg,
+                                          int total, int64_t lb, int64_t hb,
+                                          int e) {
+  if (e >= total) return 0;
+  const int q = e < deg ? __ldg(a.nbr + lb + e) : __ldg(a.hnbr + hb + e - deg);
+  return q % a.n_chunks < a.c ? (q | kCodeDst) : q;
+}
+
+__device__ __forceinline__ const float* entry_row(const EStepArgs& a,
+                                                  int code) {
+  const int64_t q = code & 0x7fffffff;
+  return (code < 0 ? a.dst : a.src) + q * a.k;
+}
+
+// acc1 (entries before deg) and acch (the rest) += the columns of this
+// lane's units in the tile at col0, summed over the list in list order,
+// D rows in flight
+template <int VEC, int N, int D>
+__device__ __forceinline__ void pull(const EStepArgs& a, int deg, int total,
+                                     int64_t lb, int64_t hb, int col0,
+                                     int lane, float (&acc1)[VEC * N],
+                                     float (&acch)[VEC * N]) {
+  constexpr int L = VEC * N;
+  int next = entry_code(a, deg, total, lb, hb, lane);
+  for (int e0 = 0; e0 < total; e0 += svt::kWarp) {
+    const int mine = next;
+    next = entry_code(a, deg, total, lb, hb, e0 + svt::kWarp + lane);
+    const int cnt = min(svt::kWarp, total - e0);
+    for (int j = 0; j < cnt; j += D) {
+      float v[D][L];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) q[u] = __ldg(nbr + i + u);
-    float v[4][NV];
+      for (int u = 0; u < D; ++u) {
+        const int code = __shfl_sync(svt::kFull, mine, (j + u) & 31);
+        if (j + u < cnt) {
+          svt::load_row<VEC, svt::kWarp, N>(entry_row(a, code) + col0,
+                                            a.k - col0, lane, 0.0f, v[u]);
+        } else {
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const int col = col0 + lane + svt::kWarp * j;
-        v[u][j] = col < k ? __ldg(phi + q[u] * k + col) : 0.0f;
+          for (int i = 0; i < L; ++i) v[u][i] = 0.0f;
+        }
       }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < D; ++u) {
+        const int e = e0 + j + u;
+        if (j + u >= cnt) break;
+        if (e < deg) {
 #pragma unroll
-      for (int j = 0; j < NV; ++j) acc[j] += v[u][j];
-  }
-  for (; i < e; ++i) {
-    const int64_t q = __ldg(nbr + i);
+          for (int i = 0; i < L; ++i) acc1[i] += v[u][i];
+        } else {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int col = col0 + lane + svt::kWarp * j;
-      if (col < k) acc[j] += __ldg(phi + q * k + col);
+          for (int i = 0; i < L; ++i) acch[i] += v[u][i];
+        }
+      }
     }
   }
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kThreads) estep_chunk_kernel(
-    const EStepArgs a) {
-  constexpr int kTile = svt::kWarp * NV;
-  const int lane = threadIdx.x % svt::kWarp;
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / svt::kWarp;
-  if (i >= a.rows) return;  // the whole warp
+// this lane's units of a row's tile at col0: (column index of value i) =
+// col0 + (lane + 32 j) VEC + v for i = j VEC + v
+template <int VEC>
+__device__ __forceinline__ int unit_col(int col0, int lane, int j) {
+  return col0 + (lane + svt::kWarp * j) * VEC;
+}
+
+// ws[tile] += x over this lane's units
+template <int VEC, int N>
+__device__ __forceinline__ void add_row(float* ws, int col0, int k, int lane,
+                                        const float (&x)[VEC * N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int col = unit_col<VEC>(col0, lane, j);
+    if (col >= k) continue;
+    float t[VEC];
+    svt::load_unit<VEC, false>(ws + col, t);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) t[v] += x[j * VEC + v];
+    svt::store_unit<VEC>(ws + col, t);
+  }
+}
+
+// Chunk c's row p: its new row into dst[p] and its change into change[p],
+// the row added into the warp's sums ws.
+template <int VEC, int N, int D>
+__device__ __forceinline__ void estep_row(const EStepArgs& a, int64_t p,
+                                          int lane, float* ws) {
+  constexpr int L = VEC * N;
+  constexpr int kTile = svt::kWarp * L;
   const int k = a.k;
-  const int64_t p = a.c + static_cast<int64_t>(a.n_chunks) * i;
-  const float* phip = a.phi + p * k;
-  float* out = a.staged + i * k;
-  const int64_t lb = a.rowptr[p], le = a.rowptr[p + 1];
-  const int64_t hb = a.hrowptr[p], he = a.hrowptr[p + 1];
+  const float* own = a.src + p * k;
+  float* out = a.dst + p * k;
+  const int64_t lb = a.rowptr[p];
+  const int64_t hb = a.hrowptr[p];
+  const int deg = static_cast<int>(a.rowptr[p + 1] - lb);
+  const int total = deg + static_cast<int>(a.hrowptr[p + 1] - hb);
   const bool one_tile = k <= kTile;
-  float x[NV];
+  float x[L];
   float mx = -INFINITY;
   for (int t0 = 0; t0 < k; t0 += kTile) {
-    float s1[NV], h[NV];
+    float s1[L], h[L];
 #pragma unroll
-    for (int j = 0; j < NV; ++j) s1[j] = h[j] = 0.0f;
-    pull<NV>(a.phi, a.nbr, lb, le, k, t0, lane, s1);
-    pull<NV>(a.phi, a.hnbr, hb, he, k, t0, lane, h);
+    for (int i = 0; i < L; ++i) s1[i] = h[i] = 0.0f;
+    pull<VEC, N, D>(a, deg, total, lb, hb, t0, lane, s1, h);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int col = t0 + lane + svt::kWarp * j;
-      x[j] = -INFINITY;
-      if (col >= k) continue;
-      const float s0 = __fsub_rn(
-          __fsub_rn(__fsub_rn(__ldg(a.tot + col), __ldg(phip + col)), s1[j]),
-          h[j]);
-      x[j] = __fadd_rn(
-          __fadd_rn(__ldg(a.elogpi + col), __fmul_rn(s1[j], __ldg(a.da + col))),
-          __fmul_rn(s0, __ldg(a.db + col)));
-      mx = fmaxf(mx, x[j]);
-      if (!one_tile) out[col] = x[j];
+    for (int j = 0; j < N; ++j) {
+      const int col = unit_col<VEC>(t0, lane, j);
+      if (col >= k) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[j * VEC + v] = -INFINITY;
+        continue;
+      }
+      float tt[VEC], old[VEC], ep[VEC], ua[VEC], ub[VEC];
+      svt::load_unit<VEC, false>(a.tot + col, tt);
+      svt::load_unit<VEC>(own + col, old);
+      svt::load_unit<VEC>(a.elogpi + col, ep);
+      svt::load_unit<VEC>(a.da + col, ua);
+      svt::load_unit<VEC>(a.db + col, ub);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const int i = j * VEC + v;
+        const float s0 = __fsub_rn(
+            __fsub_rn(__fsub_rn(tt[v], old[v]), s1[i]), h[i]);
+        x[i] = __fadd_rn(__fadd_rn(ep[v], __fmul_rn(s1[i], ua[v])),
+                         __fmul_rn(s0, ub[v]));
+        mx = fmaxf(mx, x[i]);
+      }
+      if (!one_tile) svt::store_unit<VEC>(out + col, x + j * VEC);
     }
   }
-#pragma unroll
-  for (int off = svt::kWarp / 2; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(svt::kFull, mx, off));
+  mx = svt::group_max<svt::kWarp>(mx, svt::kFull);
   float s = 0.0f;
-  if (one_tile) {
+  for (int t0 = 0; t0 < k; t0 += kTile) {
+    if (!one_tile) svt::load_row<VEC, svt::kWarp, N, false>(
+        out + t0, k - t0, lane, -INFINITY, x);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int col = lane + svt::kWarp * j;
-      x[j] = col < k ? expf(x[j] - mx) : 0.0f;
-      s += x[j];
+    for (int i = 0; i < L; ++i) {
+      x[i] = expf(x[i] - mx);  // 0 past the row
+      s += x[i];
     }
-  } else {
-    for (int col = lane; col < k; col += svt::kWarp) {
-      const float e = expf(out[col] - mx);
-      out[col] = e;
-      s += e;
-    }
+    if (!one_tile) svt::store_row<VEC, svt::kWarp, N>(out + t0, k - t0,
+                                                      lane, x);
   }
   s = svt::warp_sum(s);
   float ch = 0.0f;
-  if (one_tile) {
+  for (int t0 = 0; t0 < k; t0 += kTile) {
+    if (!one_tile) svt::load_row<VEC, svt::kWarp, N, false>(
+        out + t0, k - t0, lane, 0.0f, x);
+    float old[L];
+    svt::load_row<VEC, svt::kWarp, N>(own + t0, k - t0, lane, 0.0f, old);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int col = lane + svt::kWarp * j;
-      if (col >= k) continue;
-      const float v = __fdiv_rn(x[j], s);
-      out[col] = v;
-      ch += fabsf(__fsub_rn(v, __ldg(phip + col)));
+    for (int i = 0; i < L; ++i) {
+      x[i] = __fdiv_rn(x[i], s);
+      ch += fabsf(__fsub_rn(x[i], old[i]));  // 0 - 0 past the row
     }
-  } else {
-    for (int col = lane; col < k; col += svt::kWarp) {
-      const float v = __fdiv_rn(out[col], s);
-      out[col] = v;
-      ch += fabsf(__fsub_rn(v, __ldg(phip + col)));
-    }
+    svt::store_row<VEC, svt::kWarp, N>(out + t0, k - t0, lane, x);
+    add_row<VEC, N>(ws, t0, k, lane, x);
   }
   ch = svt::warp_sum(ch);
   if (lane == 0) a.change[p] = ch;
 }
 
-// Block b adds rows b, b + B, ... of the chunk (staged rows when
-// `staged` is given, which it also writes into phi; else phi's own rows)
-// into its row of block_partial, column by column in row order.
-__global__ void __launch_bounds__(kThreads) chunk_rows_kernel(
-    float* __restrict__ phi, const float* __restrict__ staged, int64_t rows,
-    int k, int c, int n_chunks, float* __restrict__ block_partial) {
-  for (int col = threadIdx.x; col < k; col += kThreads) {
-    float s = 0.0f;
-    for (int64_t i = blockIdx.x; i < rows; i += gridDim.x) {
-      float* const dst = phi + (c + static_cast<int64_t>(n_chunks) * i) * k;
-      if (staged != nullptr) {
-        const float v = staged[i * k + col];
-        dst[col] = v;
-        s += v;
-      } else {
-        s += dst[col];
-      }
-    }
-    block_partial[static_cast<int64_t>(blockIdx.x) * k + col] = s;
+// src's row p added into the warp's sums ws
+template <int VEC, int N>
+__device__ __forceinline__ void sum_row(const EStepArgs& a, int64_t p,
+                                        int lane, float* ws) {
+  constexpr int kTile = svt::kWarp * VEC * N;
+  const float* row = a.src + p * a.k;
+  for (int t0 = 0; t0 < a.k; t0 += kTile) {
+    float x[VEC * N];
+    svt::load_row<VEC, svt::kWarp, N>(row + t0, a.k - t0, lane, 0.0f, x);
+    add_row<VEC, N>(ws, t0, a.k, lane, x);
   }
 }
 
-// partial[c] = the blocks' rows in block order; tot = partial[0] + ... +
-// partial[n_chunks - 1] in chunk order. One thread a column.
-__global__ void chunk_finish_kernel(const float* __restrict__ block_partial,
-                                    int blocks, int k, int c, int n_chunks,
-                                    float* __restrict__ partial,
-                                    float* __restrict__ tot) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= k) return;
-  float s = 0.0f;
-  for (int b = 0; b < blocks; ++b)
-    s += block_partial[static_cast<int64_t>(b) * k + col];
-  partial[static_cast<int64_t>(c) * k + col] = s;
+// VEC floats of the scratch another block wrote (through L2, not L1)
+template <int VEC>
+__device__ __forceinline__ void load_cg(const float* src, float* dst) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(src));
+    dst[0] = t.x;
+    dst[1] = t.y;
+    dst[2] = t.z;
+    dst[3] = t.w;
+  } else {
+    dst[0] = __ldcg(src);
+  }
+}
+
+// partial[c][col] = s, the chunk's column sum; tot[col] = the chunks'
+// sums in chunk order
+__device__ __forceinline__ void finish_column(const EStepArgs& a, int col,
+                                              float s) {
+  a.partial[static_cast<int64_t>(a.c) * a.k + col] = s;
   float t = 0.0f;
-  for (int cc = 0; cc < n_chunks; ++cc)
-    t += cc == c ? s : partial[static_cast<int64_t>(cc) * k + col];
-  tot[col] = t;
+  for (int cc = 0; cc < a.n_chunks; ++cc)
+    t += cc == a.c ? s : a.partial[static_cast<int64_t>(cc) * a.k + col];
+  a.tot[col] = t;
+}
+
+// SUMS: only the chunk's column sums of src, nothing else written.
+template <int VEC, int N, int D, bool SUMS>
+__global__ void __launch_bounds__(kThreads, 2)
+    estep_chunk_kernel(const EStepArgs a) {
+  const int lane = threadIdx.x % svt::kWarp;
+  const int k = a.k;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                     threadIdx.x / svt::kWarp;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  float* ws = a.warp_sums + gw * k;
+  for (int col = lane * VEC; col < k; col += svt::kWarp * VEC) {
+    const float zero[VEC] = {};
+    svt::store_unit<VEC>(ws + col, zero);
+  }
+  for (int64_t i = gw; i < a.rows; i += warps) {
+    const int64_t p = a.c + static_cast<int64_t>(a.n_chunks) * i;
+    if constexpr (SUMS)
+      sum_row<VEC, N>(a, p, lane, ws);
+    else
+      estep_row<VEC, N, D>(a, p, lane, ws);
+  }
+  __syncthreads();
+  // the block's warps in warp order
+  for (int col = threadIdx.x; col < k; col += kThreads) {
+    const float* w0 = a.warp_sums +
+                      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock * k;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerBlock; ++w) s += w0[w * k + col];
+    a.block_sums[static_cast<int64_t>(blockIdx.x) * k + col] = s;
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last;
+  if (threadIdx.x == 0) last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: the blocks in block order, then the chunks in order.
+  // Its threads take VEC columns each; where the columns leave threads
+  // over, `groups` of them each add a run of the blocks, and the runs are
+  // then added in order.
+  const int units = (k + VEC - 1) / VEC;
+  const int groups = units >= kThreads ? 1 : kThreads / units;
+  const int per = (static_cast<int>(gridDim.x) + groups - 1) / groups;
+  __shared__ float runs[kThreads * VEC];
+  for (int t = threadIdx.x; t < units * groups; t += kThreads) {
+    const int u = t % units;
+    const int g = t / units;
+    const int b1 = min(static_cast<int>(gridDim.x), (g + 1) * per);
+    float s[VEC] = {};
+#pragma unroll 8
+    for (int b = g * per; b < b1; ++b) {
+      float v[VEC];
+      load_cg<VEC>(a.block_sums + static_cast<int64_t>(b) * k + u * VEC, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) s[i] += v[i];
+    }
+    if (groups == 1) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) finish_column(a, u * VEC + i, s[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) runs[(g * units + u) * VEC + i] = s[i];
+    }
+  }
+  if (groups > 1) {
+    __syncthreads();
+    for (int col = threadIdx.x; col < k; col += kThreads) {
+      float s = 0.0f;
+      for (int g = 0; g < groups; ++g) s += runs[g * units * VEC + col];
+      finish_column(a, col, s);
+    }
+  }
+  if (threadIdx.x == 0) *a.ticket = 0u;
+}
+
+using Kernel = void (*)(EStepArgs);
+
+// The sums form holds no row in registers, so one tile width serves
+// every K.
+template <bool SUMS>
+Kernel pick(int k) {
+  if constexpr (SUMS) {
+    return k % 4 == 0 ? estep_chunk_kernel<4, 4, 1, true>
+                      : estep_chunk_kernel<1, 16, 1, true>;
+  } else {
+    if (k % 4 == 0) {
+      if (k <= 128) return estep_chunk_kernel<4, 1, 8, false>;
+      if (k <= 256) return estep_chunk_kernel<4, 2, 8, false>;
+      return estep_chunk_kernel<4, 4, 3, false>;  // above 512 in tiles
+    }
+    if (k <= 32) return estep_chunk_kernel<1, 1, 8, false>;
+    if (k <= 64) return estep_chunk_kernel<1, 2, 8, false>;
+    if (k <= 128) return estep_chunk_kernel<1, 4, 8, false>;
+    if (k <= 256) return estep_chunk_kernel<1, 8, 8, false>;
+    return estep_chunk_kernel<1, 16, 3, false>;  // above 512 in tiles
+  }
+}
+
+// Most blocks a chunk is launched with: as many as the card holds at once
+// of the wider of the two forms. The scratch is sized by it. The last
+// width's answer is kept (the card is one).
+cudaError_t max_blocks(int k, int* blocks) {
+  static int last_k = 0, last_blocks = 0;
+  if (k == last_k) {
+    *blocks = last_blocks;
+    return cudaSuccess;
+  }
+  int most = 0;
+  for (Kernel kern : {pick<false>(k), pick<true>(k)}) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    most = per_sm > most ? per_sm : most;
+  }
+  *blocks = (most < 1 ? 1 : most) * svt::sm_count();
+  last_k = k;
+  last_blocks = *blocks;
+  return cudaSuccess;
 }
 
 int64_t chunk_size(int64_t n, int c, int n_chunks) {
   return c < n ? (n - c + n_chunks - 1) / n_chunks : 0;
 }
 
-// the chunk's column sums into partial[c], then tot
-cudaError_t chunk_sums(float* phi, const float* staged, int64_t n, int k,
-                       int c, int n_chunks, float* block_partial,
-                       float* partial, float* tot, cudaStream_t stream) {
-  const int64_t rows = chunk_size(n, c, n_chunks);
-  const int blocks = static_cast<int>(
-      rows < 1 ? 1 : (rows < svt::kReduceBlocks ? rows : svt::kReduceBlocks));
-  chunk_rows_kernel<<<blocks, kThreads, 0, stream>>>(phi, staged, rows, k, c,
-                                                     n_chunks, block_partial);
-  cudaError_t err = cudaGetLastError();
+template <bool SUMS>
+cudaError_t launch_chunk(EStepArgs a, cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t err = max_blocks(a.k, &cap);
   if (err != cudaSuccess) return err;
-  chunk_finish_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(block_partial, blocks, k, c, n_chunks,
-                                  partial, tot);
+  const int64_t want = (a.rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+  pick<SUMS>(a.k)<<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
-}
-
-using Kernel = void (*)(EStepArgs);
-
-Kernel pick(int k) {
-  if (k <= 32) return estep_chunk_kernel<1>;
-  if (k <= 64) return estep_chunk_kernel<2>;
-  if (k <= 128) return estep_chunk_kernel<4>;
-  if (k <= 256) return estep_chunk_kernel<8>;
-  return estep_chunk_kernel<16>;  // K above 512 in tiles of 512
 }
 
 }  // namespace
 
-// phi (n, K); block_partial (kReduceBlocks, K), partial (n_chunks, K),
-// tot (K,) out: every chunk's column sums and their total.
-extern "C" int svt_sbm_chunk_sums(float* phi, float* block_partial,
-                                  float* partial, float* tot, int64_t n,
-                                  int k, int n_chunks, cudaStream_t stream) {
+// Floats of the scratch a chunk's launch takes at width k: the warps' and
+// the blocks' column sums (no launch, no stream).
+extern "C" int svt_sbm_estep_scratch(int k, int64_t* floats) {
+  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = max_blocks(k, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  floats[0] = static_cast<int64_t>(blocks) * (kWarpsPerBlock + 1) * k;
+  return 0;
+}
+
+// phi (n, K); scratch (svt_sbm_estep_scratch's floats), ticket (1,) 0;
+// partial (n_chunks, K), tot (K,) out: every chunk's column sums and their
+// total.
+extern "C" int svt_sbm_chunk_sums(const float* phi, float* scratch,
+                                  unsigned* ticket, float* partial,
+                                  float* tot, int64_t n, int k, int n_chunks,
+                                  cudaStream_t stream) {
   if (n <= 0 || k <= 0 || n_chunks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  int cap = 0;
+  cudaError_t err = max_blocks(k, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
   for (int c = 0; c < n_chunks; ++c) {
-    const cudaError_t err = chunk_sums(phi, nullptr, n, k, c, n_chunks,
-                                       block_partial, partial, tot, stream);
+    EStepArgs a{};
+    a.src = phi;
+    a.tot = tot;
+    a.warp_sums = scratch;
+    a.block_sums = scratch + static_cast<int64_t>(cap) * kWarpsPerBlock * k;
+    a.partial = partial;
+    a.ticket = ticket;
+    a.rows = chunk_size(n, c, n_chunks);
+    a.k = k;
+    a.c = c;
+    a.n_chunks = n_chunks;
+    err = launch_chunk<true>(a, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
-// Chunk c of the E-step: its new rows into staged and their changes into
-// change[p], then into phi, partial[c] and tot renewed.
+// Chunk c of the E-step: its new rows into dst and their changes into
+// change[p], partial[c] and tot renewed from them. src and dst are the
+// round's input and output (n, K).
 extern "C" int svt_sbm_estep_chunk(
-    float* phi, const float* elogpi, const float* da, const float* db,
-    const int32_t* rowptr, const int32_t* nbr, const int32_t* hrowptr,
-    const int32_t* hnbr, float* staged, float* change, float* block_partial,
-    float* partial, float* tot, int64_t n, int k, int c, int n_chunks,
-    cudaStream_t stream) {
-  if (n <= 0 || k <= 0 || c < 0 || c >= n_chunks)
+    const float* src, float* dst, const float* elogpi, const float* da,
+    const float* db, const int32_t* rowptr, const int32_t* nbr,
+    const int32_t* hrowptr, const int32_t* hnbr, float* change,
+    float* scratch, unsigned* ticket, float* partial, float* tot, int64_t n,
+    int k, int c, int n_chunks, cudaStream_t stream) {
+  if (n <= 0 || k <= 0 || c < 0 || c >= n_chunks || src == dst)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t rows = chunk_size(n, c, n_chunks);
-  if (rows > 0) {
-    const EStepArgs a{phi,  elogpi, da,     db,   tot, rowptr, nbr, hrowptr,
-                      hnbr, staged, change, rows, k,   c,      n_chunks};
-    const int64_t blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    pick(k)<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(chunk_sums(phi, staged, n, k, c, n_chunks,
-                                     block_partial, partial, tot, stream));
+  int cap = 0;
+  const cudaError_t err = max_blocks(k, &cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EStepArgs a{src,     dst,
+                    elogpi,  da,
+                    db,      tot,
+                    rowptr,  nbr,
+                    hrowptr, hnbr,
+                    change,  scratch,
+                    scratch + static_cast<int64_t>(cap) * kWarpsPerBlock * k,
+                    partial, ticket,
+                    chunk_size(n, c, n_chunks),
+                    k,       c,
+                    n_chunks};
+  return static_cast<int>(launch_chunk<false>(a, stream));
 }

@@ -118,11 +118,13 @@ SIGNATURES = {
     "svt_fastinit_overlap": (_P,) * 6 + (_I64, _I64, _I32, _P, _P),
     # w, the table scratch's ints (1 int64 out): no launch, no stream
     "svt_fastinit_overlap_scratch": (_I32, _P),
-    # phi, block_partial, partial, tot, n, k, n_chunks
-    "svt_sbm_chunk_sums": (_P,) * 4 + (_I64, _I32, _I32, _P),
-    # phi, elogpi, da, db, rowptr, nbr, held rowptr, held nbr, staged,
-    # change, block_partial, partial, tot, n, k, chunk, n_chunks
-    "svt_sbm_estep_chunk": (_P,) * 13 + (_I64, _I32, _I32, _I32, _P),
+    # phi, scratch, ticket, partial, tot, n, k, n_chunks
+    "svt_sbm_chunk_sums": (_P,) * 5 + (_I64, _I32, _I32, _P),
+    # src, dst, elogpi, da, db, rowptr, nbr, held rowptr, held nbr,
+    # change, scratch, ticket, partial, tot, n, k, chunk, n_chunks
+    "svt_sbm_estep_chunk": (_P,) * 14 + (_I64, _I32, _I32, _I32, _P),
+    # k, the scratch's floats (1 int64 out): no launch, no stream
+    "svt_sbm_estep_scratch": (_I32, _P),
     # elogpi, lt, pairs, y, elogpi_e, lte, phi, block_rounds, terms,
     # rowptr, nbr, gacc, n, pairs, k, kp (L's padded row), max_iters,
     # thresh, block, pad, elbo

@@ -19,9 +19,10 @@ on (JAX's default) and 64-bit types off (the JAX package's setting):
   largest gumbel + logits over the last axis.
 
 Everything up to the uniforms is integer arithmetic and equals JAX's bit
-for bit; the logs are the framework's, so a Gumbel may differ from JAX's
-in its last bits (within 1e-6 on the CPU), and a category only where two
-scores tie that closely.
+for bit. A Gumbel is the correctly rounded -log(-log(u)) on the CPU
+(gumbel_of) and logf's on the card; JAX's are XLA's logs, so a draw may
+differ from JAX's in its last bits (within 1e-6), and a category only
+where two scores tie that closely.
 
 All functions work on int64 tensors holding 32-bit values (or Python
 ints); csrc/threefry.cuh computes the same on the card. Kernel 17
@@ -129,15 +130,27 @@ def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
     return uniform_from_bits(random_bits(key, shape, device), minval, maxval)
 
 
+def gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    """-log(-log(u)) of f32 uniforms, f32. On the CPU both logs are taken
+    in float64 and the result rounded once to f32: the draw is then the
+    correctly rounded Gumbel of its uniform (float64's error, about 1e-16,
+    moves the rounding only at a tie), whatever path the CPU's f32 log
+    would take through its vector code and threads. On the card logf, as
+    kernel 16 takes it (csrc/threefry.cuh)."""
+    if u.device.type == "cpu":
+        return (-torch.log(-torch.log(u.double()))).float()
+    return -torch.log(-torch.log(u))
+
+
 def gumbel_at(key: Key, index: torch.Tensor) -> torch.Tensor:
     """gumbel(key, shape) at the flat indices `index`."""
-    return -torch.log(-torch.log(uniform_at(key, index, TINY, 1.0)))
+    return gumbel_of(uniform_at(key, index, TINY, 1.0))
 
 
 def gumbel(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     """jax.random.gumbel(key, shape, float32) (mode "low", JAX's
     default): -log(-log(uniform(minval=tiny)))."""
-    return -torch.log(-torch.log(uniform(key, shape, TINY, 1.0, device)))
+    return gumbel_of(uniform(key, shape, TINY, 1.0, device))
 
 
 def uniform_rows_plain(key: Key, out: torch.Tensor) -> torch.Tensor:

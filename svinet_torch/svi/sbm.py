@@ -19,12 +19,13 @@ blending its phi toward a one-shot estimate at its own Robbins-Monro
 rate.
 
 Kernel 14 (csrc/sbm_estep.cu) runs the E-step's chunks, pulling each
-row's sums over the CSRs of the training links and of the held-out pairs;
-kernel 1 takes Elogpi of the (1, K) gamma and Elogbeta of the (K + 1, 2)
-lambda, and kernel 12 the label-propagation sweeps of phi's
-initialisation. The M-step, the stochastic step and the likelihood are
-plain PyTorch, in chunks of pairs. A CPU tensor takes the plain versions;
-a CUDA tensor launches the kernel or raises.
+row's sums over the CSRs of the training links and of the held-out pairs
+and writing a round's rows apart from its input; kernel 1 takes Elogpi of
+the (1, K) gamma and Elogbeta of the (K + 1, 2) lambda, and kernel 12 the
+label-propagation sweeps of phi's initialisation. The M-step, the
+stochastic step and the likelihood are plain PyTorch, in chunks of pairs.
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -53,9 +54,6 @@ ESTEP_ROUNDS = 10
 ESTEP_THRESH = 0.01
 INF_EPS = 0.001       # reference: src/sbm.cc:9
 SBM_ALPHA = 0.5       # reference: src/env.hh:345
-# rows of the (rows, K) block sums kernel 14 adds a chunk's rows into
-# (csrc/common.cuh kReduceBlocks)
-REDUCE_ROWS = 1056
 
 
 def chunk_incident_pairs(pairs: np.ndarray, n_chunks: int = N_CHUNKS):
@@ -164,23 +162,31 @@ def sbm_estep_plain(phi, elogpi, da, db, links: Adjacency, held: Adjacency,
 
 
 class EStepBuffers(NamedTuple):
-    """Kernel 14's scratch: the chunk's staged rows, every row's change,
-    the block sums of a chunk's rows, the chunks' column sums and their
-    total (phi's column sums, added in chunk order)."""
-    staged: torch.Tensor        # (ceil(n / 16), K)
+    """Kernel 14's buffers: the round's output rows (the E-step swaps them
+    with its input after every round), every row's change, the chunks'
+    column sums and their total (phi's column sums, added in chunk order),
+    and on the card the kernel's scratch (its warps' and blocks' column
+    sums) and the ticket of its last block."""
+    out: torch.Tensor           # (n, K)
     change: torch.Tensor        # (n,)
-    block_partial: torch.Tensor  # (REDUCE_ROWS, K)
     partial: torch.Tensor       # (16, K)
     tot: torch.Tensor           # (K,)
+    scratch: torch.Tensor       # svt_sbm_estep_scratch's floats; (0,) on cpu
+    ticket: torch.Tensor        # (1,) int32, 0 between launches
 
 
 def estep_buffers(n: int, k: int, device) -> EStepBuffers:
+    device = torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
-    return EStepBuffers(torch.empty((-(-n // N_CHUNKS), k), **f32),
-                        torch.zeros(n, **f32),
-                        torch.empty((REDUCE_ROWS, k), **f32),
+    if device.type == "cuda":
+        scratch = build.scratch("svt_sbm_estep_scratch", k, device,
+                                torch.float32)
+    else:
+        scratch = torch.empty(0, **f32)
+    return EStepBuffers(torch.empty((n, k), **f32), torch.zeros(n, **f32),
                         torch.zeros((N_CHUNKS, k), **f32),
-                        torch.zeros(k, **f32))
+                        torch.zeros(k, **f32), scratch,
+                        torch.zeros(1, dtype=torch.int32, device=device))
 
 
 def _check_estep(phi, links, held, bufs):
@@ -192,43 +198,72 @@ def _check_estep(phi, links, held, bufs):
                          dev)
         build.check_cuda(adj.nbr, f"{name}.nbr", torch.int32,
                          tuple(adj.nbr.shape), dev)
-    for name, t, shape in (("staged", bufs.staged, (-(-n // N_CHUNKS), k)),
+    for name, t, shape in (("out", bufs.out, (n, k)),
                            ("change", bufs.change, (n,)),
-                           ("block_partial", bufs.block_partial,
-                            (REDUCE_ROWS, k)),
                            ("partial", bufs.partial, (N_CHUNKS, k)),
-                           ("tot", bufs.tot, (k,))):
+                           ("tot", bufs.tot, (k,)),
+                           ("scratch", bufs.scratch,
+                            tuple(bufs.scratch.shape))):
         build.check_cuda(t, name, torch.float32, shape, dev)
+    build.check_cuda(bufs.ticket, "ticket", torch.int32, (1,), dev)
+
+
+def _renew_tot(bufs: EStepBuffers) -> None:
+    """bufs.tot = the chunks' column sums added in chunk order."""
+    t = bufs.partial[0].clone()
+    for c in range(1, N_CHUNKS):
+        t += bufs.partial[c]
+    bufs.tot.copy_(t)
 
 
 def chunk_sums(phi: torch.Tensor, bufs: EStepBuffers) -> None:
-    """Kernel 14's column sums of every chunk's rows into bufs.partial and
-    their total into bufs.tot (CUDA tensors)."""
+    """The column sums of every chunk's rows of phi into bufs.partial and
+    their total into bufs.tot: kernel 14's sums form on a CUDA tensor, in
+    plain PyTorch on a CPU tensor."""
+    n, k = phi.shape
+    if phi.device.type == "cpu":
+        for c in range(N_CHUNKS):
+            bufs.partial[c] = phi[c::N_CHUNKS].sum(0)
+        _renew_tot(bufs)
+        return
     build.require_cuda(phi, "chunk_sums")
-    n, k = phi.shape
     build.launch("svt_sbm_chunk_sums", phi.device, phi.data_ptr(),
-                 bufs.block_partial.data_ptr(), bufs.partial.data_ptr(),
-                 bufs.tot.data_ptr(), n, k, N_CHUNKS)
+                 bufs.scratch.data_ptr(), bufs.ticket.data_ptr(),
+                 bufs.partial.data_ptr(), bufs.tot.data_ptr(), n, k,
+                 N_CHUNKS)
+    for _ in range(N_CHUNKS):  # a launch a chunk
+        build.count_launch(estep_chunk, "sums")
 
 
-def estep_chunk(phi, elogpi, da, db, links: Adjacency, held: Adjacency,
-                c: int, bufs: EStepBuffers) -> None:
-    """Kernel 14 on chunk c, in place: the chunk's rows computed from phi
-    as it stands (bufs.tot its column sums) into bufs.staged and their
-    changes into bufs.change[p], then put into phi, the chunk's column
-    sums and bufs.tot renewed. CUDA tensors only: a CPU run takes
-    sbm_estep_plain."""
-    build.require_cuda(phi, "estep_chunk")
-    dev = phi.device
-    n, k = phi.shape
+def estep_chunk(src, dst, elogpi, da, db, links: Adjacency,
+                held: Adjacency, c: int, bufs: EStepBuffers) -> None:
+    """Chunk c of a round whose input is src and whose output is dst: the
+    chunk's rows computed from phi as it stood before the chunk (the rows
+    of chunks before c from dst, all others from src; bufs.tot its column
+    sums) into dst, their changes into bufs.change[p], bufs.partial[c] and
+    bufs.tot renewed. Kernel 14 on CUDA tensors; on CPU tensors
+    estep_chunk_plain over that phi."""
+    n, k = src.shape
+    if src.device.type == "cpu":
+        before = (torch.arange(n) % N_CHUNKS < c)[:, None]
+        new, ch = estep_chunk_plain(torch.where(before, dst, src), elogpi,
+                                    da, db, bufs.tot, links, held, c)
+        dst[c::N_CHUNKS] = new
+        bufs.change[c::N_CHUNKS] = ch
+        bufs.partial[c] = new.sum(0)
+        _renew_tot(bufs)
+        return
+    build.require_cuda(src, "estep_chunk")
+    dev = src.device
+    build.check_cuda(dst, "dst", torch.float32, (n, k), dev)
     for name, t in (("elogpi", elogpi), ("da", da), ("db", db)):
         build.check_cuda(t, name, torch.float32, (k,), dev)
-    build.launch("svt_sbm_estep_chunk", dev, phi.data_ptr(),
+    build.launch("svt_sbm_estep_chunk", dev, src.data_ptr(), dst.data_ptr(),
                  elogpi.data_ptr(), da.data_ptr(), db.data_ptr(),
                  links.rowptr.data_ptr(), links.nbr.data_ptr(),
                  held.rowptr.data_ptr(), held.nbr.data_ptr(),
-                 bufs.staged.data_ptr(), bufs.change.data_ptr(),
-                 bufs.block_partial.data_ptr(), bufs.partial.data_ptr(),
+                 bufs.change.data_ptr(), bufs.scratch.data_ptr(),
+                 bufs.ticket.data_ptr(), bufs.partial.data_ptr(),
                  bufs.tot.data_ptr(), n, k, c, N_CHUNKS)
     build.count_launch(estep_chunk, "f32")
 
@@ -237,13 +272,37 @@ estep_chunk.launches = 0
 estep_chunk.forms = {}
 
 
+def _estep_rounds(phi, elogpi, da, db, links: Adjacency, held: Adjacency,
+                  max_rounds: int, thresh: float, bufs: EStepBuffers
+                  ) -> Tuple[torch.Tensor, int]:
+    """sbm_estep's rounds through estep_chunk, phi in place: while the
+    round's summed change is >= thresh (the f32 sum of the rows' changes,
+    read on the host once a round), at most max_rounds, each round the
+    chunks in order from phi into bufs.out, then the two swapped; phi
+    takes the last round's rows. Returns (phi, rounds)."""
+    n = phi.shape[0]
+    chunk_sums(phi, bufs)
+    src, dst = phi, bufs.out
+    r = 0
+    change = torch.tensor(float("inf"), dtype=phi.dtype)
+    while r < max_rounds and bool(change >= thresh):
+        for c in range(min(N_CHUNKS, n)):
+            estep_chunk(src, dst, elogpi, da, db, links, held, c, bufs)
+        change = bufs.change.sum().cpu()
+        src, dst = dst, src
+        r += 1
+    if src is not phi:
+        phi.copy_(src)
+    return phi, r
+
+
 def sbm_estep(phi, elogpi, da, db, links: Adjacency, held: Adjacency,
               max_rounds: int = ESTEP_ROUNDS, thresh: float = ESTEP_THRESH,
               bufs: "EStepBuffers | None" = None
               ) -> Tuple[torch.Tensor, int]:
     """The E-step, phi in place: kernel 14 chunk by chunk on CUDA tensors
-    (the round's change read on the host once a round), sbm_estep_plain
-    on CPU tensors. Returns (phi, rounds)."""
+    (_estep_rounds), sbm_estep_plain on CPU tensors. Returns (phi,
+    rounds)."""
     if phi.device.type == "cpu":
         return sbm_estep_plain(phi, elogpi, da, db, links, held, max_rounds,
                                thresh)
@@ -252,15 +311,8 @@ def sbm_estep(phi, elogpi, da, db, links: Adjacency, held: Adjacency,
     if bufs is None:
         bufs = estep_buffers(n, k, phi.device)
     _check_estep(phi, links, held, bufs)
-    chunk_sums(phi, bufs)
-    r = 0
-    change = torch.tensor(float("inf"), dtype=phi.dtype)
-    while r < max_rounds and bool(change >= thresh):
-        for c in range(min(N_CHUNKS, n)):
-            estep_chunk(phi, elogpi, da, db, links, held, c, bufs)
-        change = bufs.change.sum().cpu()
-        r += 1
-    return phi, r
+    return _estep_rounds(phi, elogpi, da, db, links, held, max_rounds,
+                         thresh, bufs)
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,10 @@
 """svinet_torch/ops/threefry.py, JAX's threefry stream without JAX,
 against jax.random on the CPU: the keys, fold_in, split, the bits and the
-uniforms bit for bit, the Gumbel draws within 2e-6."""
+uniforms bit for bit, the Gumbel draws within 2e-6 (each side compared
+with the float64 Gumbel of the same uniforms first), and the port's CPU
+Gumbels the float64 value rounded once."""
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -99,19 +103,65 @@ def test_uniform_floor_at_minval():
     assert float(u[2]) == 2.0 ** -23
 
 
+def _gumbel_truth(kt, shape):
+    """The float64 -log(-log(u)) of the uniforms a Gumbel draw takes
+    (bit for bit JAX's, test_bits_and_uniforms_bit_for_bit)."""
+    u = tf.uniform(kt, shape, tf.TINY, 1.0).numpy().astype(np.float64)
+    return -np.log(-np.log(u))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_gumbel_close_to_jax(seed):
-    """gumbel within 2e-6 absolute of jax.random.gumbel on 120,000 draws:
-    the logs are the frameworks' own (they differ in last bits)."""
+    """gumbel within 2e-6 absolute of jax.random.gumbel on 120,000 draws,
+    each side first compared with the float64 -log(-log(u)) of the
+    uniforms both draw, at the same limit: the port's side must hold it,
+    and where JAX's strays from it (the reference's logs, not the port)
+    the test records that as a warning naming the rows and holds the port
+    to the float64 value alone."""
     k = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
     kt = tf.fold_in(tf.prng_key(seed), 1)
     want = np.asarray(jax.random.gumbel(k, (300, 400)))
     got = tf.gumbel(kt, (300, 400)).numpy()
     assert np.isfinite(got).all()
-    assert np.abs(got.astype(np.float64) - want).max() <= 2e-6
+    truth = _gumbel_truth(kt, (300, 400))
+    port = np.abs(got - truth)
+    ref = np.abs(want - truth)
+    assert port.max() <= 2e-6, (
+        f"the port's Gumbels moved: {port.max():.3e} from the float64 value "
+        f"on rows {np.unique(np.nonzero(port > 2e-6)[0])[:10]} (JAX's "
+        f"{ref.max():.3e})")
+    if ref.max() > 2e-6:
+        warnings.warn(
+            f"JAX's Gumbels moved: {ref.max():.3e} from the float64 value on "
+            f"rows {np.unique(np.nonzero(ref > 2e-6)[0])[:10]} (the port's "
+            f"{port.max():.3e})", RuntimeWarning)
+    else:
+        assert np.abs(got.astype(np.float64) - want).max() <= 2e-6
     idx = torch.arange(1_000, 2_000, dtype=torch.int64)
     assert torch.equal(tf.gumbel_at(kt, idx),
                        tf.gumbel(kt, (300, 400)).reshape(-1)[1_000:2_000])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_is_float64_rounded_once(seed):
+    """On the CPU every draw is its float64 -log(-log(u)) rounded once to
+    f32, bit for bit, at one, three and all intra-op threads and through
+    gumbel_at: nothing in it depends on which path the CPU's f32 log
+    takes (two f32 logs put many draws a few ulps off that value)."""
+    kt = tf.fold_in(tf.prng_key(seed), 1)
+    want = _gumbel_truth(kt, (300, 400)).astype(np.float32)
+    threads = torch.get_num_threads()
+    try:
+        for t in sorted({1, 3, threads}):
+            torch.set_num_threads(t)
+            got = tf.gumbel(kt, (300, 400)).numpy()
+            assert (got.view(np.int32) == want.view(np.int32)).all(), t
+    finally:
+        torch.set_num_threads(threads)
+    idx = torch.arange(119_000, 120_000, dtype=torch.int64)
+    at = tf.gumbel_at(kt, idx).numpy()
+    assert (at.view(np.int32) == want.reshape(-1)[119_000:].view(
+        np.int32)).all()
 
 
 @pytest.mark.parametrize("rows,k", [(1, 1), (37, 20), (256, 129)])
