@@ -99,13 +99,13 @@ SIGNATURES = {
     # elogpi, elb0, edges, rowptr, nbr, seg_node, seg_begin, seg_end,
     # argmax, maxval, n, n_segs, k, seg_len
     "svt_edge_assign": (_P,) * 10 + (_I64, _I64, _I32, _I32, _P),
-    # ids, vals, rest, elogbeta, pairs, y, w, staged, slots, masks, stop,
-    # block_rounds, rounds, the seven endpoint-CSR arrays, seg_partial,
-    # lam_partial, lam_sums, gacc, pairs, rows, n_hubs, n_segs, k, w,
-    # seg_len, max_iters, log_eps, thresh, block, chunk, wide scratch
-    "svt_sparse_fastamm": (_P,) * 24 + (_I64,) * 4 + (_I32,) * 4 + (
-        _F32, _F32, _I32, _I32, _P, _P),
-    # w, the wide scratch's floats (1 int64 out): no launch, no stream
+    # ids, vals, rest, elogbeta, pairs, y, w, the seven endpoint-CSR
+    # arrays, work, its floats, gacc, lam_sums, rounds, pairs, rows,
+    # n_hubs, n_segs, k, w, seg_len, max_iters, log_eps, thresh, block
+    "svt_sparse_fastamm": (_P,) * 15 + (_I64,) + (_P,) * 3 + (_I64,) * 4 + (
+        _I32,) * 4 + (_F32, _F32, _I32, _P),
+    # w, the workspace's floats on this card and where the regions sit (2
+    # int64 out): no launch, no stream
     "svt_sparse_fastamm_scratch": (_I32, _P),
     # ids, vals, rest, table, beta_sum, pairs, out0, out1, cid, pairs, k,
     # w, form, wide scratch
@@ -250,11 +250,25 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch entry point `name` on `device`, on PyTorch's current stream
-    there (passed last). The device guard makes `device` current for the
-    launch and restores PyTorch's current device after it."""
+    there (passed last). Where `device` is not the current device, a
+    device guard makes it current for the launch and restores PyTorch's
+    current device after it."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        library().call(name, *args,
+                       torch.cuda.current_stream(device).cuda_stream)
+        return
     with torch.cuda.device(device):
         library().call(name, *args,
                        torch.cuda.current_stream(device).cuda_stream)
+
+
+def ask(name: str, device: torch.device, w: int, n: int = 1) -> tuple:
+    """The n int64 answers of entry point `name`, a kernel's query at width
+    w on `device` (no launch)."""
+    out = (ctypes.c_int64 * n)()
+    with torch.cuda.device(device):
+        library().call(name, int(w), out)
+    return tuple(out)
 
 
 def scratch(name: str, w: int, device: torch.device,
@@ -262,12 +276,10 @@ def scratch(name: str, w: int, device: torch.device,
     """The device scratch that entry point `name` (a kernel's scratch
     query) asks for at width w on `device`, by its kernel's own rule: None
     where the kernel needs none."""
-    words = (ctypes.c_int64 * 1)()
-    with torch.cuda.device(device):
-        library().call(name, int(w), words)
-    if words[0] == 0:
+    words = ask(name, device, w)[0]
+    if words == 0:
         return None
-    return torch.empty(words[0], dtype=dtype, device=device)
+    return torch.empty(words, dtype=dtype, device=device)
 
 
 def count_launch(wrapper, form: str) -> None:

@@ -8,9 +8,10 @@ summed mass of the other K - W, taken as uniform,
 so that no (n, K) state exists. A pair works over the 2W union slots
 [ids_p | ids_q], a slot whose community came earlier being dead.
 
-Kernel 10 (csrc/sparse_fastamm.cu) runs FastAMM's step on it: the union-
-slot phi fixed point under the JAX exit rule (the whole minibatch one
-block) and its sums, gamma_hat over the touched rows and lambda_hat; the
+Kernel 10 (csrc/sparse_fastamm.cu) runs FastAMM's step on it, in one
+launch: the union-slot phi fixed point under the JAX exit rule (the whole
+minibatch one block, its rounds on chip) and its sums, gamma_hat over the
+touched rows and lambda_hat, into a SparseWorkspace the caller keeps; the
 update of the touched rows after it is plain PyTorch on (T, K) rows.
 Kernel 11 (csrc/sparse_scores.cu) takes the two closed-form union passes,
 the held-out link probabilities and the edge assignments. A CPU tensor
@@ -20,6 +21,7 @@ order; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,14 +31,19 @@ from svinet_torch.ops.digamma import dirichlet_expectation
 from svinet_torch.ops.edges import Adjacency, owner_csr
 
 # pairs of one chunk of kernel 10's lambda_hat pass
-LAM_CHUNK = 64
+LAM_CHUNK = 256
+# entries of the endpoint CSR's segments in a -fastqueue step: a row with
+# more (the minibatch's start node) is cut into segments that kernel 10's
+# warps sum at once, their rows then added in segment order
+K10_SEG_LEN = 32
 # links a chunk of the plain edge assignments: its (E, 2W, W) match
 # tensor (svinet_tpu/svi/fastamm.py:370-376)
 ASSIGN_CHUNK = 8192
 DEAD = -1e30
-# above this W, kernels 10 and 11 take their wide form: a block of one warp
-# a pair, each slot's facts and state in a region of shared memory, or of
-# device scratch past the card's shared memory (csrc/sparse_slots.cuh)
+# above this W, kernel 11 takes its wide form (a block of one warp a pair,
+# each slot's facts in a region of shared memory, or of device scratch
+# past the card's shared memory: csrc/sparse_slots.cuh), and kernel 10 a
+# warp a pair; their launches there count as the "wide" forms
 NARROW_MAX_W = 64
 
 
@@ -167,18 +174,58 @@ def sparse_fastamm_stats_plain(ids, vals, rest, elogbeta, pairs, y, w, lp,
     return gacc, lacc, torch.full((m,), r, dtype=torch.int32, device=dev)
 
 
+class SparseWorkspace:
+    """Kernel 10's outputs and scratch on one device, kept by a caller
+    across steps (the engine keeps one for its -fastqueue steps). Each
+    buffer only grows, so that a step allocates nothing once the buffers
+    have reached its sizes. The tensors a call returns are views of them,
+    overwritten by the next call given this workspace."""
+
+    def __init__(self, device):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self._bufs = {}
+
+    def take(self, name: str, numel: int, dtype: torch.dtype):
+        """The first numel elements of buffer `name`, grown (by a quarter
+        at least) when it is shorter."""
+        buf = self._bufs.get(name)
+        if buf is None or buf.numel() < numel:
+            grown = numel if buf is None else max(numel,
+                                                  buf.numel() * 5 // 4)
+            buf = torch.empty(max(grown, 1), dtype=dtype,
+                              device=self.device)
+            self._bufs[name] = buf
+        return buf[:numel]
+
+
+@functools.lru_cache(maxsize=None)
+def _device_words(w: int, device: torch.device) -> int:
+    """Floats of kernel 10's workspace that depend on the card at width w
+    (its grid form's changes, and its regions where they outgrow shared
+    memory), by the kernel's own query, asked once a width and card."""
+    return build.ask("svt_sparse_fastamm_scratch", device, w, 2)[0]
+
+
 def sparse_fastamm_stats(ids, vals, rest, elogbeta, pairs, y, w, lp, lq,
                          t: int, log_eps: float, max_iters: int,
                          thresh: float, block: int,
-                         csr: Optional[Adjacency] = None):
+                         csr: Optional[Adjacency] = None,
+                         workspace: Optional[SparseWorkspace] = None):
     """Kernel 10 (csrc/sparse_fastamm.cu) on CUDA tensors, its plain
     version on CPU tensors. ids (n, W) int32, vals (n, W), rest (n,),
     elogbeta (K, 2) f32; pairs (B, 2) int32 global ids, y (B,) int32, w
     (B,) f32; lp, lq (B,) int32, the pair ends' rows among the t touched
     rows; block, the minibatch's padded length (B <= block). Returns
     (gamma_hat (t, K), lambda_hat (K, 2), rounds (B,) int32, the block's
-    R). `csr`: owner_csr of [lp | lq] interleaved over t rows, made here
-    when not given. No atomics: two launches give the same bits."""
+    R). `csr`: owner_csr of [lp | lq] interleaved over t rows (segments of
+    K10_SEG_LEN entries in the engine's steps), made so here when not
+    given. On the card one launch, its outputs and scratch in
+    `workspace` (the returned tensors are views of it, good until its next
+    call), a new one when not given. No atomics: two launches give the
+    same bits."""
     if vals.device.type == "cpu":
         return sparse_fastamm_stats_plain(ids, vals, rest, elogbeta, pairs,
                                           y, w, lp, lq, t, log_eps,
@@ -200,38 +247,31 @@ def sparse_fastamm_stats(ids, vals, rest, elogbeta, pairs, y, w, lp, lq,
     build.check_cuda(w, "w", torch.float32, (m,), dev)
     if csr is None:
         ends = torch.stack([lp, lq], 1).reshape(-1)
-        csr = owner_csr(ends, t)
+        csr = owner_csr(ends, t, K10_SEG_LEN)
     if csr.nbr.shape[0] != 2 * m or csr.n != t:
         raise ValueError("csr is not the CSR of these pairs' ends")
-    s = 2 * wt
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    pad = 1 if m < block else 0
-    words = max(1, -(-max_iters // 64))
-    staged = torch.empty((2 * m, s), **f32)
-    slots = torch.empty((m, s), **i32)
-    masks = torch.empty((m + pad, words), dtype=torch.int64, device=dev)
-    stop = torch.empty(m + pad, **i32)
-    block_rounds = torch.empty(1, **i32)
-    rounds = torch.empty(m, **i32)
+    ws = SparseWorkspace(dev) if workspace is None else workspace
+    if ws.device != dev:
+        raise ValueError(f"the workspace is on {ws.device}, not {dev}")
     n_hubs, n_segs = csr.hub_node.shape[0], csr.seg_node.shape[0]
-    seg_partial = torch.empty((n_segs, k), **f32)
-    lam_partial = torch.empty((max(1, -(-m // LAM_CHUNK)), 2 * k), **f32)
-    sums = torch.empty(2 * k, **f32)
-    gacc = torch.empty((t, k), **f32)
-    scratch = build.scratch("svt_sparse_fastamm_scratch", wt, dev,
-                            torch.float32)
+    chunks = -(-m // LAM_CHUNK)
+    # the pairs' records (16W floats each), the hub segments' rows,
+    # lambda_hat's chunk rows (more than one chunk), the card's part
+    # (csrc/sparse_fastamm.cu)
+    words = ((m + 1) * 16 * wt + n_segs * k
+             + (chunks * 2 * k if chunks > 1 else 0)
+             + _device_words(wt, dev))
+    work = ws.take("work", words, torch.float32)
+    gacc = ws.take("gacc", t * k, torch.float32).view(t, k)
+    sums = ws.take("sums", 2 * k, torch.float32)
+    rounds = ws.take("rounds", m, torch.int32)
     build.launch("svt_sparse_fastamm", dev, ids.data_ptr(), vals.data_ptr(),
                  rest.data_ptr(), elogbeta.data_ptr(), pairs.data_ptr(),
-                 y.data_ptr(), w.data_ptr(), staged.data_ptr(),
-                 slots.data_ptr(), masks.data_ptr(), stop.data_ptr(),
-                 block_rounds.data_ptr(), rounds.data_ptr(),
-                 *(a.data_ptr() for a in csr.tensors()),
-                 seg_partial.data_ptr(), lam_partial.data_ptr(),
-                 sums.data_ptr(), gacc.data_ptr(), m, t, n_hubs, n_segs, k,
-                 wt, csr.seg_len, int(max_iters), float(log_eps),
-                 float(thresh), int(block), LAM_CHUNK,
-                 None if scratch is None else scratch.data_ptr())
+                 y.data_ptr(), w.data_ptr(),
+                 *(a.data_ptr() for a in csr.tensors()), work.data_ptr(),
+                 words, gacc.data_ptr(), sums.data_ptr(), rounds.data_ptr(),
+                 m, t, n_hubs, n_segs, k, wt, csr.seg_len, int(max_iters),
+                 float(log_eps), float(thresh), int(block))
     build.count_launch(sparse_fastamm_stats,
                        "wide" if wt > NARROW_MAX_W else "f32")
     return gacc, sums.view(2, k).t(), rounds
@@ -245,18 +285,20 @@ def sparse_fastamm_step(ids, vals, rest, lam, pairs, y, w, lp, lq, rows,
                         rho, alpha: float, eta, scale, rhot,
                         do_lambda: float, log_eps: float, k: int,
                         max_iters: int, thresh: float, block: int,
-                        csr: Optional[Adjacency] = None):
+                        csr: Optional[Adjacency] = None,
+                        workspace: Optional[SparseWorkspace] = None):
     """One FastAMM step on the sparse state, in place
     (svinet_tpu/ops/sparse_gamma.py:133-187): kernel 10's sums over the
     touched rows (rows (t,) int64, distinct nodes; lp and lq index them),
     then each row takes (1 - rho) gamma + rho (alpha + scale gamma_hat) in
     dense K space, is cut to its top W, and goes back into ids, vals and
     rest; lambda steps unless do_lambda is 0. rho is (t,); scale and rhot
-    are () f32 tensors. Returns lambda."""
+    are () f32 tensors; `workspace` is kernel 10's, kept across steps.
+    Returns lambda."""
     elogbeta = dirichlet_expectation(lam)
     gacc, lacc, _ = sparse_fastamm_stats(
         ids, vals, rest, elogbeta, pairs, y, w, lp, lq, rows.shape[0],
-        log_eps, max_iters, thresh, block, csr)
+        log_eps, max_iters, thresh, block, csr, workspace)
     wt = ids.shape[1]
     old = densify(ids[rows], vals[rows], rest[rows], k)
     r = rho[:, None]

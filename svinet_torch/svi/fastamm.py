@@ -38,12 +38,12 @@ from svinet_torch.config import Config
 from svinet_torch.evals.likelihood import HeldoutResult
 from svinet_torch.graph import Network
 from svinet_torch.io.writers import write_communities
-from svinet_torch.ops.edges import Adjacency, owner_csr
+from svinet_torch.ops.edges import SEG_LEN, Adjacency, owner_csr
 from svinet_torch.ops.expectations import dirichlet_expectation
 from svinet_torch.ops.phicomp import NodeUpdate, phi_fixed_point
 from svinet_torch.ops.sparse_gamma import (
-    densify, sparse_edge_assignments, sparse_fastamm_step,
-    sparse_pair_scores)
+    K10_SEG_LEN, SparseWorkspace, densify, sparse_edge_assignments,
+    sparse_fastamm_step, sparse_pair_scores)
 from svinet_torch.svi.base import EngineBase
 from svinet_torch.svi.mmsb import init_gamma_random
 from svinet_torch.svi.sampling import nonlink_accept, ring_nonlink_scan
@@ -111,10 +111,11 @@ class Step(NamedTuple):
     lq: torch.Tensor
 
 
-def to_device(batches, device) -> list:
+def to_device(batches, device, seg_len: int = SEG_LEN) -> list:
     """Steps of `batches` on `device`: every array of the interval packed
     into one buffer a dtype, copied once, and cut into views (each step's
-    endpoint CSR made on the host), so that a step copies nothing."""
+    endpoint CSR made on the host, its rows cut into segments of seg_len
+    entries), so that a step copies nothing."""
     parts = {np.int64: [], np.int32: [], np.float32: []}
     at = {dt: 0 for dt in parts}
     spans = []
@@ -126,7 +127,7 @@ def to_device(batches, device) -> list:
         return at[dt] - len(a), len(a)
 
     for b in batches:
-        csr = owner_csr(torch.from_numpy(b.ends), len(b.rows))
+        csr = owner_csr(torch.from_numpy(b.ends), len(b.rows), seg_len)
         spans.append((put(b.rows, np.int64), put(b.pairs, np.int32),
                       put(b.y, np.int32), put(b.w, np.float32),
                       put(b.rho, np.float32),
@@ -250,6 +251,8 @@ class FastAMM(EngineBase):
             self.vals = torch.as_tensor(vals, device=device)
             self.rest = torch.as_tensor(rest, device=device)
             self.gamma = None
+            # kernel 10's outputs and scratch, kept across the steps
+            self._k10 = SparseWorkspace(device)
             cfg.plog("fastqueue width", self._W)
         else:
             self.gamma = torch.as_tensor(init_gamma_random(self.rng, n, k),
@@ -350,14 +353,15 @@ class FastAMM(EngineBase):
         cfg = self.cfg
         batches = [self._prepare(self.iteration + b) for b in range(count)]
         dl = 0.0 if cfg.nolambda else 1.0
-        for st in to_device(batches, self.device):
+        seg_len = K10_SEG_LEN if self._W else SEG_LEN
+        for st in to_device(batches, self.device, seg_len):
             if self._W:
                 self.lam = sparse_fastamm_step(
                     self.ids, self.vals, self.rest, self.lam, st.pairs, st.y,
                     st.w, st.lp, st.lq, st.rows, st.rho, self.alpha,
                     self.eta, st.scale, st.rhot, dl, self.log_eps, self.k,
                     cfg.online_iterations, cfg.meanchangethresh, self._pad,
-                    st.csr)
+                    st.csr, self._k10)
             else:
                 self.lam = fastamm_step(
                     self.gamma, self.lam, st.rows, st.pairs, st.y, st.w,

@@ -117,12 +117,12 @@ def test_slot_helpers_match_jax():
                                        jnp.asarray(slots))), rtol=1e-6)
 
 
-def _jax_fp(ids, vals, rest, elogbeta, p, q, y, max_iters):
+def _jax_fp(ids, vals, rest, elogbeta, p, q, y, max_iters, thresh=1e-5):
     return [np.asarray(a) for a in jsg.sparse_phi_fixed_point(
         jnp.asarray(ids[p]), jnp.asarray(vals[p]), jnp.asarray(rest[p]),
         jnp.asarray(ids[q]), jnp.asarray(vals[q]), jnp.asarray(rest[q]),
         jnp.asarray(elogbeta), jnp.asarray(y), LOG_EPS, K, max_iters,
-        1e-5)]
+        thresh)]
 
 
 @pytest.mark.parametrize("seed,links", [(2, 0.0), (3, 0.0), (2, 0.4)])
@@ -236,20 +236,26 @@ def test_dense_step_matches_jax(m, pad, with_zero):
     np.testing.assert_array_equal(g_t.numpy()[untouched], gamma[untouched])
 
 
-@pytest.mark.parametrize("m,pad", [(30, 64), (0, 64)])
-def test_sparse_step_matches_jax(m, pad):
+@pytest.mark.parametrize("m,pad,n,k,w", [
+    (30, 64, N, K, W), (0, 64, N, K, W), (64, 64, N, K, W),
+    (300, 512, 400, K, W), (30, 64, N, 160, 96)],
+    ids=["30-64", "0-64", "full", "hub", "wide"])
+def test_sparse_step_matches_jax(m, pad, n, k, w):
     """Kernel 10's plain version and the update after it: ids, vals, rest
-    and lambda after one step."""
-    ids, vals, rest, lam = _state(6)
-    eta = np.ones((K, 2), np.float32)
+    and lambda after one step. Also a full block (m = pad, no padding
+    pair), a start row of more entries than ops/edges.py's SEG_LEN (256:
+    the card cuts it into segments) and a width past the narrow form (W =
+    96; the card's kernel takes it in registers up to 128)."""
+    ids, vals, rest, lam = _state(6, n, k, w)
+    eta = np.ones((k, 2), np.float32)
     (pp, yy, ww, touched, rho), (rows, rho_r, local, pairs, y) = _batch(
-        7, N, m, pad)
+        7, n, m, pad)
     lp, lq = jfastamm.FastAMM._local_idx(None, pp, touched)
     out_j = jsg.sparse_fastamm_step(
         *(jnp.asarray(a) for a in (ids, vals, rest, lam, pp, yy, ww, lp, lq,
                                    touched, rho)),
-        jnp.float32(0.05), jnp.asarray(eta), jnp.float32(N / 2.0),
-        jnp.float32(0.3), jnp.float32(1.0), jnp.float32(LOG_EPS), k=K,
+        jnp.float32(0.05), jnp.asarray(eta), jnp.float32(n / 2.0),
+        jnp.float32(0.3), jnp.float32(1.0), jnp.float32(LOG_EPS), k=k,
         max_iters=50)
     st = [torch.tensor(a) for a in (ids, vals, rest)]
     lam_t = sg.sparse_fastamm_step(
@@ -257,13 +263,123 @@ def test_sparse_step_matches_jax(m, pad):
         torch.ones(len(y)), *(torch.as_tensor(local[:, i].astype(np.int32))
                               for i in (0, 1)),
         torch.as_tensor(rows), torch.as_tensor(rho_r), 0.05,
-        torch.tensor(eta), torch.tensor(np.float32(N / 2.0)),
-        torch.tensor(np.float32(0.3)), 1.0, LOG_EPS, K, 50, 1e-5, pad)
+        torch.tensor(eta), torch.tensor(np.float32(n / 2.0)),
+        torch.tensor(np.float32(0.3)), 1.0, LOG_EPS, k, 50, 1e-5, pad)
     ids_j, vals_j, rest_j, lam_j = (np.asarray(a) for a in out_j)
     np.testing.assert_array_equal(st[0].numpy(), ids_j)
     np.testing.assert_allclose(st[1].numpy(), vals_j, **TOL)
     np.testing.assert_allclose(st[2].numpy(), rest_j, **TOL)
     np.testing.assert_allclose(lam_t.numpy(), lam_j, **TOL)
+
+
+# chip_smoke.py's FP_TOL: kernel 10's sums against its plain version, of
+# the largest entry
+FP_TOL = 1e-4
+SIGHT_THRESH = 1e-3
+
+
+def _sight_batch(seed=8, m=40, pad=64):
+    """40 disjoint nonlink pairs of the test state, padded to 64 as the JAX
+    engine pads them, each pair end its own row (so that a pair's phis show
+    in gamma_hat undiluted), at a threshold where a pair's last rounds
+    still move its phis by more than TOL (chip_smoke.py's K10_SIGHT on the
+    card)."""
+    ids, vals, rest, lam = _state(seed)
+    rng = np.random.default_rng(seed)
+    nodes = rng.permutation(N)[:2 * m]
+    pairs = np.sort(nodes.reshape(m, 2), 1).astype(np.int32)
+    pp = np.zeros((pad, 2), np.int32)
+    pp[:m] = pairs
+    from scipy.special import digamma
+    elogbeta = (digamma(lam) - digamma(lam.sum(1, keepdims=True))
+                ).astype(np.float32)
+    return ids, vals, rest, elogbeta, pairs, pp
+
+
+def _close_to_max(got, want):
+    """max |got - want| over the largest |want| (chip_smoke.py's)."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def test_exit_round_in_sight():
+    """The block's R shows in the phis at this state: the port's plain
+    fixed point holds JAX's while loop's phis within TOL at its R, and
+    parts from them by more than TOL stopped one round early or run one
+    round past R, so that a test at TOL sees R."""
+    ids, vals, rest, elogbeta, _, pp = _sight_batch()
+    p, q = pp[:, 0], pp[:, 1]
+    yy = np.zeros(len(pp), np.int32)
+    ends = _t(ids[p], vals[p], rest[p], ids[q], vals[q], rest[q], elogbeta,
+              yy)
+    _, _, p1, p2, r = sg.sparse_phi_fixed_point(*ends, LOG_EPS, K, 50,
+                                                SIGHT_THRESH)
+    _, _, j1, j2 = _jax_fp(ids, vals, rest, elogbeta, p, q, yy, 50,
+                           SIGHT_THRESH)
+    assert r >= 2
+    np.testing.assert_allclose(p1.numpy(), j1, **TOL)
+    np.testing.assert_allclose(p2.numpy(), j2, **TOL)
+    for rounds, thresh in ((r - 1, SIGHT_THRESH), (r + 1, -1.0)):
+        _, _, a1, a2, got = sg.sparse_phi_fixed_point(*ends, LOG_EPS, K,
+                                                      rounds, thresh)
+        assert got == rounds
+        assert not (np.allclose(a1.numpy(), j1, **TOL)
+                    and np.allclose(a2.numpy(), j2, **TOL)), rounds
+
+
+def test_per_pair_exit_in_sight():
+    """A fault the card's check must see: the sums with each pair stopping
+    at its own first round below thresh (every pair run alone, a block of
+    one) part from JAX's sums, the whole minibatch one block of the exit
+    rule, by more than FP_TOL of their largest entry, while the port's
+    plain version holds them within it."""
+    ids, vals, rest, elogbeta, pairs, pp = _sight_batch()
+    m = len(pairs)
+    y = np.zeros(m, np.int32)
+    w = np.ones(m, np.float32)
+    lp = np.arange(0, 2 * m, 2, dtype=np.int32)
+    lq = lp + 1
+    # JAX's sums from its phis (svinet_tpu/ops/sparse_gamma.py:153-166)
+    p, q = pp[:, 0], pp[:, 1]
+    yy = np.zeros(len(pp), np.int32)
+    js, jf, j1, j2 = _jax_fp(ids, vals, rest, elogbeta, p, q, yy, 50,
+                             SIGHT_THRESH)
+    wc = jf[:m] * 1.0
+    g_j = np.zeros((2 * m, K))
+    lam_j = np.zeros((K, 2))
+    for i in range(m):
+        np.add.at(g_j[lp[i]], js[i], j1[i] * wc[i])
+        np.add.at(g_j[lq[i]], js[i], j2[i] * wc[i])
+        np.add.at(lam_j[:, 1], js[i], j1[i] * j2[i] * wc[i])
+    args = _t(ids, vals, rest, elogbeta)
+    g, lam, _ = sg.sparse_fastamm_stats_plain(
+        *args, *_t(pairs, y, w, lp, lq), 2 * m, LOG_EPS, 50, SIGHT_THRESH,
+        len(pp))
+    assert _close_to_max(g.numpy(), g_j) <= FP_TOL
+    assert _close_to_max(lam.numpy(), lam_j) <= FP_TOL
+    g_f, lam_f = torch.zeros_like(g), torch.zeros_like(lam)
+    for i in range(m):
+        gi, li, _ = sg.sparse_fastamm_stats_plain(
+            *args, *_t(pairs[i:i + 1], y[i:i + 1], w[i:i + 1],
+                       lp[i:i + 1], lq[i:i + 1]), 2 * m, LOG_EPS, 50,
+            SIGHT_THRESH, 1)
+        g_f += gi
+        lam_f += li
+    assert max(_close_to_max(g_f.numpy(), g_j),
+               _close_to_max(lam_f.numpy(), lam_j)) > FP_TOL
+
+
+def test_workspace_only_grows():
+    """Kernel 10's workspace hands out views of buffers that grow, by a
+    quarter at least, only when a call asks for more, so that a step of
+    sizes seen before allocates nothing."""
+    ws = sg.SparseWorkspace("cpu")
+    a = ws.take("work", 100, torch.float32)
+    assert a.shape == (100,)
+    assert ws.take("work", 60, torch.float32).data_ptr() == a.data_ptr()
+    b = ws.take("work", 101, torch.float32)
+    assert b.shape == (101,) and b.data_ptr() != a.data_ptr()
+    assert ws.take("work", 125, torch.float32).data_ptr() == b.data_ptr()
+    assert ws.take("rounds", 0, torch.int32).dtype == torch.int32
 
 
 def test_node_rates_follow_the_jax_loop():
