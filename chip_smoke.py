@@ -58,7 +58,11 @@ FastAMM's kernels to their plain versions with the same rounds and two
 launches bitwise equal (kernel 8's FastAMM form, a rho a row and the
 whole padded minibatch one block; kernel 10, the union-slot fixed point
 on the top-W state; kernel 11's held-out scores and edge assignments, the
-latter on stretch's 20M links), drives `-preprocess`, `-infset` and
+latter on stretch's 20M links, a third launch into the first's workspace
+allocating nothing, on K11_TIES' states, whose links tie exactly,
+the plain version's community on every link where a last-slot argmax
+parts from it, and on K11_NAN's, whose phis are NaN, the first slot's),
+drives `-preprocess`, `-infset` and
 `-infset -k 100 -fastqueue 8` on planted-20k held to the CPU port's rows
 (`python3 chip_smoke.py --record-cpu famm`), cuts the dense run and
 resumes it, and times both steps on stretch-shaped states (`--phase6`
@@ -4313,20 +4317,42 @@ K10_PROFILE_TRIES = 3
 SPARSE_WIDE = (1_000_000, 8_000, 128)
 # kernel 11's scores form: (n, K, W, held-out pairs); its assignments form
 # on stretch's links: (n, K, W, links), all of them at SPARSE_STRETCH (the
-# kernels line's row), the first 2M at K=8,000 (the main path's shape,
-# planted-20k's links at K=100, W=8, is the -fastqueue CLI run's own)
+# kernels line's row), the first 2M or 2^18 at K=8,000 (the main path's
+# shape, planted-20k's links at K=100, W=8, is the -fastqueue CLI run's
+# own). W = 12 leaves lanes of its pair's group idle, W = 40 takes three
+# slot registers a lane; at (20k, 17), W=16, K - W = 1 (random links of
+# n = 20k there)
 SCORE_SHAPES = ((20_000, 100, 8, 4_000), (1_000_000, 500, 16, 400_000),
                 (1_000_000, 8_000, 16, 400_000),
+                (1_000_000, 8_000, 12, 1 << 18),
+                (1_000_000, 8_000, 40, 1 << 18),
                 (1_000_000, 8_000, 64, 100_000),
+                (20_000, 17, 16, 1 << 18),
                 (1_000_000, 8_000, 96, 20_000),
                 (1_000_000, 8_000, 128, 20_000),
                 (20_000, 4_000, 2_100, 100))
 SPARSE_STRETCH = (1_000_000, 500, 16)
 ASSIGN_SHAPES = ((*SPARSE_STRETCH, STRETCH["n_edges"]),
                  (1_000_000, 8_000, 16, 1 << 21),
+                 (1_000_000, 8_000, 12, 1 << 18),
+                 (1_000_000, 8_000, 40, 1 << 18),
                  (1_000_000, 8_000, 64, 1 << 21),
+                 (20_000, 17, 16, 1 << 18),
                  (1_000_000, 8_000, 96, 1 << 18),
                  (1_000_000, 8_000, 128, 1 << 18))
+# K11_TIES: (K, W, tied links, self links) of synth.tied_topw_state's
+# states, whose two largest phis are equal to the bit: the card names the
+# plain version's community on every link (the first slot's), and the
+# plain version with a last-slot argmax names the other on every link
+K11_TIES = ((96, 8, 8_192, 2_048), (96, 12, 8_192, 2_048),
+            (96, 40, 4_096, 1_024), (130, 64, 4_096, 1_024))
+K11_TIES_SEED = 20
+# K11_NAN: (K, W, links, rows) of synth.nan_topw_state's states, disjoint
+# rows of rest 0 whose phis are all NaN: the card names each link's first
+# slot, as the plain version does, where no slot's phi equals the largest
+# (rows = 2 links: the node pass; more: each pair its own digammas)
+K11_NAN = ((96, 8, 512, 1_024), (96, 12, 512, 4_096), (96, 40, 512, 1_024),
+           (160, 64, 512, 4_096), (260, 96, 512, 1_024))
 # an assignment on the card may name another community than the plain
 # version only where the plain phi of its slot is this close to the
 # largest (the card's digamma and exp differ from torch's in the last
@@ -4402,8 +4428,8 @@ def _keep_assignments():
     orig = famm.sparse_edge_assignments
     last = {}
 
-    def kept(ids, vals, rest, lam, edges, k):
-        cid, mx = orig(ids, vals, rest, lam, edges, k)
+    def kept(ids, vals, rest, lam, edges, k, workspace=None):
+        cid, mx = orig(ids, vals, rest, lam, edges, k, workspace)
         last.update(args=tuple(a.clone() for a in (ids, vals, rest, lam,
                                                    edges)),
                     k=k, got=(cid.clone(), mx.clone()))
@@ -4958,10 +4984,14 @@ def phase6_sparse(dev):
     return report, reports_wide
 
 
-def score_bound(n_pairs, w, out_bytes):
-    """Kernel 11's bound: each pair's two rows of W ids and values and a
-    rest, the pair, and its outputs, at the memory rate."""
-    n_bytes = n_pairs * (2 * (8.0 * w + 4) + 8.0 + out_bytes)
+def score_bound(pairs, w, k, out_bytes):
+    """Kernel 11's bound: the rows the pairs name read once (W ids and
+    values and a rest each), the K values of its table it needs (beta, or
+    Elogbeta's first column), each pair read and its outputs written
+    once, at the memory rate."""
+    m = pairs.shape[0]
+    rows = int(torch.unique(pairs).numel()) if m else 0
+    n_bytes = rows * (8.0 * w + 4) + 4.0 * k + m * (8.0 + out_bytes)
     return n_bytes / PEAK_BYTES_S * 1e3, "bytes"
 
 
@@ -4973,16 +5003,12 @@ def score_floor_ms(n_pairs, w, out_bytes):
     return n_pairs * (2 * sec + 8.0 + out_bytes) / PEAK_BYTES_S * 1e3
 
 
-def _assign_ties(ids, vals, rest, lam, edges, k, cid_k, cid_p, mx_p):
-    """Links whose community differs between the card and the plain
-    version: the plain phi of the card's community must lie within
-    ASSIGN_TIE of the plain largest. Returns how many differ."""
+def _plain_phi(ids, vals, rest, lam, edges, k):
+    """The plain assignments' union slots and phis of the given links
+    (edges (E, 2)): (slots (E, 2W), phi (E, 2W))."""
     from svinet_torch.ops.digamma import dirichlet_expectation_plain
     from svinet_torch.ops.sparse_gamma import DEAD, _dup_mask, _value_at_slots
-    bad = torch.nonzero(cid_k != cid_p).flatten()
-    if not bad.numel():
-        return 0
-    e = edges[bad].long()
+    e = edges.long()
     p, q = e[:, 0], e[:, 1]
     wt = ids.shape[1]
     slots = torch.cat([ids[p], ids[q]], 1)
@@ -4993,22 +5019,113 @@ def _assign_ties(ids, vals, rest, lam, edges, k, cid_k, cid_p, mx_p):
     eb = dirichlet_expectation_plain(lam)
     d = torch.special.digamma
     x = d(gp) - d(tp)[:, None] + d(gq) - d(tq)[:, None] + eb[slots.long(), 0]
-    phi = torch.softmax(torch.where(first, x, DEAD), -1)
-    at = ((slots == cid_k[bad][:, None]) & first).float().argmax(-1)
+    return slots, torch.softmax(torch.where(first, x, DEAD), -1)
+
+
+def _assign_ties(ids, vals, rest, lam, edges, k, cid_k, cid_p, mx_p):
+    """Links whose community differs between the card and the plain
+    version: the plain phi of the card's community must lie within
+    ASSIGN_TIE of the plain largest. Returns how many differ."""
+    from svinet_torch.ops.sparse_gamma import _dup_mask
+    bad = torch.nonzero(cid_k != cid_p).flatten()
+    if not bad.numel():
+        return 0
+    slots, phi = _plain_phi(ids, vals, rest, lam, edges[bad], k)
+    at = ((slots == cid_k[bad][:, None]) & _dup_mask(slots)).float().argmax(-1)
     got = phi.gather(1, at[:, None])[:, 0]
     assert bool(((mx_p[bad] - got) <= ASSIGN_TIE).all()), (
         float((mx_p[bad] - got).max()))
     return int(bad.numel())
 
 
+def _no_alloc(dev, fn, want):
+    """fn() into a grown workspace: no allocation, and outputs equal to
+    want."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    got = fn()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def phase6_ties(dev):
+    """Kernel 11's assignments on K11_TIES' states (synth.tied_topw_state):
+    every link's community exactly the plain version's, no ASSIGN_TIE
+    slack, its phi within FP_TOL; the plain version with a last-slot
+    argmax parts from the card on every link, so that this check sees the
+    first-slot rule."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.sparse_gamma import (
+        _union_scores_plain, sparse_edge_assignments)
+    from svinet_torch.synth import tied_topw_state
+    for k, wt, n_tied, n_self in K11_TIES:
+        ids, vals, rest, lam, links = (
+            torch.as_tensor(a, device=dev) for a in
+            tied_topw_state(K11_TIES_SEED, k, wt, n_tied, n_self))
+        c_k, m_k = sparse_edge_assignments(ids, vals, rest, lam, links, k)
+        c_p, m_p = _union_scores_plain(ids, vals, rest,
+                                       dirichlet_expectation(lam), links, k,
+                                       True)
+        torch.cuda.synchronize()
+        assert torch.equal(c_k, c_p), (k, wt, int((c_k != c_p).sum()))
+        err = float(((m_k - m_p).abs() / m_p.abs()).max())
+        assert err <= FP_TOL, (k, wt, err)
+        slots, phi = _plain_phi(ids, vals, rest, lam, links, k)
+        last = 2 * wt - 1 - phi.flip(-1).argmax(-1)
+        c_last = slots.gather(1, last[:, None])[:, 0]
+        parts = int((c_last != c_k).sum())
+        assert parts == links.shape[0], (k, wt, parts)
+        log(f"phase 6: union_scores (assignments) on K11_TIES' state at "
+            f"K={k} W={wt}, {n_tied} tied links and {n_self} self links: "
+            f"every community the plain version's, largest phi within "
+            f"{err:.3e}; the plain version with a last-slot argmax parts "
+            f"from the card on {parts} of {links.shape[0]} links")
+
+
+def phase6_nan(dev):
+    """Kernel 11's assignments on K11_NAN's states (synth.nan_topw_state),
+    into a workspace that a state of finite phis filled first: every
+    link's community the plain version's (its first slot's), its phi NaN
+    as the plain version's."""
+    from svinet_torch.ops.digamma import dirichlet_expectation
+    from svinet_torch.ops.sparse_gamma import (
+        SparseWorkspace, _union_scores_plain, sparse_edge_assignments)
+    from svinet_torch.synth import nan_topw_state
+    for k, wt, n_links, n_rows in K11_NAN:
+        ids, vals, rest, lam, links = (
+            torch.as_tensor(a, device=dev) for a in
+            nan_topw_state(K11_TIES_SEED, k, wt, n_links, n_rows))
+        ws = SparseWorkspace(dev)
+        # the workspace's outputs hold another state's communities first
+        sparse_edge_assignments(ids, vals, rest + 1.0, lam, links, k, ws)
+        c_k, m_k = sparse_edge_assignments(ids, vals, rest, lam, links, k,
+                                           ws)
+        c_p, m_p = _union_scores_plain(ids, vals, rest,
+                                       dirichlet_expectation(lam), links, k,
+                                       True)
+        torch.cuda.synchronize()
+        assert bool(m_p.isnan().all()), (k, wt)
+        assert torch.equal(c_p, ids[links[:, 0].long(), 0]), (k, wt)
+        assert torch.equal(c_k, c_p), (k, wt, int((c_k != c_p).sum()))
+        assert bool(m_k.isnan().all()), (k, wt, int((~m_k.isnan()).sum()))
+        log(f"phase 6: union_scores (assignments) on K11_NAN's state at "
+            f"K={k} W={wt}, {n_links} links on {n_rows} rows: every phi "
+            f"NaN and every community the first slot's, as the plain "
+            f"version's")
+
+
 def phase6_scores(dev):
     """Kernel 11 in both forms against its plain version: the scores of
     held-out pairs at SCORE_SHAPES, the assignments of stretch's links at
     ASSIGN_SHAPES (1e-4; a community apart only within ASSIGN_TIE), two
-    launches bitwise equal. Returns the reports of the scores at n=1M,
-    K=8,000, W=16 and of the assignments."""
+    launches bitwise equal, a third into the first's workspace equal too
+    and allocating nothing; then the exact ties of K11_TIES and the NaN
+    phis of K11_NAN. Returns the reports of the scores at n=1M, K=8,000,
+    W=16 and of the assignments."""
     from svinet_torch.ops.sparse_gamma import (
-        _union_scores_plain, sparse_edge_assignments, sparse_pair_scores)
+        SparseWorkspace, _union_scores_plain, sparse_edge_assignments,
+        sparse_pair_scores, union_scores)
     from svinet_torch.ops.digamma import dirichlet_expectation
     from svinet_torch.synth import random_edges
     gen = torch.Generator(device=dev)
@@ -5020,18 +5137,21 @@ def phase6_scores(dev):
         pairs = torch.randint(0, n, (m, 2), generator=gen,
                               device=dev).to(torch.int32)
         beta = (lam[:, 0] / (lam[:, 0] + lam[:, 1])).contiguous()
+        ws = SparseWorkspace(dev)
 
-        def run():
-            return sparse_pair_scores(ids, vals, rest, lam, pairs, k)
+        def run(into=ws):
+            return sparse_pair_scores(ids, vals, rest, lam, pairs, k, into)
 
         def plain():
             return _union_scores_plain(ids, vals, rest, beta, pairs, k,
                                        False)
 
-        a_k, b_k = run()
-        a_2, b_2 = run()
+        a_k, b_k = (t.clone() for t in run())
+        a_2, b_2 = run(SparseWorkspace(dev))
         torch.cuda.synchronize()
         assert torch.equal(a_k, a_2) and torch.equal(b_k, b_2)
+        _no_alloc(dev, lambda: union_scores(ids, vals, rest, beta, pairs, k,
+                                            False, ws), (a_k, b_k))
         a_p, b_p = plain()
         err = max(_rel_err(a_k, a_p), _rel_err(b_k, b_p),
                   float(((a_k - a_p).abs() / a_p.abs()).max()),
@@ -5039,12 +5159,13 @@ def phase6_scores(dev):
         assert err <= FP_TOL, (n, k, wt, m, err)
         ms = cuda_ms(run, 20)
         plain_ms = cuda_ms(plain, 3)
-        bnd = score_bound(m, wt, 8)
+        bnd = score_bound(pairs, wt, k, 8)
         floor = score_floor_ms(m, wt, 8)
         log(f"phase 6: union_scores (scores) at n={n} K={k} W={wt}, {m} "
             f"pairs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bnd[0]:.4f} ms, floor {floor:.4f} ms; relative err "
-            f"{err:.3e}; two launches bitwise equal")
+            f"{err:.3e}; two launches bitwise equal, a third into the "
+            f"first's workspace equal too and allocating nothing")
         if (n, k, wt) == (1_000_000, 8_000, 16):
             reports["scores"] = dict(_report(err, ms, plain_ms, bnd),
                                      floor_ms=floor)
@@ -5058,7 +5179,7 @@ def phase6_scores(dev):
                         sparse_edge_assignments(ids, vals, rest, lam, none,
                                                 k)):
                 assert all(t.shape == (0,) for t in got), got
-        del ids, vals, rest
+        del ids, vals, rest, ws
         torch.cuda.empty_cache()
     all_edges = torch.as_tensor(random_edges(STRETCH["n"],
                                              STRETCH["n_edges"], 0),
@@ -5066,14 +5187,20 @@ def phase6_scores(dev):
     for n, k, wt, n_links in ASSIGN_SHAPES:
         ids, vals, rest = _sparse_state(dev, gen, n, k, wt)
         lam = 1.0 + 19.0 * torch.rand((k, 2), generator=gen, device=dev)
-        edges = all_edges[:n_links]
+        if n == STRETCH["n"]:
+            edges, which = all_edges[:n_links], "of stretch's links"
+        else:
+            edges = torch.as_tensor(random_edges(n, n_links, 0), device=dev)
+            which = "random links"
         e = edges.shape[0]
         # the plain version's chunk: its (links, 2W, W) match tensors
         # within a few GB
         chunk = (1 << 28) // (2 * wt * wt)
+        ws = SparseWorkspace(dev)
 
-        def run():
-            return sparse_edge_assignments(ids, vals, rest, lam, edges, k)
+        def run(into=ws):
+            return sparse_edge_assignments(ids, vals, rest, lam, edges, k,
+                                           into)
 
         def plain():
             eb = dirichlet_expectation(lam)
@@ -5085,10 +5212,13 @@ def phase6_scores(dev):
                 ms_.append(v)
             return torch.cat(cs), torch.cat(ms_)
 
-        c_k, m_k = run()
-        c_2, m_2 = run()
+        c_k, m_k = (t.clone() for t in run())
+        c_2, m_2 = run(SparseWorkspace(dev))
         torch.cuda.synchronize()
         assert torch.equal(c_k, c_2) and torch.equal(m_k, m_2)
+        elogbeta = dirichlet_expectation(lam)
+        _no_alloc(dev, lambda: union_scores(ids, vals, rest, elogbeta, edges,
+                                            k, True, ws), (c_k, m_k))
         c_p, m_p = plain()
         differ = _assign_ties(ids, vals, rest, lam, edges, k, c_k, c_p, m_p)
         same = c_k == c_p
@@ -5096,23 +5226,25 @@ def phase6_scores(dev):
         assert err <= FP_TOL, (n, k, wt, err)
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 1)
-        bnd = score_bound(e, wt, 8)
+        bnd = score_bound(edges, wt, k, 8)
         floor = score_floor_ms(e, wt, 8)
-        log(f"phase 6: union_scores (assignments) on {e} of stretch's links "
-            f"at n={n} K={k} W={wt}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (in chunks of {chunk} links), bound "
-            f"{bnd[0]:.3f} ms, floor {floor:.3f} ms ({floor / ms:.0%} of "
-            f"it); largest phi within {err:.3e}, {differ} links on another "
-            f"community within a tie of {ASSIGN_TIE:g}; two launches "
-            f"bitwise equal")
+        log(f"phase 6: union_scores (assignments) on {e} {which} at n={n} "
+            f"K={k} W={wt}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (in "
+            f"chunks of {chunk} links), bound {bnd[0]:.3f} ms, floor "
+            f"{floor:.3f} ms ({floor / ms:.0%} of it); largest phi within "
+            f"{err:.3e}, {differ} links on another community within a tie "
+            f"of {ASSIGN_TIE:g}; two launches bitwise equal, a third into "
+            f"the first's workspace equal too and allocating nothing")
         if (n, k, wt) == SPARSE_STRETCH:
             reports["assign"] = dict(_report(err, ms, plain_ms, bnd),
                                      floor_ms=floor)
         if (n, k, wt) == SPARSE_WIDE:
             reports["assign+wide"] = dict(_report(err, ms, plain_ms, bnd),
                                           floor_ms=floor)
-        del ids, vals, rest, c_k, c_2, c_p, m_k, m_2, m_p
+        del ids, vals, rest, c_k, c_2, c_p, m_k, m_2, m_p, ws
         torch.cuda.empty_cache()
+    phase6_ties(dev)
+    phase6_nan(dev)
     return reports
 
 
@@ -7212,6 +7344,8 @@ def main() -> int:
         ("sparse_fastamm_stats", "svinet_torch/csrc/sparse_fastamm.cu",
          "svinet_tpu/ops/sparse_gamma.py:74",
          p6_reports["sparse_fastamm_stats"]),
+        # kernel 11's launches count calls: each launches its pair pass,
+        # narrow assignments with 2E >= n a node pass before it
         ("union_scores:scores", "svinet_torch/csrc/sparse_scores.cu",
          "svinet_tpu/ops/sparse_gamma.py:213",
          p6_reports["union_scores:scores"]),

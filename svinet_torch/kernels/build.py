@@ -107,9 +107,9 @@ SIGNATURES = {
     # w, the workspace's floats on this card and where the regions sit (2
     # int64 out): no launch, no stream
     "svt_sparse_fastamm_scratch": (_I32, _P),
-    # ids, vals, rest, table, beta_sum, pairs, out0, out1, cid, pairs, k,
-    # w, form, wide scratch
-    "svt_sparse_scores": (_P,) * 9 + (_I64, _I32, _I32, _I32, _P, _P),
+    # ids, vals, rest, table, pairs, out0, out1, cid, node, wide scratch,
+    # n, pairs, k, w, form
+    "svt_sparse_scores": (_P,) * 10 + (_I64, _I64, _I32, _I32, _I32, _P),
     "svt_sparse_scores_scratch": (_I32, _P),
     # labels, rowptr, nbr, hub_node, hub_off, lab_scratch, key_scratch,
     # ids, cnt, n, n_hubs, width

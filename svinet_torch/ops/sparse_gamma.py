@@ -175,11 +175,12 @@ def sparse_fastamm_stats_plain(ids, vals, rest, elogbeta, pairs, y, w, lp,
 
 
 class SparseWorkspace:
-    """Kernel 10's outputs and scratch on one device, kept by a caller
-    across steps (the engine keeps one for its -fastqueue steps). Each
-    buffer only grows, so that a step allocates nothing once the buffers
-    have reached its sizes. The tensors a call returns are views of them,
-    overwritten by the next call given this workspace."""
+    """Kernel 10's or kernel 11's outputs and scratch on one device, kept
+    by a caller across calls (the engine keeps one for its -fastqueue
+    steps, one for its reports). Each buffer only grows, so that a call
+    allocates nothing once the buffers have reached its sizes. The tensors
+    a call returns are views of them, overwritten by the next call given
+    this workspace."""
 
     def __init__(self, device):
         dev = torch.device(device)
@@ -351,11 +352,24 @@ def _union_scores_plain(ids, vals, rest, table, pairs, k: int,
     return s_one, inner
 
 
-def union_scores(ids, vals, rest, table, pairs, k: int, assign: bool):
+@functools.lru_cache(maxsize=None)
+def _scores_scratch_words(w: int, device: torch.device) -> int:
+    """Floats of kernel 11's wide-form scratch on the card at width w (0
+    where its regions fit in shared memory), asked once a width and
+    card."""
+    return build.ask("svt_sparse_scores_scratch", device, w)[0]
+
+
+def union_scores(ids, vals, rest, table, pairs, k: int, assign: bool,
+                 workspace: Optional[SparseWorkspace] = None):
     """Kernel 11 (csrc/sparse_scores.cu) on CUDA tensors, the plain
     version on CPU tensors. assign=False: table is beta (K,), returns
     (s_one, inner) (B,); assign=True: table is Elogbeta (K, 2), returns
-    (community (B,) int32, its phi (B,)). One group of lanes a pair."""
+    (community (B,) int32, its phi (B,)). On the card its outputs, the
+    node pass's digammas and the wide form's scratch lie in `workspace`
+    (the returned tensors are views of it, good until its next call), a
+    new one when not given: a call into a grown workspace allocates
+    nothing."""
     if vals.device.type == "cpu":
         return _union_scores_plain(ids, vals, rest, table, pairs, k, assign)
     build.require_cuda(vals, "union_scores")
@@ -369,25 +383,29 @@ def union_scores(ids, vals, rest, table, pairs, k: int, assign: bool):
     build.check_cuda(table, "table", torch.float32,
                      (k, 2) if assign else (k,), dev)
     build.check_cuda(pairs, "pairs", torch.int32, (m, 2), dev)
-    out0 = torch.empty(m, dtype=torch.float32, device=dev)
-    if assign:
-        beta_sum, out1 = None, None
-        cid = torch.empty(m, dtype=torch.int32, device=dev)
-    else:
-        beta_sum = table.sum().reshape(1)
-        out1 = torch.empty(m, dtype=torch.float32, device=dev)
-        cid = None
-
-    scratch = build.scratch("svt_sparse_scores_scratch", wt, dev,
-                            torch.float32)
+    ws = SparseWorkspace(dev) if workspace is None else workspace
+    if ws.device != dev:
+        raise ValueError(f"the workspace is on {ws.device}, not {dev}")
+    out0 = ws.take("k11_out0", m, torch.float32)
+    out1 = None if assign else ws.take("k11_out1", m, torch.float32)
+    cid = ws.take("k11_cid", m, torch.int32) if assign else None
+    # the sum of beta, or the narrow node pass's (psi(tot), psi(tail)) a
+    # row and psi of its values
+    node = ws.take("k11_node", n * (wt + 2) if assign and
+                   wt <= NARROW_MAX_W else 1, torch.float32)
+    if not assign:
+        torch.sum(table, 0, out=node[0])
+    words = _scores_scratch_words(wt, dev)
+    scratch = ws.take("k11_scratch", words, torch.float32) if words else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     build.launch("svt_sparse_scores", dev, ids.data_ptr(), vals.data_ptr(),
-                 rest.data_ptr(), table.data_ptr(), ptr(beta_sum),
-                 pairs.data_ptr(), out0.data_ptr(), ptr(out1), ptr(cid), m,
-                 k, wt, int(assign), ptr(scratch))
+                 rest.data_ptr(), table.data_ptr(), pairs.data_ptr(),
+                 out0.data_ptr(), ptr(out1), ptr(cid), node.data_ptr(),
+                 ptr(scratch), n, m, k, wt, int(assign))
+    # one a call: the pair pass, after the node pass where it ran
     build.count_launch(union_scores, ("assign" if assign else "scores")
                        + ("+wide" if wt > NARROW_MAX_W else ""))
     return (cid, out0) if assign else (out0, out1)
@@ -397,24 +415,28 @@ union_scores.launches = 0
 union_scores.forms = {}
 
 
-def sparse_pair_scores(ids, vals, rest, lam, pairs, k: int):
+def sparse_pair_scores(ids, vals, rest, lam, pairs, k: int,
+                       workspace: Optional[SparseWorkspace] = None):
     """(s_one, inner) of each pair under the top-W and uniform-tail state
     (svinet_tpu/ops/sparse_gamma.py:212-243): sum_k pi_p pi_q beta_k and
     sum_k pi_p pi_q, exact over the union slots, the K - |union| others
-    at tail_p tail_q each."""
+    at tail_p tail_q each. `workspace`: union_scores'."""
     beta = lam[:, 0] / (lam[:, 0] + lam[:, 1])
     return union_scores(ids, vals, rest, beta.contiguous(), pairs, k,
-                        assign=False)
+                        assign=False, workspace=workspace)
 
 
-def sparse_edge_assignments(ids, vals, rest, lam, edges, k: int):
+def sparse_edge_assignments(ids, vals, rest, lam, edges, k: int,
+                            workspace: Optional[SparseWorkspace] = None):
     """(community (E,) int32, its phi (E,)) of each link: the first slot of
     the largest closed-form phi over its union slots
     (svinet_tpu/ops/sparse_gamma.py:246-270). The plain version takes the
-    links in chunks of ASSIGN_CHUNK, as the JAX engine does."""
+    links in chunks of ASSIGN_CHUNK, as the JAX engine does; the card one
+    launch (`workspace`: union_scores')."""
     elogbeta = dirichlet_expectation(lam)
     if vals.device.type != "cpu":
-        return union_scores(ids, vals, rest, elogbeta, edges, k, assign=True)
+        return union_scores(ids, vals, rest, elogbeta, edges, k, assign=True,
+                            workspace=workspace)
     cids, mx = [], []
     for lo in range(0, edges.shape[0], ASSIGN_CHUNK):
         c, v = _union_scores_plain(ids, vals, rest, elogbeta,

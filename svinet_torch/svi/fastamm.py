@@ -251,8 +251,10 @@ class FastAMM(EngineBase):
             self.vals = torch.as_tensor(vals, device=device)
             self.rest = torch.as_tensor(rest, device=device)
             self.gamma = None
-            # kernel 10's outputs and scratch, kept across the steps
+            # kernel 10's outputs and scratch, kept across the steps, and
+            # kernel 11's across the reports
             self._k10 = SparseWorkspace(device)
+            self._k11 = SparseWorkspace(device)
             cfg.plog("fastqueue width", self._W)
         else:
             self.gamma = torch.as_tensor(init_gamma_random(self.rng, n, k),
@@ -376,7 +378,8 @@ class FastAMM(EngineBase):
         if not self._W:
             return super()._heldout(pairs, y)
         s_one, inner = sparse_pair_scores(self.ids, self.vals, self.rest,
-                                           self.lam, pairs, self.k)
+                                           self.lam, pairs, self.k,
+                                           self._k11)
         s_one = s_one.cpu().numpy()
         inner = inner.cpu().numpy()
         eps = self.cfg.epsilon
@@ -402,7 +405,7 @@ class FastAMM(EngineBase):
         tl = self.network.training_links
         cids, mx = sparse_edge_assignments(
             self.ids, self.vals, self.rest, self.lam,
-            self._device_pairs(tl.astype(np.int32)), self.k)
+            self._device_pairs(tl.astype(np.int32)), self.k, self._k11)
         self._communities = link_communities(
             cfg.file_str, tl, cids.cpu().numpy(), mx.cpu().numpy(), self.k,
             cfg.link_thresh, cfg.lt_min_deg, self.network.seq2id)

@@ -157,22 +157,84 @@ def test_union_fixed_point_matches_jax(seed, links):
     assert not np.array_equal(before[2], j1)
 
 
-def test_pair_scores_and_assignments_match_jax():
-    ids, vals, rest, lam = _state(4)
+def _shared_rows(ids, vals, rng, rows):
+    """Rows r + N/2 for r in rows hold row r's communities in another
+    order at other values: a pair (r, r + N/2) shares every community."""
+    for r in rows:
+        perm = rng.permutation(ids.shape[1])
+        ids[r + N // 2] = ids[r][perm]
+        vals[r + N // 2] = vals[r][perm] * 0.5 + 0.1
+
+
+@pytest.mark.parametrize("k,w", [(12, 4), (17, 16), (40, 12), (64, 16),
+                                 (80, 17), (160, 64)])
+def test_pair_scores_and_assignments_match_jax(k, w):
+    """Kernel 11's plain versions at widths of one slot register a lane
+    and idle lanes (4, 12, 16), K - W = 1 (17, 16), two and four
+    registers (17, 64), with pairs (p, p) and pairs sharing every
+    community: the scores at 1e-5, the communities equal, their phis at
+    1e-4."""
+    ids, vals, rest, lam = (a.copy() for a in _state(4, N, k, w))
     rng = np.random.default_rng(4)
+    _shared_rows(ids, vals, rng, range(5, 15))
     pairs = rng.integers(0, N, size=(300, 2)).astype(np.int32)
     pairs[:5, 1] = pairs[:5, 0]
-    a = sg.sparse_pair_scores(*_t(ids, vals, rest, lam, pairs), K)
+    pairs[5:15] = np.stack([np.arange(5, 15), np.arange(5, 15) + N // 2], 1)
+    a = sg.sparse_pair_scores(*_t(ids, vals, rest, lam, pairs), k)
     b = jsg.sparse_pair_scores(*(jnp.asarray(x) for x in (ids, vals, rest,
                                                            lam, pairs)),
-                               k=K)
+                               k=k)
     for x, z in zip(a, b):
         np.testing.assert_allclose(x.numpy(), np.asarray(z), rtol=1e-5)
-    c, mx = sg.sparse_edge_assignments(*_t(ids, vals, rest, lam, pairs), K)
+    c, mx = sg.sparse_edge_assignments(*_t(ids, vals, rest, lam, pairs), k)
     jc, jm = jsg.sparse_edge_assignments(
-        *(jnp.asarray(x) for x in (ids, vals, rest, lam, pairs)), k=K)
+        *(jnp.asarray(x) for x in (ids, vals, rest, lam, pairs)), k=k)
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     np.testing.assert_allclose(mx.numpy(), np.asarray(jm), **TOL)
+
+
+@pytest.mark.parametrize("k,w", [(12, 4), (40, 12), (64, 16), (160, 64)])
+def test_tied_assignments_match_jax(k, w):
+    """synth.tied_topw_state: the plain version names JAX's community on
+    every link, and it is the first slot's of the tied two (the lower
+    place in p's row; both rows hold both at values of equal sums), so
+    that a last-slot argmax would name the other on every link."""
+    from svinet_torch.synth import tied_topw_state
+    ids, vals, rest, lam, links = tied_topw_state(3, k, w, 96, 32)
+    jargs = (jnp.asarray(x) for x in (ids, vals, rest, lam, links))
+    jc, jm = (np.asarray(x) for x in jsg.sparse_edge_assignments(*jargs,
+                                                                 k=k))
+    c, mx = sg.sparse_edge_assignments(*_t(ids, vals, rest, lam, links), k)
+    np.testing.assert_array_equal(c.numpy(), jc)
+    np.testing.assert_allclose(mx.numpy(), jm, **TOL)
+    p, q = links[:, 0], links[:, 1]
+    at_p = ids[p] == jc[:, None]
+    at_q = ids[q] == jc[:, None]
+    assert at_p.any(1).all() and at_q.any(1).all()
+    # the other tied community: in both rows too, later in p's row
+    pair = jc ^ 1
+    later = (ids[p] == pair[:, None]).argmax(1) > at_p.argmax(1)
+    assert later.all() and (ids[q] == pair[:, None]).any(1).all()
+    np.testing.assert_array_equal(vals[p][ids[p] == jc[:, None]] + vals[q][
+        ids[q] == jc[:, None]], vals[p][ids[p] == pair[:, None]]
+        + vals[q][ids[q] == pair[:, None]])
+
+
+@pytest.mark.parametrize("k,w,rows", [(12, 4, 64), (40, 12, 256),
+                                      (64, 16, 64), (160, 64, 256)])
+def test_nan_assignments_match_jax(k, w, rows):
+    """synth.nan_topw_state: disjoint rows of rest 0 give every link a NaN
+    softmax; the plain version names JAX's community, the link's first
+    slot, and its phi is NaN as JAX's."""
+    from svinet_torch.synth import nan_topw_state
+    ids, vals, rest, lam, links = nan_topw_state(5, k, w, 32, rows)
+    jargs = (jnp.asarray(x) for x in (ids, vals, rest, lam, links))
+    jc, jm = (np.asarray(x) for x in jsg.sparse_edge_assignments(*jargs,
+                                                                 k=k))
+    c, mx = sg.sparse_edge_assignments(*_t(ids, vals, rest, lam, links), k)
+    np.testing.assert_array_equal(c.numpy(), jc)
+    np.testing.assert_array_equal(jc, ids[links[:, 0], 0])
+    assert np.isnan(mx.numpy()).all() and np.isnan(jm).all()
 
 
 def _batch(seed, n, m, pad, with_zero=False):
